@@ -155,8 +155,7 @@ def test_refusals():
         vt.VBCOperator.from_csc(A)  # no implicit device
     op = vt.VBCOperator.from_csc(A, device="cpu")
     x = torch.zeros(A.shape[0])
-    for call in (lambda: op.tr_mul_chain(x, 2), lambda: op.tr_mul_mat(x[:, None]),
-                 lambda: op.mul_mat(x[:, None]),
+    for call in (lambda: op.tr_mul_chain(x, 2),
                  lambda: vt.VBC2DOperator.from_csc(A, 4, 8)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()

@@ -12,7 +12,8 @@ there:
 * ``ops``      — the hand-written CUDA kernels (``csrc/``) with their
   plain PyTorch versions;
 * ``native``   — ctypes bindings to the JAX package's C++ host paths;
-* ``operator`` — ``VBCOperator`` (``tr_mul``/``mul``).
+* ``operator`` — ``VBCOperator`` (``tr_mul``/``mul``, ``tr_mul_mat``/
+  ``mul_mat``).
 
 Importing this package loads no JAX.  Devices are never picked
 implicitly: every constructor that places tensors takes ``device``.
@@ -36,6 +37,7 @@ from .models.cost import (
 )
 from .operator import VBC2DOperator, VBCOperator, route_tr_spmv
 from .ops.gather import gather, gather_plain
+from .ops.spmm import tr_spmm, tr_spmm_plain
 from .ops.trspmv import tr_spmv, tr_spmv_plain
 from .plan.alternating import pack_stripe
 from .plan.chunkers import EquiChunker, OverlapChunker, StrictChunker

@@ -9,12 +9,16 @@ decision — then copies the packs to an explicit torch ``device``:
   kernel (``ops/trspmv.py``), alpha/beta fused into its store;
 * ``mul``: ``y = alpha * A @ x + beta * y``, the same kernel on the
   column-striped ``A.T`` (scatter-free);
+* ``tr_mul_mat``/``mul_mat``: ``Y = A.T @ X`` and ``Y = A @ X`` for a
+  dense RHS ``X [rows, k]``, through the stripe SpMM kernel
+  (``ops/spmm.py``) on the same two packs;
 * auto-RCM operators hold ``A[perm][:, perm]`` and gather x in and y
-  out at the boundaries (``ops/gather.py``).
+  out at the boundaries (``ops/gather.py``; ``index_select`` for the
+  rows of X and Y, as the JAX operator leaves those to XLA).
 
-The stripe kernel writes y in natural order, so nothing follows it on a
-natural operator.  f64, bool and int32 semirings, ``tr_mul_chain``,
-``tr_mul_mat``/``mul_mat`` and ``VBC2DOperator`` wait (ROADMAP.md).
+Both kernels write natural order, so nothing follows them on a natural
+operator.  f64, bool and int32 semirings, ``tr_mul_chain`` and
+``VBC2DOperator`` wait (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from .formats.csc import CSC
 from .formats.device import VBC1DDevice
 from .formats.vbc1d import VBC1D, pack_1dvbc
 from .ops.gather import gather
+from .ops.spmm import _check_mat, tr_spmm
 from .ops.trspmv import _check_vec, tr_spmv
 from .plan.alternating import pack_stripe
 from .plan.reorder import rcm_symmetric, window_badness
@@ -214,11 +219,26 @@ class VBCOperator:
     def tr_mul_chain(self, x, n_iters: int, alpha=None):
         raise NotImplementedError(f"tr_mul_chain {_WAITS} item 6")
 
+    def _apply_mat(self, fmt, X):
+        if self.row_perm is None:
+            return tr_spmm(fmt, X)
+        _check_mat("X", X, fmt.m, fmt.device)  # before the unchecked gather
+        out = tr_spmm(fmt, X.index_select(0, self.perm_t))
+        return out.index_select(0, self.inv_t)
+
     def tr_mul_mat(self, X):
-        raise NotImplementedError(f"tr_mul_mat {_WAITS} item 7")
+        """Y = A.T @ X for a dense RHS ``X [m, k]`` on the operator's
+        device (SpMM; reference ``mul!(Y, A', X)``)."""
+        if self.dev_tr is None:
+            raise ValueError("operator packed without the transposed direction")
+        return self._apply_mat(self.dev_tr, X)
 
     def mul_mat(self, X):
-        raise NotImplementedError(f"mul_mat {_WAITS} item 7")
+        """Y = A @ X for a dense RHS ``X [n, k]`` on the operator's device
+        (scatter-free: the SpMM kernel on the A.T pack)."""
+        if self.dev_fw is None:
+            raise ValueError("operator packed without the forward direction")
+        return self._apply_mat(self.dev_fw, X)
 
     # ---- host oracles -----------------------------------------------------
 

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 ``nvcc`` compiles every source under ``vbcs_tpu_torch/csrc`` for
-``sm_90a`` into one shared library with a plain C interface, in
-``build/`` at the repository root, on first use; ctypes loads it.  Each
-launcher takes device pointers and a CUDA stream as ``c_void_p`` and
-returns ``cudaGetLastError()``.  Nothing here runs at import time.
+``sm_90a`` (one process per source, all started together) and links the
+objects into one shared library with a plain C interface, in ``build/``
+at the repository root, on first use; ctypes loads it.  Each launcher
+takes device pointers and a CUDA stream as ``c_void_p`` and returns
+``cudaGetLastError()``.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import glob
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -23,7 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SO = os.path.join(os.path.dirname(_PKG), "build", "libvbcs_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+_TIMEOUT = 600  # seconds for each nvcc process
 _lock = threading.Lock()
 _lib = None
 
@@ -39,6 +42,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise if one fails, kill the rest."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=_TIMEOUT)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}) on {cmd[-1]}:\n{out}")
+            logs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return "".join(logs)
+
+
 def build() -> tuple[float, str]:
     """Compile the kernels if the library is missing or older than a
     source.  Returns (seconds spent, compiler output); raises
@@ -48,19 +72,21 @@ def build() -> tuple[float, str]:
             os.path.getmtime(s) for s in sources):
         return 0.0, ""
     os.makedirs(os.path.dirname(SO), exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{SO}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    objdir = tempfile.mkdtemp(prefix="kernels.", dir=os.path.dirname(SO))
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        objs = [os.path.join(objdir, os.path.basename(s) + ".o") for s in sources]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                        for s, o in zip(sources, objs)])
+        log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]])
         os.replace(tmp, SO)
     finally:
+        shutil.rmtree(objdir, ignore_errors=True)
         if os.path.exists(tmp):
             os.remove(tmp)
-    return time.perf_counter() - t0, proc.stdout + proc.stderr
+    return time.perf_counter() - t0, log
 
 
 def load():
@@ -70,9 +96,12 @@ def load():
         if _lib is None:
             build()
             lib = ctypes.CDLL(SO)
-            vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_int64, ctypes.c_float)
             lib.vbcs_tr_spmv.argtypes = [i32] + [vp] * 8 + [f32, f32, vp, vp]
             lib.vbcs_tr_spmv.restype = i32
+            lib.vbcs_tr_spmm.argtypes = [i32, i64] + [vp] * 8
+            lib.vbcs_tr_spmm.restype = i32
             lib.vbcs_gather.argtypes = [i32, vp, vp, vp, vp, vp]
             lib.vbcs_gather.restype = i32
             lib.vbcs_error_string.argtypes = [i32]

@@ -1,0 +1,66 @@
+"""Stripe SpMM: ``Y = A.T @ X`` for a dense RHS ``X [m, k]`` on a VBC1DDevice.
+
+Port of the JAX package's SpMM kernels, one kernel for all of them:
+``vbcs_tpu/ops/pallas_spmm4.py`` (``tr_spmm_pallas4``),
+``pallas_spmm3.py`` (``tr_spmm_pallas3``), ``pallas_spmm.py``
+(``tr_spmm_pallas``, with its fallback to ``pallas_trspmv._run_class``)
+and the XLA ``vbcs_tpu/ops/xla.py:tr_spmm``.  On a CUDA tensor
+:func:`tr_spmm` launches the hand-written kernel in ``csrc/spmm.cu``; on
+a CPU tensor it runs :func:`tr_spmm_plain`, the plain PyTorch version of
+the same function.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..formats.device import VBC1DDevice
+from . import _lib
+from .trspmv import _check_tensor
+
+__all__ = ["tr_spmm", "tr_spmm_plain"]
+
+
+def _check_mat(name: str, t: torch.Tensor, rows: int, device) -> None:
+    _check_tensor(name, t, (rows, None), device)
+
+
+def tr_spmm_plain(fmt: VBC1DDevice, X: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch SpMM: ``index_add_`` of ``val[:, None] * X[row]``
+    into the value's column of Y (the value coordinates of
+    :attr:`VBC1DDevice.value_coords`)."""
+    row, col = fmt.value_coords
+    Y = torch.zeros(fmt.n, X.shape[1], dtype=torch.float32, device=X.device)
+    Y.index_add_(0, col, fmt.val[:, None] * X[row])
+    return Y
+
+
+def tr_spmm(fmt: VBC1DDevice, X: torch.Tensor) -> torch.Tensor:
+    """``A.T @ X`` in natural order, shape ``[n, k]``, for a contiguous
+    f32 ``X`` of shape ``[m, k]`` (any ``k >= 0``).
+
+    CUDA tensors run the stripe SpMM kernel (or raise); CPU tensors run
+    :func:`tr_spmm_plain`."""
+    dev = fmt.device
+    _check_mat("X", X, fmt.m, dev)
+    if dev.type == "cpu":
+        return tr_spmm_plain(fmt, X)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"no SpMM kernel for device {dev}")
+    k = X.shape[1]
+    Y = torch.empty(fmt.n, k, dtype=torch.float32, device=dev)
+    if fmt.n == 0 or k == 0:
+        return Y
+    lib = _lib.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vbcs_tr_spmm(
+            fmt.L, k, fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(),
+            fmt.ofs.data_ptr(), fmt.val.data_ptr(), X.data_ptr(), Y.data_ptr(),
+            stream)
+    _lib.check(lib, rc, "tr_spmm")
+    tr_spmm.launches += 1
+    return Y
+
+
+tr_spmm.launches = 0

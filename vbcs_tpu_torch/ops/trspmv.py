@@ -20,17 +20,26 @@ from . import _lib
 __all__ = ["tr_spmv", "tr_spmv_plain"]
 
 
-def _check_vec(name: str, t: torch.Tensor, size: int, device) -> None:
+def _check_tensor(name: str, t: torch.Tensor, shape: tuple, device) -> None:
+    """Refuse what the kernels do not take: anything but a contiguous f32
+    tensor of ``shape`` (``None`` matches any extent) on ``device``."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if t.shape != (size,):
-        raise ValueError(f"{name} must have shape ({size},), got {tuple(t.shape)}")
+    if t.dim() != len(shape) or any(
+            want is not None and got != want for got, want in zip(t.shape, shape)):
+        want = ", ".join("k" if w is None else str(w) for w in shape)
+        want += "," if len(shape) == 1 else ""
+        raise ValueError(f"{name} must have shape ({want}), got {tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the matrix on {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_vec(name: str, t: torch.Tensor, size: int, device) -> None:
+    _check_tensor(name, t, (size,), device)
 
 
 def tr_spmv_plain(fmt: VBC1DDevice, x: torch.Tensor, alpha=None, beta=None,
