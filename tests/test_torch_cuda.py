@@ -6,9 +6,10 @@ machine that has only the port's dependencies:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
-Tolerance for the stripe TrSpMV and SpMM: ``|Δ| / max|y| <= 2e-5`` (f32
-sums in another order than the plain version's atomic ``index_add_``);
-the gather moves values without arithmetic and must be bitwise equal.
+Tolerance for the stripe and tile TrSpMV and the SpMM: ``|Δ| / max|y|
+<= 2e-5`` (f32 sums in another order than the plain version's atomic
+``index_add_``); the gather moves values without arithmetic and must be
+bitwise equal.
 """
 
 import os
@@ -23,8 +24,9 @@ import vbcs_tpu_torch as vt
 from corpus import NAMES, load_corpus
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from bench import blocky_matrix, fem_matrix  # noqa: E402
-from chip_smoke import long_stripes  # noqa: E402
+from bench import blocky2d_matrix, blocky_matrix, fem_matrix  # noqa: E402
+from chip_smoke import (long_stripes, mixed_height_pack,  # noqa: E402
+                        mixed_stripes, straddle_pack)
 
 TOL = 2e-5
 
@@ -227,4 +229,92 @@ def test_operator_spmm_on_card(k, cuda_device):
     Xt = torch.from_numpy(X).to(cuda_device)
     A64 = A.astype(np.float64)
     assert rel_err(op.tr_mul_mat(Xt), torch.from_numpy(A64.T @ X)) <= TOL
+    assert rel_err(op.mul_mat(Xt), torch.from_numpy(A64 @ X)) <= TOL
+
+
+# name -> 2-D pack: chip_smoke.py's phase-3 tile cases
+TILE_CASES = {
+    **{f"corpus/{name}": (lambda name=name: vt.vbc2d(
+        load_corpus()[name].tocsc().astype(np.float32), 4, 4))
+       for name in NAMES},
+    "mixed_heights": mixed_height_pack,
+    "straddling_tile": straddle_pack,
+    "rectangular_600x900": lambda: vt.vbc2d(banded(600, 900, 5, 60, 17), 4, 8),
+    "default_u8w8": lambda: vt.vbc2d(blocky_matrix(L=2048), 8, 8),
+}
+
+
+@pytest.mark.parametrize("with_y", [False, True])
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_tr_spmv_2d_kernel_matches_plain(case, with_y, cuda_device):
+    B2 = TILE_CASES[case]()
+    fmt = vt.VBC2DDevice.from_host(B2, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(B2.m, device=cuda_device, generator=g)
+    y = torch.randn(B2.n, device=cuda_device, generator=g)
+    args = (0.5, 0.25, y) if with_y else ()
+    before = vt.tr_spmv_2d.launches
+    got = vt.tr_spmv_2d(fmt, x, *args)
+    assert vt.tr_spmv_2d.launches == before + 1
+    want = vt.tr_spmv_2d_plain(fmt, x, *args)
+    torch.cuda.synchronize()
+    assert got.shape == (B2.n,) and torch.isfinite(got).all()
+    assert rel_err(got, want) <= TOL
+    oracle = B2.tr_mul(x.double().cpu().numpy(), *(
+        (0.5, 0.25, y.double().cpu().numpy()) if with_y else ()))
+    assert rel_err(got, torch.from_numpy(oracle)) <= TOL
+
+
+def test_tr_spmv_2d_mixed_heights_exact(cuda_device):
+    """Basis vectors through a pack whose stripes mix tile heights: every
+    output is one stored value (a wrong running value offset shows here)."""
+    B2 = mixed_height_pack()
+    assert mixed_stripes(B2) > 0
+    fmt = vt.VBC2DDevice.from_host(B2, cuda_device)
+    D = torch.from_numpy(B2.to_dense().astype(np.float32))
+    for i in range(B2.m):
+        e = torch.zeros(B2.m, device=cuda_device)
+        e[i] = 1.0
+        assert torch.equal(vt.tr_spmv_2d(fmt, e).cpu(), D[i])
+
+
+def test_tr_spmv_2d_edge_shapes(cuda_device):
+    """Empty stripes, an empty row block, a zero-width stripe, n == 0."""
+    D = np.zeros((6, 7), np.float32)
+    D[0:2, 0:3] = [[1, 2, 3], [4, 5, 6]]
+    D[5, 5:7] = [7, 8]
+    B2 = vt.pack_vbc2d(vt.CSC.from_scipy(sp.csc_matrix(D)),
+                       vt.SplitPartition(np.array([0, 2, 2, 5, 6])),
+                       vt.SplitPartition(np.array([0, 3, 3, 5, 7])), 3, 3)
+    fmt = vt.VBC2DDevice.from_host(B2, cuda_device)
+    x = torch.arange(1, 7, dtype=torch.float32, device=cuda_device)
+    y = torch.ones(7, device=cuda_device)
+    got = vt.tr_spmv_2d(fmt, x, 2.0, 0.5, y).cpu().numpy()
+    np.testing.assert_allclose(got, 2.0 * (D.T @ np.arange(1, 7)) + 0.5,
+                               rtol=1e-6)
+    B0 = vt.vbc2d(sp.csc_matrix((5, 0), dtype=np.float32), 4, 4)
+    f0 = vt.VBC2DDevice.from_host(B0, cuda_device)
+    assert vt.tr_spmv_2d(f0, torch.ones(5, device=cuda_device)).shape == (0,)
+
+
+@pytest.mark.parametrize("plan", ["equi", "default"])
+def test_operator_2d_on_card(plan, cuda_device):
+    A = blocky2d_matrix(K=512, band=60, seed=2)
+    methods = ((vt.AlternatingPacker(vt.EquiChunker(8), vt.EquiChunker(4)),
+                vt.AlternatingPacker(vt.EquiChunker(4), vt.EquiChunker(8)))
+               if plan == "equi" else (None, None))
+    op = vt.VBC2DOperator.from_csc(A, 4, 8, *methods, device=cuda_device)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(A.shape[0]).astype(np.float32)
+    y = rng.standard_normal(A.shape[1]).astype(np.float32)
+    X = rng.standard_normal((A.shape[1], 32)).astype(np.float32)
+    xt, yt, Xt = (torch.from_numpy(a).to(cuda_device) for a in (x, y, X))
+    A64 = A.astype(np.float64)
+    before = vt.tr_spmv_2d.launches
+    got = op.tr_mul(xt, 0.5, 0.25, yt)
+    assert vt.tr_spmv_2d.launches == before + 1
+    assert rel_err(got, torch.from_numpy(0.5 * (A64.T @ x) + 0.25 * y)) <= TOL
+    assert rel_err(op.mul(yt), torch.from_numpy(A64 @ y)) <= TOL
+    assert rel_err(op.tr_mul_mat(Xt[: A.shape[0]].contiguous()),
+                   torch.from_numpy(A64.T @ X[: A.shape[0]])) <= TOL
     assert rel_err(op.mul_mat(Xt), torch.from_numpy(A64 @ X)) <= TOL

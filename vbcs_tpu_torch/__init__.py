@@ -4,42 +4,55 @@ The port of ``vbcs_tpu`` (JAX/Pallas on TPU) to one NVIDIA H100.  It
 keeps the JAX package's layout, so each module has its counterpart
 there:
 
-* ``formats``  — CSC ingest, the host ``VBC1D`` (exact NumPy oracles),
-  and ``VBC1DDevice``, its arrays on a torch device;
-* ``plan``     — chunkers, the ``DynamicTotalChunker`` optimal DP,
-  symmetric RCM and its locality estimate;
-* ``models``   — the 1-D cost models;
+* ``formats``  — CSC ingest, the host ``VBC1D``/``VBC2D`` (exact NumPy
+  oracles), and ``VBC1DDevice``/``VBC2DDevice``, their arrays on a torch
+  device;
+* ``plan``     — chunkers, the ``DynamicTotalChunker`` optimal DP, the
+  ``AlternatingPacker`` 2-D planner, symmetric RCM and its locality
+  estimate;
+* ``models``   — the 1-D and 2-D cost models;
 * ``ops``      — the hand-written CUDA kernels (``csrc/``) with their
   plain PyTorch versions;
 * ``native``   — ctypes bindings to the JAX package's C++ host paths;
-* ``operator`` — ``VBCOperator`` (``tr_mul``/``mul``, ``tr_mul_mat``/
-  ``mul_mat``).
+* ``operator`` — ``VBCOperator`` and ``VBC2DOperator`` (``tr_mul``/
+  ``mul``, ``tr_mul_mat``/``mul_mat``).
 
 Importing this package loads no JAX.  Devices are never picked
 implicitly: every constructor that places tensors takes ``device``.
 """
 
-from .api import default_1d_partitioner, vbc1d
+from .api import default_1d_partitioner, default_2d_partitioner, vbc1d, vbc2d
 from .formats.csc import CSC
-from .formats.device import VBC1DDevice
+from .formats.device import VBC1DDevice, VBC2DDevice
 from .formats.partition import MapPartition, SplitPartition
 from .formats.vbc1d import VBC1D, pack_1dvbc
+from .formats.vbc2d import VBC2D, pack_vbc2d
 from .models.cost import (
     AffineConnectivityModel,
     AffineFillNetCostModel,
+    BlockComponentCostModel,
     ColumnBlockComponentCostModel,
     ConstrainedCost,
     Line,
     VertexCount,
     model_1dvbc_blocks,
     model_1dvbc_memory,
+    model_vbc_blocks,
+    model_vbc_memory,
+    row_component_value,
     total_value,
 )
-from .operator import VBC2DOperator, VBCOperator, route_tr_spmv
+from .operator import VBC2DOperator, VBCOperator, route_tr_spmv, route_tr_spmv_2d
 from .ops.gather import gather, gather_plain
 from .ops.spmm import tr_spmm, tr_spmm_plain
 from .ops.trspmv import tr_spmv, tr_spmv_plain
-from .plan.alternating import pack_stripe
+from .ops.trspmv2d import tr_spmv_2d, tr_spmv_2d_plain
+from .plan.alternating import (
+    AlternatePacker,
+    AlternatingPacker,
+    pack_plaid,
+    pack_stripe,
+)
 from .plan.chunkers import EquiChunker, OverlapChunker, StrictChunker
 from .plan.dynamic import DynamicTotalChunker
 from .plan.reorder import rcm_symmetric, window_badness

@@ -1,12 +1,13 @@
-"""The 1D-VBC arrays on a torch device — what the stripe kernel reads.
+"""The VBC arrays on a torch device — what the kernels read.
 
 Port of the device-format role of ``vbcs_tpu/formats/device.py``
-(``VBC1DDevice``) and of ``StreamFormat3`` in
-``vbcs_tpu/ops/pallas_trspmv3.py``.  Those binned, padded and re-tiled
-the matrix for Mosaic (width classes, A-tables, window ids, slot
-space).  The GPU kernel reads the host VBC1D arrays as they are, so
-this format is only their int32/f32 copy on an explicit device, plus
-``col_stripe[j]``, the stripe that owns output column ``j``.
+(``VBC1DDevice``, ``bin_vbc2d``), of ``StreamFormat3`` in
+``vbcs_tpu/ops/pallas_trspmv3.py`` and of ``Stream2DBundle`` in
+``vbcs_tpu/ops/pallas_trspmv2d.py``.  Those binned, padded and re-tiled
+the matrix for Mosaic (width and (u, w) classes, A-tables, window ids,
+slot space).  The GPU kernels read the host VBC1D/VBC2D arrays as they
+are, so these formats are only their int32/f32 copies on an explicit
+device, plus ``col_stripe[j]``, the stripe that owns output column ``j``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["VBC1DDevice"]
+__all__ = ["VBC1DDevice", "VBC2DDevice"]
 
 _I32_MAX = np.iinfo(np.int32).max
 
@@ -115,3 +116,138 @@ class VBC1DDevice:
         col = self.spl[stripe].long() + local % w
         row = self.idx[blk].long()
         return row, col
+
+
+@dataclasses.dataclass(frozen=True)
+class VBC2DDevice:
+    m: int
+    n: int
+    U: int
+    W: int
+    rspl: torch.Tensor  # [K + 1] int32 row-block splits (Pi.spl)
+    spl: torch.Tensor  # [L + 1] int32 stripe column splits (Phi.spl)
+    pos: torch.Tensor  # [L + 1] int32 tile pointers into idx
+    idx: torch.Tensor  # [num_tiles] int32 row-block id of each tile
+    ofs: torch.Tensor  # [L + 1] int32 value offsets per stripe
+    val: torch.Tensor  # [total_vals] f32 tile values, row-major u x w
+    col_stripe: torch.Tensor  # [n] int32 stripe of each column
+
+    @property
+    def device(self) -> torch.device:
+        return self.val.device
+
+    @property
+    def K(self) -> int:
+        return int(self.rspl.numel() - 1)
+
+    @property
+    def L(self) -> int:
+        return int(self.spl.numel() - 1)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the format arrays (each read at most once per call)."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.rspl, self.spl, self.pos, self.idx, self.ofs, self.val,
+            self.col_stripe))
+
+    @staticmethod
+    def from_host(host, device) -> "VBC2DDevice":
+        """Copy a host 2-D VBC to ``device``.
+
+        ``host`` is any object with ``m, n, U, W, Pi.spl, Phi.spl, pos,
+        idx, ofs, val`` as NumPy arrays: this port's ``VBC2D`` or the JAX
+        package's, so both packages can run the same pack.  Values are
+        stored as f32.  Raises ``ValueError`` on an inconsistent pack
+        (``diff(ofs)`` must be each stripe's sum of ``u_k * w_l`` over its
+        tiles) or on an index that does not fit in int32 (the kernel does
+        no bounds checks of its own)."""
+        rspl = np.asarray(host.Pi.spl, dtype=np.int64)
+        spl = np.asarray(host.Phi.spl, dtype=np.int64)
+        pos = np.asarray(host.pos, dtype=np.int64)
+        idx = np.asarray(host.idx, dtype=np.int64)
+        ofs = np.asarray(host.ofs, dtype=np.int64)
+        val = np.asarray(host.val)
+        K, L = rspl.size - 1, spl.size - 1
+        m, n = int(host.m), int(host.n)
+        heights, widths, ntile = np.diff(rspl), np.diff(spl), np.diff(pos)
+        if not (pos.size == ofs.size == L + 1 and spl[0] == 0 and spl[-1] == n
+                and rspl[0] == 0 and rspl[-1] == m and pos[0] == 0
+                and pos[-1] == idx.size and ofs[0] == 0
+                and ofs[-1] == val.size and np.all(widths >= 0)
+                and np.all(heights >= 0) and np.all(ntile >= 0)):
+            raise ValueError("inconsistent 2-D VBC pack")
+        if idx.size and (int(idx.min()) < 0 or int(idx.max()) >= K):
+            raise ValueError("row-block index out of range")
+        tile_vals = heights[idx] * np.repeat(widths, ntile)
+        cum = np.concatenate([[0], np.cumsum(tile_vals)])
+        if not np.array_equal(np.diff(ofs), cum[pos[1:]] - cum[pos[:-1]]):
+            raise ValueError("inconsistent 2-D VBC pack: stripe value counts "
+                             "are not the sums of their tiles' u * w")
+        if max(m, n) > _I32_MAX:
+            raise ValueError("matrix dimensions do not fit in int32")
+        return VBC2DDevice(
+            m=m,
+            n=n,
+            U=int(host.U),
+            W=int(host.W),
+            rspl=_i32(rspl, "Pi.spl", device),
+            spl=_i32(spl, "Phi.spl", device),
+            pos=_i32(pos, "pos", device),
+            idx=_i32(idx, "idx", device),
+            ofs=_i32(ofs, "ofs", device),
+            val=torch.from_numpy(
+                np.ascontiguousarray(val, dtype=np.float32)).to(device),
+            col_stripe=_i32(np.repeat(np.arange(L), widths), "col_stripe",
+                            device),
+        )
+
+    def _tiles(self):
+        """(stripe, height) of every tile, int64."""
+        ntile = (self.pos[1:] - self.pos[:-1]).long()
+        stripe = torch.repeat_interleave(
+            torch.arange(self.L, device=self.device), ntile,
+            output_size=self.idx.numel())
+        heights = (self.rspl[1:] - self.rspl[:-1]).long()
+        return stripe, heights[self.idx.long()]
+
+    @functools.cached_property
+    def value_coords(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(row, col) of every stored value, int64 — the index form the
+        plain PyTorch TrSpMV uses (computed once per format)."""
+        dev = self.device
+        stripe, u = self._tiles()
+        w = (self.spl[1:] - self.spl[:-1]).long()[stripe]
+        size = u * w
+        tile = torch.repeat_interleave(
+            torch.arange(self.idx.numel(), device=dev), size,
+            output_size=self.val.numel())
+        local = (torch.arange(self.val.numel(), device=dev)
+                 - (torch.cumsum(size, 0) - size)[tile])
+        wt = w[tile]
+        row = (self.rspl[self.idx.long()].long()[tile]
+               + torch.div(local, wt, rounding_mode="floor"))
+        col = self.spl[stripe].long()[tile] + local % wt
+        return row, col
+
+    def view_1d(self) -> VBC1DDevice:
+        """The 1-D view (``VBC2D.to_1d_view``) on the device: each u x w
+        tile as u one-row blocks.  It shares ``val``, ``ofs``, ``spl`` and
+        ``col_stripe`` with this format; only ``pos`` and ``idx`` are new."""
+        dev = self.device
+        stripe, u = self._tiles()
+        rows = torch.zeros(self.L, dtype=torch.int64, device=dev)
+        rows.index_add_(0, stripe, u)
+        pos = torch.zeros(self.L + 1, dtype=torch.int64, device=dev)
+        torch.cumsum(rows, 0, out=pos[1:])
+        total = int(pos[-1])
+        if total > _I32_MAX:
+            raise ValueError("the 1-D view's block count does not fit in int32")
+        tile = torch.repeat_interleave(
+            torch.arange(self.idx.numel(), device=dev), u, output_size=total)
+        idx = (self.rspl[self.idx.long()].long()[tile]
+               + torch.arange(total, device=dev) - (torch.cumsum(u, 0) - u)[tile])
+        return VBC1DDevice(
+            m=self.m, n=self.n, W=self.W, spl=self.spl, pos=pos.int(),
+            idx=idx.int(), ofs=self.ofs, val=self.val,
+            col_stripe=self.col_stripe)

@@ -1,20 +1,20 @@
-"""Partition cost models for 1-D VBC plans.
+"""Partition cost models for 1-D and 2-D VBC plans.
 
-Port of the 1-D half of ``vbcs_tpu/models/cost.py`` (NumPy).  It carries
-the cost-model protocol the reference planner consumes (ChainPartitioners
+Port of ``vbcs_tpu/models/cost.py`` (NumPy).  It carries the cost-model
+protocol the reference planner consumes (ChainPartitioners
 model carriers + the concrete models built in reference ``src/costs.jl``):
 
 * :class:`Line` — affine functor ``a + b*x`` (``src/costs.jl:1-6``);
 * :class:`ColumnBlockComponentCostModel` — 1-D stripe cost
   ``alpha(w) + num_blocks * beta(w)`` where ``alpha``/``beta`` are
   width-indexed (Line, scalar, or per-width table);
+* :class:`BlockComponentCostModel` — 2-D cost with separable rank-R block
+  term ``sum_r beta_row[r](u) * beta_col[r](w)`` plus per-row-block and
+  per-stripe affine terms;
 * :class:`AffineConnectivityModel` / :class:`AffineFillNetCostModel` —
   netlist-style stripe costs (vertices = columns, pins = nonzeros,
   nets = distinct rows, fill = nets * w);
 * :class:`ConstrainedCost` / :class:`VertexCount` — the width-cap wrapper.
-
-The 2-D models (``BlockComponentCostModel``, ``model_vbc_*``) come with
-the port's 2-D operator (ROADMAP.md, queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -24,16 +24,22 @@ from typing import Callable, Sequence, Union
 
 import numpy as np
 
+from ..formats.partition import SplitPartition
+
 __all__ = [
     "Line",
     "ColumnBlockComponentCostModel",
+    "BlockComponentCostModel",
     "AffineConnectivityModel",
     "AffineFillNetCostModel",
     "ConstrainedCost",
     "VertexCount",
     "model_1dvbc_blocks",
     "model_1dvbc_memory",
+    "model_vbc_blocks",
+    "model_vbc_memory",
     "total_value",
+    "row_component_value",
 ]
 
 
@@ -68,7 +74,8 @@ def component_at(c: Component, x: int):
     if x - 1 >= tbl.shape[0]:
         raise ValueError(
             f"cost table of length {tbl.shape[0]} has no entry for block "
-            f"size {x}; constrain the width with W or extend the table"
+            f"size {x}; constrain the other dimension (U/W) with a prior "
+            f"Equi pass or extend the table"
         )
     return float(tbl[x - 1])
 
@@ -100,6 +107,50 @@ class ColumnBlockComponentCostModel:
 
     def beta_table(self, W: int) -> np.ndarray:
         return component_table(self.beta_col, W)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockComponentCostModel:
+    """2-D model (reference ``BlockComponentCostModel{Tv}``):
+
+    total = sum_k alpha_row(u_k)
+          + sum_l [ alpha_col(w_l)
+                    + sum_{blocks (k,l)} sum_r beta_row[r](u_k) * beta_col[r](w_l) ].
+
+    ``beta_row``/``beta_col`` are rank-R tuples of components; the block
+    term is separable so the column DP only needs R weighted distinct-
+    row-block counters (see reference ``src/costs.jl:279-284`` for the
+    rank-R SVD factorization of the autotuned beta grid).
+    """
+
+    alpha_row: Component
+    alpha_col: Component
+    beta_row: tuple
+    beta_col: tuple
+
+    def __post_init__(self):
+        if len(self.beta_row) != len(self.beta_col):
+            raise ValueError("beta_row and beta_col must have equal rank")
+
+    @property
+    def rank(self) -> int:
+        return len(self.beta_row)
+
+    def block_cost(self, u: int, w: int):
+        return sum(
+            component_at(self.beta_row[r], u) * component_at(self.beta_col[r], w)
+            for r in range(self.rank)
+        )
+
+    def permuted(self) -> "BlockComponentCostModel":
+        """Swap row/column roles (reference ``permutedims(model)``,
+        used at ``src/constructors_VBC.jl:6``)."""
+        return BlockComponentCostModel(
+            alpha_row=self.alpha_col,
+            alpha_col=self.alpha_row,
+            beta_row=self.beta_col,
+            beta_col=self.beta_row,
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,20 +238,64 @@ def model_1dvbc_memory(val_itemsize: int = 8, idx_itemsize: int = 8):
     )
 
 
+def model_vbc_blocks() -> BlockComponentCostModel:
+    """2-D block count (reference ``src/costs.jl:138``)."""
+    return BlockComponentCostModel(0, 0, (1,), (1,))
+
+
+def model_vbc_memory(val_itemsize: int = 8, idx_itemsize: int = 8):
+    """2-D memory: one index word per row block (Pi entry), 3 per stripe,
+    ``idx_itemsize + u * w * val_itemsize`` per block
+    (reference ``src/costs.jl:140``)."""
+    return BlockComponentCostModel(
+        alpha_row=idx_itemsize,
+        alpha_col=3 * idx_itemsize,
+        beta_row=(Line(1, 0), Line(0, 1)),
+        beta_col=(Line(idx_itemsize, 0), Line(0, val_itemsize)),
+    )
+
+
 # ---- evaluators (reference ChainPartitioners total_value) ------------------
 
 
-def total_value(A, Phi, model):
-    """Total modeled cost of a column partition of CSC matrix ``A`` under
-    a 1-D model (the 1-D branch of ``vbcs_tpu.models.cost.total_value``)."""
+def total_value(A, Phi, model, Pi=None):
+    """Total modeled cost of a (row,) column partition of CSC matrix ``A``.
+
+    1-D models: ``total_value(A, Phi, model)``.
+    2-D models: ``total_value(A, Phi, model, Pi=...)`` sums the separable
+    block term + alpha_col per stripe (add :func:`row_component_value`
+    for the alpha_row part, as the reference harness does at
+    ``bin/test_table.jl:124``).
+    """
     base = unwrap(model)
     spl = Phi.spl
     total = 0.0
+    if isinstance(base, BlockComponentCostModel):
+        if Pi is None:
+            Pi = SplitPartition.trivial(A.m)
+        asg = Pi.to_map().asg
+        heights = Pi.widths()
+        for l in range(len(Phi)):
+            j0, j1 = int(spl[l]), int(spl[l + 1])
+            w = j1 - j0
+            ks = np.unique(asg[A.idx[A.pos[j0] : A.pos[j1]]])
+            total += component_at(base.alpha_col, w) if w > 0 else 0.0
+            for k in ks:
+                total += base.block_cost(int(heights[k]), w)
+        return total
     for l in range(len(Phi)):
         j0, j1 = int(spl[l]), int(spl[l + 1])
         rows = A.idx[A.pos[j0] : A.pos[j1]]
         total += base.stripe_cost(j1 - j0, np.unique(rows).size, rows.size)
     return total
+
+
+def row_component_value(Pi, model):
+    """sum_k alpha_row(u_k) (reference ``row_component_value``)."""
+    base = unwrap(model)
+    return float(
+        sum(component_at(base.alpha_row, int(u)) for u in Pi.widths())
+    )
 
 
 def unwrap(model):

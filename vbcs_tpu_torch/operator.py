@@ -1,6 +1,6 @@
-"""VBCOperator — the user-facing sparse operator.
+"""VBCOperator and VBC2DOperator — the user-facing sparse operators.
 
-Port of ``vbcs_tpu/operator.py`` (1-D operator, f32).  ``from_csc``
+Port of ``vbcs_tpu/operator.py`` (f32).  ``from_csc``
 plans and packs ``A`` (and ``A.T``) on the host exactly as the JAX
 operator does — the min-memory DP, ``pack_1dvbc`` and the auto-RCM
 decision — then copies the packs to an explicit torch ``device``:
@@ -16,29 +16,37 @@ decision — then copies the packs to an explicit torch ``device``:
   out at the boundaries (``ops/gather.py``; ``index_select`` for the
   rows of X and Y, as the JAX operator leaves those to XLA).
 
-Both kernels write natural order, so nothing follows them on a natural
-operator.  f64, bool and int32 semirings, ``tr_mul_chain`` and
-``VBC2DOperator`` wait (ROADMAP.md).
+``VBC2DOperator.from_csc`` plans and packs the 2-D format (the
+alternating planner and ``pack_vbc2d``) of ``A`` and of ``A.T`` with U
+and W swapped; ``tr_mul``/``mul`` run the tile kernel
+(``ops/trspmv2d.py``) on those packs, ``tr_mul_mat``/``mul_mat`` the
+SpMM kernel on their 1-D views, as the JAX operator does.
+
+Every kernel writes natural order, so nothing follows it on a natural
+operator.  f64, bool and int32 semirings and ``tr_mul_chain`` wait
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
-from .api import default_1d_partitioner
+from .api import default_1d_partitioner, vbc2d
 from .formats.csc import CSC
-from .formats.device import VBC1DDevice
+from .formats.device import VBC1DDevice, VBC2DDevice
 from .formats.vbc1d import VBC1D, pack_1dvbc
 from .ops.gather import gather
 from .ops.spmm import _check_mat, tr_spmm
 from .ops.trspmv import _check_vec, tr_spmv
+from .ops.trspmv2d import tr_spmv_2d
 from .plan.alternating import pack_stripe
 from .plan.reorder import rcm_symmetric, window_badness
 
-__all__ = ["VBCOperator", "VBC2DOperator", "route_tr_spmv"]
+__all__ = ["VBCOperator", "VBC2DOperator", "route_tr_spmv", "route_tr_spmv_2d"]
 
 _WAITS = "is not ported yet; see ROADMAP.md, queue 1"
 
@@ -49,6 +57,24 @@ def route_tr_spmv(B, device):
     ``call(fmt, x) -> y`` — for harnesses that must time the shipped
     path.  The port has one route: the stripe kernel takes every plan."""
     return "stripe", VBC1DDevice.from_host(B, device), tr_spmv
+
+
+def route_tr_spmv_2d(B2, device):
+    """The per-call TrSpMV kernel :meth:`VBC2DOperator.tr_mul` runs for a
+    packed f32 2-D format ``B2`` — ``(name, fmt, call)``.  The port has
+    one route: the tile kernel reads each tile's height, so it takes
+    uniform and mixed-height stripes alike.  The JAX package's guard
+    between its 1-D view and its 2-D kernel (``_v3_view_worthwhile``)
+    compares Mosaic exit plans the port does not have."""
+    return "tile2d", VBC2DDevice.from_host(B2, device), tr_spmv_2d
+
+
+def _check_f32(*hosts) -> None:
+    for h in hosts:
+        if h is not None and np.asarray(h.val).dtype != np.float32:
+            raise NotImplementedError(
+                f"the port runs float32 matrices only, got "
+                f"{np.asarray(h.val).dtype}; other semirings {_WAITS} item 3")
 
 
 def _axpby(out, alpha, beta, y):
@@ -62,6 +88,20 @@ def _axpby(out, alpha, beta, y):
 
 def _as_csc(A) -> CSC:
     return A if isinstance(A, CSC) else CSC.from_scipy(A)
+
+
+def _shape_of(host_tr, host_fw) -> tuple[int, int]:
+    """(m, n) of the operator over the packs of A and of A.T (either may
+    be None); refuses non-f32 packs and a pair that do not transpose."""
+    host = host_tr if host_tr is not None else host_fw
+    if host is None:
+        raise ValueError("need at least one of host_tr and host_fw")
+    _check_f32(host_tr, host_fw)
+    m, n = (host.m, host.n) if host is host_tr else (host.n, host.m)
+    if host_tr is not None and host_fw is not None and (
+            host_fw.m, host_fw.n) != (n, m):
+        raise ValueError("host_fw must pack the transpose of host_tr")
+    return int(m), int(n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,10 +148,7 @@ class VBCOperator:
         if reorder not in ("auto", "always", "never"):
             raise ValueError(f"unknown reorder {reorder!r}")
         A = _as_csc(A)
-        if A.val.dtype != np.float32:
-            raise NotImplementedError(
-                f"the port runs float32 matrices only, got {A.val.dtype}; "
-                f"f64, bool and int32 semirings {_WAITS} item 3")
+        _check_f32(A)
         method = method or default_1d_partitioner(W, A.val.dtype.itemsize)
         method_forward = method_forward or method
 
@@ -145,19 +182,7 @@ class VBCOperator:
         be None; ``row_perm`` is the symmetric relabeling the packs were
         built under, or None."""
         device = torch.device(device)
-        host = host_tr if host_tr is not None else host_fw
-        if host is None:
-            raise ValueError("need at least one of host_tr and host_fw")
-        for h in (host_tr, host_fw):
-            if h is not None and np.asarray(h.val).dtype != np.float32:
-                raise NotImplementedError(
-                    f"the port runs float32 matrices only, got "
-                    f"{np.asarray(h.val).dtype}; other semirings {_WAITS} "
-                    f"item 3")
-        m, n = (host.m, host.n) if host is host_tr else (host.n, host.m)
-        if host_tr is not None and host_fw is not None and (
-                host_fw.m, host_fw.n) != (n, m):
-            raise ValueError("host_fw must pack the transpose of host_tr")
+        m, n = _shape_of(host_tr, host_fw)
         perm_t = inv_t = None
         if row_perm is not None:
             row_perm = np.asarray(row_perm, dtype=np.int64)
@@ -169,7 +194,7 @@ class VBCOperator:
             perm_t = torch.from_numpy(row_perm.astype(np.int32)).to(device)
             inv_t = torch.from_numpy(inv.astype(np.int32)).to(device)
         return VBCOperator(
-            m=int(m), n=int(n), host_tr=host_tr, host_fw=host_fw,
+            m=m, n=n, host_tr=host_tr, host_fw=host_fw,
             device=device,
             dev_tr=None if host_tr is None else VBC1DDevice.from_host(host_tr, device),
             dev_fw=None if host_fw is None else VBC1DDevice.from_host(host_fw, device),
@@ -251,12 +276,128 @@ class VBCOperator:
         return self.host_tr.mul(x)
 
 
+@dataclasses.dataclass(frozen=True)
 class VBC2DOperator:
-    """The 2-D VBC operator (``vbcs_tpu.operator.VBC2DOperator``)."""
+    """Sparse matrix operator in 2-D VBC form (u x w dense tiles) on one
+    torch device (reference ``SparseMatrixVBC{U,W}``,
+    ``src/SparseMatrixVBCs.jl:57-84`` + ``src/multiply_VBC.jl``).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"VBC2DOperator {_WAITS} item 8")
+    ``tr_mul`` runs the tile kernel on the pack of A; ``mul`` is
+    scatter-free like the 1-D operator: ``A.T`` is packed 2-D with U and
+    W swapped and runs the same kernel.  ``tr_mul_mat``/``mul_mat`` run
+    the SpMM kernel on the 1-D view of the same packs, built on the
+    device on first use and sharing the 2-D format's values."""
+
+    m: int
+    n: int
+    host_tr: object | None  # VBC2D of A (for A.T @ x)
+    host_fw: object | None  # VBC2D of A.T (for A @ x)
+    device: torch.device
+    dev_tr: VBC2DDevice | None
+    dev_fw: VBC2DDevice | None
+
+    # ---- construction ----------------------------------------------------
 
     @staticmethod
-    def from_csc(*args, **kwargs):
-        raise NotImplementedError(f"VBC2DOperator {_WAITS} item 8")
+    def from_csc(
+        A,
+        U: int = 8,
+        W: int = 8,
+        method=None,
+        method_forward=None,
+        directions: str = "both",
+        *,
+        device,
+    ) -> "VBC2DOperator":
+        """Plan + pack ``A`` (and/or ``A.T``) into 2-D VBC and copy the
+        packs to ``device``.
+
+        ``method`` plans (rows, columns) of A with heights <= U and
+        widths <= W; ``method_forward`` plans A.T with heights <= W and
+        widths <= U.  Both default to the five-pass alternating
+        min-memory planner (``default_2d_partitioner``).
+        ``directions``: "both" | "transposed" (A.T@x only) | "forward".
+        """
+        if directions not in ("both", "transposed", "forward"):
+            raise ValueError(f"unknown directions {directions!r}")
+        if U < 1 or W < 1:
+            raise ValueError(f"U and W must be >= 1, got U={U}, W={W}")
+        A = _as_csc(A)
+        _check_f32(A)
+        host_tr = host_fw = None
+        if directions in ("both", "transposed"):
+            host_tr = vbc2d(A, U, W, method)
+        if directions in ("both", "forward"):
+            host_fw = vbc2d(A.transpose(), W, U, method_forward)
+        return VBC2DOperator.from_host(host_tr, host_fw, device)
+
+    @staticmethod
+    def from_host(host_tr, host_fw, device) -> "VBC2DOperator":
+        """Operator over existing packs (this port's or the JAX package's
+        ``VBC2D``): ``host_tr`` packs A, ``host_fw`` packs A.T, either may
+        be None."""
+        device = torch.device(device)
+        m, n = _shape_of(host_tr, host_fw)
+        return VBC2DOperator(
+            m=m, n=n, host_tr=host_tr, host_fw=host_fw, device=device,
+            dev_tr=None if host_tr is None else VBC2DDevice.from_host(host_tr, device),
+            dev_fw=None if host_fw is None else VBC2DDevice.from_host(host_fw, device),
+        )
+
+    @property
+    def shape(self):
+        return (self.m, self.n)
+
+    def memory_bytes(self) -> int:
+        return sum(h.memory_bytes() for h in (self.host_tr, self.host_fw)
+                   if h is not None)
+
+    @functools.cached_property
+    def view_tr(self) -> VBC1DDevice:
+        """The 1-D view of the A pack on the device (SpMM; lazy)."""
+        return self._packed("tr").view_1d()
+
+    @functools.cached_property
+    def view_fw(self) -> VBC1DDevice:
+        """The 1-D view of the A.T pack on the device (SpMM; lazy)."""
+        return self._packed("fw").view_1d()
+
+    def _packed(self, which: str) -> VBC2DDevice:
+        fmt = self.dev_tr if which == "tr" else self.dev_fw
+        if fmt is None:
+            name = "transposed" if which == "tr" else "forward"
+            raise ValueError(f"operator packed without the {name} direction")
+        return fmt
+
+    # ---- compute ---------------------------------------------------------
+
+    def tr_mul(self, x, alpha=None, beta=None, y=None):
+        """y = alpha * (A.T @ x) + beta * y on the operator's device
+        (reference ``mul!(y, B', x, alpha, beta)`` 2-D,
+        ``src/multiply_VBC.jl:104-189``, with ``alpha`` applied)."""
+        return tr_spmv_2d(self._packed("tr"), x, alpha, beta, y)
+
+    def mul(self, x, alpha=None, beta=None, y=None):
+        """y = alpha * (A @ x) + beta * y on the operator's device
+        (scatter-free: the tile kernel on the 2-D pack of A.T)."""
+        return tr_spmv_2d(self._packed("fw"), x, alpha, beta, y)
+
+    def tr_mul_mat(self, X):
+        """Y = A.T @ X for a dense RHS ``X [m, k]`` (the SpMM kernel on
+        the 1-D view)."""
+        return tr_spmm(self.view_tr, X)
+
+    def mul_mat(self, X):
+        """Y = A @ X for a dense RHS ``X [n, k]`` (the SpMM kernel on the
+        1-D view of the A.T pack)."""
+        return tr_spmm(self.view_fw, X)
+
+    # ---- host oracles -----------------------------------------------------
+
+    def host_tr_mul(self, x):
+        return self.host_tr.tr_mul(x)
+
+    def host_mul(self, x):
+        if self.host_fw is not None:
+            return self.host_fw.tr_mul(x)  # (A.T).T @ x == A @ x
+        return self.host_tr.mul(x)

@@ -100,6 +100,8 @@ def load():
                                  ctypes.c_int64, ctypes.c_float)
             lib.vbcs_tr_spmv.argtypes = [i32] + [vp] * 8 + [f32, f32, vp, vp]
             lib.vbcs_tr_spmv.restype = i32
+            lib.vbcs_tr_spmv_2d.argtypes = [i32] + [vp] * 9 + [f32, f32, vp, vp]
+            lib.vbcs_tr_spmv_2d.restype = i32
             lib.vbcs_tr_spmm.argtypes = [i32, i64] + [vp] * 8
             lib.vbcs_tr_spmm.restype = i32
             lib.vbcs_gather.argtypes = [i32, vp, vp, vp, vp, vp]

@@ -42,10 +42,11 @@ def _check_vec(name: str, t: torch.Tensor, size: int, device) -> None:
     _check_tensor(name, t, (size,), device)
 
 
-def tr_spmv_plain(fmt: VBC1DDevice, x: torch.Tensor, alpha=None, beta=None,
+def tr_spmv_plain(fmt, x: torch.Tensor, alpha=None, beta=None,
                   y=None) -> torch.Tensor:
     """Plain PyTorch TrSpMV: ``index_add_`` of ``val * x[row]`` into the
-    value's column (the value coordinates are computed once per format)."""
+    value's column.  ``fmt`` is any device format with ``n``, ``val`` and
+    ``value_coords`` (computed once per format)."""
     row, col = fmt.value_coords
     out = torch.zeros(fmt.n, dtype=torch.float32, device=x.device)
     out.index_add_(0, col, fmt.val * x[row])
@@ -56,36 +57,47 @@ def tr_spmv_plain(fmt: VBC1DDevice, x: torch.Tensor, alpha=None, beta=None,
     return out
 
 
-def tr_spmv(fmt: VBC1DDevice, x: torch.Tensor, alpha=None, beta=None,
-            y=None) -> torch.Tensor:
-    """``alpha * A.T @ x (+ beta * y)`` in natural order, shape ``[n]``.
-
-    CUDA tensors run the stripe kernel (or raise); CPU tensors run
-    :func:`tr_spmv_plain`."""
+def _run_tr_spmv(kernel, plain, fmt, x, alpha, beta, y, launch) -> torch.Tensor:
+    """The body every TrSpMV wrapper shares.  Checks ``x`` (and ``y`` when
+    ``beta`` is given), runs ``plain`` on a CPU tensor, and on a CUDA
+    tensor allocates the output and calls ``launch(lib, y_in, alpha,
+    beta, out, stream)`` (device pointers and the stream as ints), raises
+    if the launch failed, and counts it in ``kernel.launches``."""
     dev = fmt.device
     _check_vec("x", x, fmt.m, dev)
     with_y = y is not None and beta is not None
     if with_y:
         _check_vec("y", y, fmt.n, dev)
     if dev.type == "cpu":
-        return tr_spmv_plain(fmt, x, alpha, beta, y)
+        return plain(fmt, x, alpha, beta, y)
     if dev.type != "cuda":
-        raise NotImplementedError(f"no TrSpMV kernel for device {dev}")
+        raise NotImplementedError(f"no {kernel.__name__} kernel for device {dev}")
     out = torch.empty(fmt.n, dtype=torch.float32, device=dev)
     if fmt.n == 0:
         return out
     lib = _lib.load()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vbcs_tr_spmv(
+        rc = launch(lib, y.data_ptr() if with_y else None,
+                    1.0 if alpha is None else float(alpha),
+                    float(beta) if with_y else 0.0, out.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    _lib.check(lib, rc, kernel.__name__)
+    kernel.launches += 1
+    return out
+
+
+def tr_spmv(fmt: VBC1DDevice, x: torch.Tensor, alpha=None, beta=None,
+            y=None) -> torch.Tensor:
+    """``alpha * A.T @ x (+ beta * y)`` in natural order, shape ``[n]``.
+
+    CUDA tensors run the stripe kernel (or raise); CPU tensors run
+    :func:`tr_spmv_plain`."""
+    return _run_tr_spmv(
+        tr_spmv, tr_spmv_plain, fmt, x, alpha, beta, y,
+        lambda lib, *rest: lib.vbcs_tr_spmv(
             fmt.n, fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(),
             fmt.ofs.data_ptr(), fmt.col_stripe.data_ptr(), fmt.val.data_ptr(),
-            x.data_ptr(), y.data_ptr() if with_y else None,
-            1.0 if alpha is None else float(alpha),
-            float(beta) if with_y else 0.0, out.data_ptr(), stream)
-    _lib.check(lib, rc, "tr_spmv")
-    tr_spmv.launches += 1
-    return out
+            x.data_ptr(), *rest))
 
 
 tr_spmv.launches = 0

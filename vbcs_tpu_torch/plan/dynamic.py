@@ -1,10 +1,10 @@
 """Optimal partitioning by dynamic programming — ``DynamicTotalChunker``.
 
-Port of the 1-D models' path through ``vbcs_tpu/plan/dynamic.py``
-(NumPy + the shared C++ DP; bitwise the same split points).  It is the
-"optimal partitioning" half of the paper (arXiv:2005.12414) as exposed
-through ChainPartitioners.jl's ``DynamicTotalChunker(model[, W])``:
-choose column split points minimizing the *total* model cost
+Port of ``vbcs_tpu/plan/dynamic.py`` (NumPy + the shared C++ DP;
+bitwise the same split points).  It is the "optimal partitioning" half of
+the paper (arXiv:2005.12414) as exposed through ChainPartitioners.jl's
+``DynamicTotalChunker(model[, W])``: choose column split points
+minimizing the *total* model cost
 
     sum_stripes  cost(stripe)
 
@@ -12,15 +12,15 @@ subject to stripe width <= W.  The DP is
 
     opt[j'] = min_{j' - W <= j < j'}  opt[j] + stripe_cost(j, j')
 
-with ``stripe_cost`` needing the number of *distinct rows* in columns
-``[j, j')``, maintained incrementally with a last-occurrence counter:
-when sweeping ``j'`` rightward, ``cnt[c]`` holds the number of rows whose
-*last* occurrence in ``[0, j')`` is column ``c``; the distinct count in
-``[j, j')`` is then ``sum(cnt[j:j'])``, a W-suffix sum.  Total cost:
-O(nnz + n * W).
+with ``stripe_cost`` needing the number of *distinct rows* (1-D models) or
+the rank-R weighted sums of *distinct row-blocks* (2-D separable models)
+in columns ``[j, j')``, maintained incrementally with a last-occurrence
+counter: when sweeping ``j'`` rightward, ``cnt[c]`` holds the weight of
+rows (row-blocks) whose *last* occurrence in ``[0, j')`` is column ``c``;
+the distinct weight in ``[j, j')`` is then ``sum(cnt[j:j'])``, a
+W-suffix sum.  Total cost: O(nnz + n * W).
 
 Tie-breaking: among equal-cost choices the *narrowest* stripe wins.
-The 2-D (row-block weighted) models come with the port's 2-D operator.
 """
 
 from __future__ import annotations
@@ -34,7 +34,9 @@ from ..formats.partition import SplitPartition
 from ..models.cost import (
     AffineConnectivityModel,
     AffineFillNetCostModel,
+    BlockComponentCostModel,
     ColumnBlockComponentCostModel,
+    component_table,
     constraint_cap,
     unwrap,
 )
@@ -51,25 +53,48 @@ class DynamicTotalChunker:
     model: object
     w_max: int | None = None
 
-    def partition(self, A: CSC):
+    def partition(self, A: CSC, row_partition: SplitPartition | None = None):
         W = constraint_cap(self.model, self.w_max)
         if W is None:
             raise ValueError(
                 "DynamicTotalChunker needs a width cap: pass w_max or wrap "
                 "the model in ConstrainedCost(model, VertexCount(), W)"
             )
-        return dp_partition(A, unwrap(self.model), int(W))
+        return dp_partition(A, unwrap(self.model), int(W), row_partition)
+
+
+def _row_weights(model: BlockComponentCostModel, heights: np.ndarray):
+    """``weights[r][k] = beta_row[r](u_k)``, [R, K]; height-0 blocks weigh 0."""
+    umax = int(heights.max(initial=1))
+    return np.stack(
+        [
+            np.concatenate([[0.0], component_table(c, umax)])[heights]
+            for c in model.beta_row
+        ]
+    )
 
 
 def _cost_fn(model, W: int):
     """``cost_fn(widths, counts, nnzs)``: candidate stripe costs,
-    vectorized over the width axis (``counts`` has shape [1, len(widths)])."""
+    vectorized over the width axis (``counts`` has shape [R, len(widths)])."""
     if isinstance(model, ColumnBlockComponentCostModel):
         alpha = model.alpha_table(W)
         beta = model.beta_table(W)
 
         def cost_fn(widths, counts, nnzs):
             return alpha[widths - 1] + counts[0] * beta[widths - 1]
+
+        return cost_fn
+
+    if isinstance(model, BlockComponentCostModel):
+        alpha_col = component_table(model.alpha_col, W)
+        beta_col = np.stack([component_table(c, W) for c in model.beta_col])
+
+        def cost_fn(widths, counts, nnzs):
+            # counts: [R, nw]; beta_col[:, widths-1]: [R, nw]
+            return alpha_col[widths - 1] + np.einsum(
+                "rw,rw->w", counts, beta_col[:, widths - 1]
+            )
 
         return cost_fn
 
@@ -97,17 +122,20 @@ def _cost_fn(model, W: int):
 
         return cost_fn
 
-    raise TypeError(
-        f"unsupported cost model {type(model).__name__} (the port plans "
-        f"1-D models only; 2-D models wait, see ROADMAP.md)"
-    )
+    raise TypeError(f"unsupported cost model {type(model).__name__}")
 
 
 def _native_tables(model, W):
-    """(alpha_tab, beta_tabs [1,W], gamma_tab|None) for the C++ DP."""
+    """(alpha_tab, beta_tabs [R,W], gamma_tab|None) for the C++ DP."""
     ws = np.arange(1, W + 1, dtype=np.float64)
     if isinstance(model, ColumnBlockComponentCostModel):
         return model.alpha_table(W), model.beta_table(W)[None, :], None
+    if isinstance(model, BlockComponentCostModel):
+        return (
+            component_table(model.alpha_col, W),
+            np.stack([component_table(c, W) for c in model.beta_col]),
+            None,
+        )
     if isinstance(model, AffineConnectivityModel):
         return (
             model.alpha + model.beta_vertex * ws,
@@ -122,11 +150,18 @@ def _native_tables(model, W):
     )
 
 
-def dp_partition(A: CSC, model, W: int) -> SplitPartition:
+def dp_partition(
+    A: CSC,
+    model,
+    W: int,
+    row_partition: SplitPartition | None = None,
+) -> SplitPartition:
     """Run the split-point DP; returns the optimal column partition.
 
-    Uses the C++ implementation when the native library loads; the
-    NumPy path below is the bitwise oracle and fallback.
+    2-D models count distinct row-blocks of ``row_partition`` (default:
+    every row its own block).  Uses the C++ implementation when the
+    native library loads; the NumPy path below is the bitwise oracle and
+    fallback.
     """
     if W < 1:
         raise ValueError(f"width cap W must be >= 1, got {W}")
@@ -136,16 +171,31 @@ def dp_partition(A: CSC, model, W: int) -> SplitPartition:
     pos, idx = A.pos, A.idx
     cost_fn = _cost_fn(model, W)
 
+    is_2d = isinstance(model, BlockComponentCostModel)
+    if is_2d:
+        Pi = row_partition if row_partition is not None else (
+            SplitPartition.trivial(m))
+        asg = Pi.to_map().asg
+        weights = _row_weights(model, Pi.widths().astype(np.int64))
+        num_groups = len(Pi)
+        grp = asg[idx]
+    else:
+        weights = None
+        num_groups = m
+        grp = idx
+
     alpha_tab, beta_tabs, gamma_tab = _native_tables(model, W)
     spl = dp_partition_native(
-        n, m, pos, idx, W, alpha_tab, beta_tabs, gamma_tab, None,
+        n, num_groups, pos, grp, W, alpha_tab, beta_tabs, gamma_tab, weights,
     )
     if spl is not None:
         return SplitPartition(spl)
 
-    weights = np.ones((1, max(m, 1)))
-    lst = np.full(max(m, 1), -1, dtype=np.int64)
-    cnt = np.zeros((1, n), dtype=np.float64)
+    if weights is None:
+        weights = np.ones((1, max(num_groups, 1)))
+    R = weights.shape[0]
+    lst = np.full(max(num_groups, 1), -1, dtype=np.int64)
+    cnt = np.zeros((R, n), dtype=np.float64)
 
     opt = np.full(n + 1, np.inf)
     opt[0] = 0.0
@@ -154,6 +204,8 @@ def dp_partition(A: CSC, model, W: int) -> SplitPartition:
     for jp in range(1, n + 1):
         c = jp - 1
         g = idx[pos[c] : pos[c + 1]]
+        if is_2d:
+            g = np.unique(asg[g])
         if g.size:
             old = lst[g]
             seen = old >= 0
