@@ -38,17 +38,45 @@ Phases (one line each; any failure raises and exits non-zero):
    and ``mul`` against the f64 oracle and the scipy product,
    ``tr_mul_mat`` at k=128 and ``mul_mat`` at k=32;
 8. per-call device times from CUDA events, kernel beside plain version
-   (the tile kernel also beside the stripe kernel on the same matrix's
-   1-D view), and the operators' per-call time on the host clock.
+   and beside one library call that computes the same function (cuSPARSE
+   SpMV/SpMM through a ``torch.sparse_csr_tensor`` of ``A.T``,
+   ``index_select``, a view/transpose/reshape; timed, never called by the
+   port), each kernel's bound (the larger of its bytes over 3.35 TB/s and
+   its f32 operations over 67 TFLOP/s, computed from this run's inputs:
+   the matrix's nonzeros, their index arrays, the vectors; a pack's stored
+   fill is not counted),
+   the tile kernel also beside the stripe kernel on the same matrix's 1-D
+   view, the chain beside ``CHAIN_ITERS`` stripe-kernel launches and as
+   many library calls, the scatter and stripe kernels on each of the six
+   packs of phases 4-6 (the route's guard), and the operators' per-call
+   time on the host clock;
+9. the chain at full width: ``tr_mul_chain`` on the flagship and FEM
+   operators, 5 iterations against the f64 oracle, then the timed 100
+   at alpha 0.999 (the JAX bench's setting);
+10. the scatter path: ``tr_mul``/``mul`` on the scattered matrix's
+    operator against the f64 product, and the route of each of the six
+    packs;
+11. the standalone relayout op at the flagship's R = 313.
+
+Phase 3 also holds the chain (n_iters 1, 2, 5; alpha None and 0.5; the
+square corpus, a multi-class DP plan, long stripes) against its plain
+version and the f64 oracle, the scatter kernel on width-1 packs (the
+corpus, a rectangle, a 90-entry column beside an empty one, columns for
+every lane group), and the relayout at R = 1, 3, 313 (bitwise).
 
 Each path is driven between a reset and a read of the launch counts:
-``tr_mul``/``mul`` of phases 4-5 (stripe TrSpMV and gather), the SpMM
-calls of phases 4-6 (SpMM kernel), then the 2-D calls of phase 7 (tile
-TrSpMV, and the SpMM kernel on the 1-D views).  Then each kernel is held
-against its plain version at the shapes those paths gave it: the stripe
-kernel on both packs of both operators, the gather on the FEM operator's
+``tr_mul``/``mul`` of phases 4-5 (stripe and scatter TrSpMV, gather),
+the SpMM calls of phases 4-6 (SpMM kernel), the 2-D calls of phase 7
+(tile TrSpMV, and the SpMM kernel on the 1-D views), the four
+``tr_mul_chain`` calls of phase 9 (one chain launch each, two gathers on
+the FEM), the scattered ``tr_mul``/``mul`` of phase 10 (scatter TrSpMV)
+and the relayout of phase 11.  Then each kernel is held against its
+plain version at the shapes those paths gave it: the stripe kernel on
+both packs of both operators, the gather on the FEM operator's
 permutation and its inverse (bitwise), the SpMM kernel on both packs of
-all five operators with their RHS, the tile kernel on the four 2-D packs.
+all five operators with their RHS, the tile kernel on the four 2-D
+packs, the chain on the flagship and FEM packs, the scatter kernel on
+every scatter-route pack, the relayout at R = 313 (bitwise).
 The next-to-last line is the kernels' JSON record; the last line is the
 run's JSON result.  It imports no JAX: the JAX package is the reference,
 not a dependency.
@@ -67,6 +95,7 @@ import torch
 import vbcs_tpu_torch as vt
 from vbcs_tpu_torch import native
 from vbcs_tpu_torch.ops import _lib
+from vbcs_tpu_torch.ops.scatter import MAX_MEAN_WIDTH, lanes_per_column
 from vbcs_tpu_torch.utils.timing import flushed_ms, host_ms, paired_ms
 
 from bench import blocky2d_matrix, blocky_matrix, fem_matrix, scattered_matrix
@@ -75,7 +104,13 @@ from bench import blocky2d_matrix, blocky_matrix, fem_matrix, scattered_matrix
 # the plain version (atomics) and the f64 oracle
 TOL = 2e-5
 SPMM_K = (1, 5, 32, 128, 130)  # scalar path, float4 path, two 128-col tiles
-KERNELS = (vt.tr_spmv, vt.gather, vt.tr_spmm, vt.tr_spmv_2d)
+KERNELS = (vt.tr_spmv, vt.gather, vt.tr_spmm, vt.tr_spmv_2d, vt.tr_spmv_chain,
+           vt.tr_spmv_scatter, vt.tile_relayout)
+CHAIN_ITERS = 100  # the timed chain, at the JAX bench's alpha (bench.py:495)
+CHAIN_ALPHA = 0.999
+# H100 SXM data sheet: device-memory rate, f32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -148,6 +183,97 @@ def mixed_stripes(B2) -> int:
         return 0
     return int((np.minimum.reduceat(u, starts)
                 != np.maximum.reduceat(u, starts)).sum())
+
+
+def chain_oracle(A, x, n_iters, alpha):
+    """(alpha * A.T)^n_iters @ x in f64 on the host."""
+    a = 1.0 if alpha is None else alpha
+    AT = sp.csr_matrix(A.T, dtype=np.float64)
+    y = np.asarray(x, dtype=np.float64)
+    for _ in range(n_iters):
+        y = a * (AT @ y)
+    return y
+
+
+def scatter_packs():
+    """1D-VBC packs for the scatter kernel's check: the corpus under a
+    width-1 plan, a rectangle, a column of 90 entries (past the JAX
+    kernel's 64-entry spill) beside an empty column, and columns long
+    enough for the 16- and 32-lane groups."""
+    one = vt.EquiChunker(1)
+    heavy = banded(2000, 2000, 6, 200, 21).tolil()
+    heavy[:90, 5] = 1.5
+    heavy[:, 7] = 0
+    heavy = heavy.tocsc()
+    heavy.eliminate_zeros()
+    packs = [(f"{name} w1", vt.vbc1d(A, 8, one)) for name, A in corpus()]
+    packs += [
+        ("rectangular_600x900 w1", vt.vbc1d(banded(600, 900, 5, 60, 17), 8, one)),
+        ("column_of_90_and_empty", vt.vbc1d(heavy.astype(np.float32), 8, one)),
+        ("columns_of_14", vt.vbc1d(banded(800, 700, 14, 100, 22), 8, one)),
+        ("columns_of_40", vt.vbc1d(banded(1200, 500, 40, 300, 23), 8, one)),
+    ]
+    return packs
+
+
+def csr_of_transpose(A, dev):
+    """``A.T`` as a CSR tensor on ``dev``: the CSC arrays of ``A`` read as
+    CSR.  The library yardstick (cuSPARSE through ``torch.sparse``),
+    timed beside the kernels; the port never calls it."""
+    A = sp.csc_matrix(A, dtype=np.float32)
+    A.sort_indices()
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr.astype(np.int32)),
+        torch.from_numpy(A.indices.astype(np.int32)),
+        torch.from_numpy(A.data), size=(A.shape[1], A.shape[0])).to(dev)
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time for the work, the larger of
+    its bytes over the device-memory rate and its f32 operations over
+    the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nonzeros(A) -> int:
+    return int(np.count_nonzero(sp.csc_matrix(A).data))
+
+
+def index_bytes(fmt, nnz) -> int:
+    """Bytes of the index arrays that place ``fmt``'s ``nnz`` nonzeros:
+    a row per nonzero and ``colptr`` for the scatter CSC; for a VBC pack
+    its stripe splits, block pointers and block rows (and row-block
+    splits), not ``ofs`` or ``col_stripe``, which follow from those."""
+    if isinstance(fmt, vt.ScatterDevice):
+        return 4 * nnz + 4 * fmt.colptr.numel()
+    arrays = (fmt.spl, fmt.pos, fmt.idx)
+    if isinstance(fmt, vt.VBC2DDevice):
+        arrays += (fmt.rspl,)
+    return sum(t.numel() * t.element_size() for t in arrays)
+
+
+def tr_spmv_work(fmt, nnz, with_y, n_iters=1):
+    """(bytes, flops) that ``y = alpha*A.T@x (+ beta*y)`` needs on the
+    matrix of ``fmt`` with ``nnz`` nonzeros: each nonzero's value and
+    index (:func:`index_bytes`) and x read once, y in (with_y) and y out
+    written once; an FMA per nonzero and the scaling per output, for each
+    iteration.  The pack's stored fill is not counted."""
+    nbytes = 4 * nnz + index_bytes(fmt, nnz) + 4 * (
+        fmt.m + fmt.n * (2 if with_y else 1))
+    flops = n_iters * (2 * nnz + fmt.n * (3 if with_y else 1))
+    return nbytes, flops
+
+
+def same_function(label, library, kernel, tol=TOL):
+    """Check, once before timing, that a library yardstick computes what
+    the kernel computes (``tol`` None: bitwise)."""
+    a, b = library(), kernel()
+    torch.cuda.synchronize()
+    ok = (torch.equal(a, b) if tol is None
+          else rel_err(a.cpu().numpy(), b.cpu().numpy()) <= tol)
+    check(ok, f"{label}: the library call disagrees with the kernel")
 
 
 def corpus():
@@ -289,6 +415,64 @@ def phase_kernels(dev, errs):
           f"{tile_worst[0]:.3e} vs plain, {tile_worst[1]:.3e} vs f64 oracle; "
           f"gather: {n_g} elements, masked and unmasked, bitwise equal",
           flush=True)
+
+
+def phase_kernels_slice4(dev, errs):
+    """The chain, scatter and relayout kernels against their plain
+    versions (and the chain and scatter against the f64 oracle)."""
+    rng = np.random.default_rng(10)
+    cases = [(name, A, 8, None) for name, A in corpus() if A.shape[0] == A.shape[1]]
+    cases += [
+        ("multiclass_dp_w4", banded(500, 500, 5, 60, 12), 4,
+         vt.DynamicTotalChunker(vt.model_1dvbc_memory(4, 4), 4)),
+        ("long_multigroup_stripes", long_stripes(), 8, vt.EquiChunker(8)),
+    ]
+    worst = [0.0, 0.0]
+    for name, A, W, method in cases:
+        fmt = vt.VBC1DDevice.from_host(vt.vbc1d(A, W, method), dev)
+        x = rng.standard_normal(A.shape[0]).astype(np.float32)
+        xt = torch.from_numpy(x).to(dev)
+        for n_iters in (1, 2, 5):
+            for alpha in (None, 0.5):
+                got = vt.tr_spmv_chain(fmt, xt, n_iters, alpha)
+                plain = vt.tr_spmv_chain_plain(fmt, xt, n_iters, alpha)
+                got, plain = got.cpu().numpy(), plain.cpu().numpy()
+                e_p = rel_err(got, plain)
+                e_o = rel_err(got, chain_oracle(A, x, n_iters, alpha))
+                check(np.isfinite(got).all() and got.shape == (A.shape[1],),
+                      f"{name}: bad chain output")
+                check(e_p <= TOL and e_o <= TOL,
+                      f"{name}: chain x{n_iters} off by {e_p:.2e} (plain), "
+                      f"{e_o:.2e} (oracle)")
+                # values grow as ||alpha*A||^k here: the relative error is
+                # checked, and the record's absolute one comes from the
+                # path's shapes, at a bounded alpha
+                worst = [max(worst[0], e_p), max(worst[1], e_o)]
+
+    packs = scatter_packs()
+    sc_worst = [0.0, 0.0]
+    lanes = set()
+    for name, B in packs:
+        fmt = vt.ScatterDevice.from_host(B, dev)
+        lanes.add(lanes_per_column(fmt))
+        e = check_tr(name, vt.tr_spmv_scatter, vt.tr_spmv_scatter_plain, B, fmt,
+                     rng, dev, errs)
+        sc_worst = [max(a, b) for a, b in zip(sc_worst, e)]
+    check(lanes == {4, 8, 16, 32}, f"scatter packs cover lane groups {lanes}")
+
+    for R, m in ((1, 1000), (3, 3000), (313, 320_000)):
+        x = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(dev)
+        got, plain = vt.tile_relayout(x, R), vt.tile_relayout_plain(x, R)
+        check(got.shape == (8, R * 128) and torch.equal(got, plain),
+              f"tile relayout differs from its plain version at R={R}")
+        errs["tile_relayout"] = max(errs["tile_relayout"],
+                                    float((got - plain).abs().max()))
+    print(f"[3 kernels, slice 4] chain: {6 * len(cases)} checks (n_iters 1, 2, "
+          f"5; alpha None, 0.5) on {len(cases)} square matrices, worst |Δ|/max|y| "
+          f"{worst[0]:.3e} vs plain, {worst[1]:.3e} vs f64 oracle; scatter: "
+          f"{2 * len(packs)} checks on {len(packs)} packs, lane groups "
+          f"{sorted(lanes)}, worst {sc_worst[0]:.3e} vs plain, {sc_worst[1]:.3e} "
+          f"vs f64 oracle; relayout at R = 1, 3, 313: bitwise equal", flush=True)
 
 
 def phase_flagship(dev):
@@ -490,6 +674,95 @@ def phase_2d(dev):
     return parts
 
 
+def phase_chain(flag, fem):
+    """``tr_mul_chain`` on the flagship and the auto-RCM FEM operators:
+    5 iterations at alpha = 1 / ||A||_1 (so |y| stays bounded) against the
+    f64 oracle, then the timed chain of ``CHAIN_ITERS`` at
+    ``CHAIN_ALPHA`` once.  Returns, per operator, the matrix, the
+    operator, x and the checked alpha."""
+    out = {}
+    for label, (A, op, xt, _) in (("flagship", flag), ("FEM", fem)):
+        alpha = float(1.0 / abs(A).sum(axis=0).max())
+        launched = vt.tr_spmv_chain.launches
+        got = op.tr_mul_chain(xt, 5, alpha)
+        timed = op.tr_mul_chain(xt, CHAIN_ITERS, CHAIN_ALPHA)
+        torch.cuda.synchronize()
+        got = got.cpu().numpy()
+        check(vt.tr_spmv_chain.launches - launched == 2,
+              f"{label}: a tr_mul_chain call was not one chain launch")
+        check(got.shape == (op.n,) and timed.shape == (op.n,)
+              and np.isfinite(got).all(), f"{label}: bad chain output")
+        e = rel_err(got, chain_oracle(A, xt.cpu().numpy(), 5, alpha))
+        check(e <= TOL, f"{label}: tr_mul_chain x5 off the f64 oracle by {e:.2e}")
+        print(f"[9 chain {label}] {op.m}x{op.n}, "
+              f"{'relabeled' if op.row_perm is not None else 'natural'}; "
+              f"tr_mul_chain(x, 5, alpha=1/||A||_1={alpha:.4g}) |Δ|/max {e:.3e} "
+              f"vs f64 oracle; tr_mul_chain(x, {CHAIN_ITERS}, {CHAIN_ALPHA}) "
+              f"ran (values grow as ||alpha*A||^k; not checked)", flush=True)
+        out[label] = (A, op, xt, alpha)
+    return out
+
+
+def phase_scatter(dev, flag, fem, spmm):
+    """``tr_mul``/``mul`` on ``bench.scattered_matrix()`` (its operator from
+    phase 6) against the f64 scipy product, and the route each of the six
+    packs of phases 4-6 takes."""
+    A = scattered_matrix().astype(np.float32)
+    op = spmm["scattered"][0]
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(op.m).astype(np.float32)
+    y = rng.standard_normal(op.n).astype(np.float32)
+    xf = rng.standard_normal(op.n).astype(np.float32)
+    xt, yt, xft = (torch.from_numpy(a).to(dev) for a in (x, y, xf))
+    got_tr = op.tr_mul(xt, 0.5, 0.25, yt)
+    got_fw = op.mul(xft)
+    torch.cuda.synchronize()
+    A64 = A.astype(np.float64)
+    got_tr, got_fw = got_tr.cpu().numpy(), got_fw.cpu().numpy()
+    check(got_tr.shape == (op.n,) and np.isfinite(got_tr).all()
+          and got_fw.shape == (op.m,) and np.isfinite(got_fw).all(),
+          "scattered: bad tr_mul/mul output")
+    e_tr = rel_err(got_tr, 0.5 * (A64.T @ x) + 0.25 * y.astype(np.float64))
+    e_fw = rel_err(got_fw, A64 @ xf)
+    check(e_tr <= TOL and e_fw <= TOL,
+          f"scattered off the f64 product: tr_mul {e_tr:.2e}, mul {e_fw:.2e}")
+    routes = {}
+    for label, o in (("flagship", flag[1]), ("FEM", fem[1]), ("scattered", op)):
+        for direction, host, route in (("A", o.host_tr, o.route_tr),
+                                       ("A.T", o.host_fw, o.route_fw)):
+            routes[f"{label} {direction}"] = (
+                float(np.diff(host.Phi.spl).mean()), route[0])
+    check(routes["scattered A"][1] == routes["scattered A.T"][1] == "scatter",
+          "the scattered matrix is not on the scatter route")
+    print(f"[10 scatter] scattered {op.m}x{op.n}, "
+          f"{'relabeled' if op.row_perm is not None else 'natural'}; "
+          f"tr_mul(alpha, beta, y) |Δ|/max {e_tr:.3e}, mul {e_fw:.3e} vs f64 "
+          f"scipy product; routes at MAX_MEAN_WIDTH = {MAX_MEAN_WIDTH} (pack: "
+          f"mean stripe width, route): "
+          + ", ".join(f"{k} {w:.3f} {r}" for k, (w, r) in routes.items()),
+          flush=True)
+    return A, op, xt, yt, xft, routes
+
+
+def phase_relayout(dev):
+    """The standalone relayout op at the flagship's R (320,000 -> 313
+    blocks of 1,024): no operator calls it."""
+    m = 320_000
+    R = -(-m // 1024)
+    x = torch.from_numpy(
+        np.random.default_rng(12).standard_normal(m).astype(np.float32)).to(dev)
+    out = vt.tile_relayout(x, R)
+    torch.cuda.synchronize()
+    tail = m - (R - 1) * 1024  # elements in the last, zero-padded block
+    check(out.shape == (8, R * 128)
+          and torch.equal(out[:, :128].reshape(-1), x[:1024])
+          and not out[tail // 128:, (R - 1) * 128:].any(),
+          "relayout: bad output")
+    print(f"[11 relayout] tile_relayout(x[{m}], R={R}) -> (8, {R * 128})",
+          flush=True)
+    return x, R
+
+
 def phase_path_shapes(flag, fem, spmm, errs):
     """Each kernel against its plain version on the formats, permutations,
     vectors and RHS of phases 4-6 (after the launch counts are read)."""
@@ -562,20 +835,71 @@ def phase_path_shapes_2d(parts, errs):
           flush=True)
 
 
+def phase_path_shapes_slice4(chains, scat_routes, rel, errs):
+    """The chain kernel on the flagship and FEM packs (5 iterations at
+    phase 9's alpha), the scatter kernel on every scatter-route pack of
+    phases 4-6 and 10, with and without alpha/beta/y, and the relayout at
+    phase 11's shape, each against its plain version."""
+    worst = worst_sc = 0.0
+    for label, (_, op, xt, alpha) in chains.items():
+        x = xt if op.row_perm is None else vt.gather(xt, op.perm_t)
+        got = vt.tr_spmv_chain(op.dev_tr, x, 5, alpha)
+        plain = vt.tr_spmv_chain_plain(op.dev_tr, x, 5, alpha)
+        e = rel_err(got.cpu().numpy(), plain.cpu().numpy())
+        check(e <= TOL, f"{label} chain off its plain version by {e:.2e}")
+        worst = max(worst, e)
+        errs["tr_spmv_chain"] = max(errs["tr_spmv_chain"],
+                                    float((got - plain).abs().max()))
+    g = torch.Generator(device=xt.device).manual_seed(13)
+    for label, fmt in scat_routes.items():
+        x = torch.randn(fmt.m, device=fmt.device, generator=g)
+        y = torch.randn(fmt.n, device=fmt.device, generator=g)
+        for args in ((None, None, None), (0.5, 0.25, y)):
+            got = vt.tr_spmv_scatter(fmt, x, *args)
+            plain = vt.tr_spmv_scatter_plain(fmt, x, *args)
+            e = rel_err(got.cpu().numpy(), plain.cpu().numpy())
+            check(e <= TOL, f"{label} pack: scatter kernel off its plain "
+                            f"version by {e:.2e}")
+            worst_sc = max(worst_sc, e)
+            errs["tr_spmv_scatter"] = max(errs["tr_spmv_scatter"],
+                                          float((got - plain).abs().max()))
+    x, R = rel
+    got, plain = vt.tile_relayout(x, R), vt.tile_relayout_plain(x, R)
+    check(torch.equal(got, plain), "relayout differs from its plain version")
+    print(f"[9-11 kernels at the path's shapes] chain on the flagship and FEM "
+          f"packs, 5 iterations: worst |Δ|/max|y| {worst:.3e} vs plain; scatter "
+          f"on the {len(scat_routes)} scatter-route packs, with and without "
+          f"alpha/beta/y: {worst_sc:.3e} vs plain (tol {TOL}); relayout at "
+          f"R={R}: bitwise equal", flush=True)
+
+
+def entry(warm, work):
+    """A kernel's timing record from ``paired_ms`` of (kernel, plain,
+    library) and its (bytes, flops)."""
+    bound_ms, bound_by = bound(*work)
+    return {"ms": warm[0], "plain_ms": warm[1], "library_ms": warm[2],
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def phase_timing_2d(dev, parts):
-    """Part (a): the tile kernel, its plain version and the stripe kernel
-    on the same matrix's 1-D view, warm and L2-flushed; end to end
-    ``tr_mul`` and ``tr_mul_mat``.  Part (b): tile against stripe on the
-    1-D view, warm and flushed (the mixed-height plan)."""
+    """Part (a): the tile kernel, its plain version, the library SpMV and
+    the stripe kernel on the same matrix's 1-D view, warm and L2-flushed;
+    end to end ``tr_mul`` and ``tr_mul_mat``.  Part (b): tile against
+    stripe on the 1-D view, warm and flushed (the mixed-height plan)."""
     out = {}
     for part, (A, op, xt, yt, _, Xt, _) in parts.items():
         fmt, view = op.dev_tr, op.view_tr
         calls = [lambda: vt.tr_spmv_2d(fmt, xt, 0.5, 0.25, yt),
                  lambda: vt.tr_spmv(view, xt, 0.5, 0.25, yt)]
         if part == "a":
-            calls.append(lambda: vt.tr_spmv_2d_plain(fmt, xt, 0.5, 0.25, yt))
+            AT = csr_of_transpose(A, dev)
+            same_function("2-D (a) SpMV",
+                          lambda: torch.addmv(yt, AT, xt, beta=0.25, alpha=0.5),
+                          calls[0])
+            calls += [lambda: vt.tr_spmv_2d_plain(fmt, xt, 0.5, 0.25, yt),
+                      lambda: torch.addmv(yt, AT, xt, beta=0.25, alpha=0.5)]
         warm = paired_ms(calls, dev)
-        cold = [flushed_ms(c, dev) for c in calls]
+        cold = [flushed_ms(c, dev) for c in calls[:2]]
         io = 4 * (fmt.m + 2 * fmt.n)  # x, y in, y out
         stored, nnz = fmt.val.numel(), A.nnz
         line = (f"[8 timing 2-D ({part}), {stored} stored values, {nnz} nnz] "
@@ -591,8 +915,11 @@ def phase_timing_2d(dev, parts):
                 f"{stored / (warm[1] * 1e6):.2f} Gstored/s, "
                 f"{nnz / (warm[1] * 1e6):.2f} Gnnz/s warm)")
         if part == "a":
-            line += (f"; plain {warm[2] * 1e3:.2f} us warm, "
-                     f"{cold[2] * 1e3:.2f} us flushed")
+            out["tr_spmv_2d"] = entry([warm[0], warm[2], warm[3]],
+                                      tr_spmv_work(fmt, nonzeros(A), True))
+            line += (f"; plain {warm[2] * 1e3:.2f} us warm; library (torch.addmv"
+                     f", CSR) {warm[3] * 1e3:.2f} us; bound "
+                     f"{out['tr_spmv_2d']['bound_ms'] * 1e3:.2f} us")
             e2e, e2e_mat = paired_ms([lambda: op.tr_mul(xt, 0.5, 0.25, yt),
                                       lambda: op.tr_mul_mat(Xt)], dev)
             wall = host_ms(lambda: op.tr_mul(xt, 0.5, 0.25, yt), dev)
@@ -600,64 +927,229 @@ def phase_timing_2d(dev, parts):
             line += (f"; end to end, device / host wall per call: tr_mul(alpha, "
                      f"beta, y) {e2e * 1e3:.2f} / {wall * 1e3:.2f} us, tr_mul_mat "
                      f"k=128 {e2e_mat * 1e3:.2f} / {wall_mat * 1e3:.2f} us")
-            out = {"tr_spmv_2d": (warm[0], warm[2])}
         print(line, flush=True)
     return out
+
+
+def operator_matrix(A, op):
+    """The matrix an operator's packs hold: ``A``, or ``A[perm][:, perm]``
+    on a relabeled operator."""
+    if op.row_perm is None:
+        return A
+    return sp.csc_matrix(A)[op.row_perm][:, op.row_perm]
 
 
 def phase_timing(dev, flag, fem, spmm):
     A, op, xt, yt = flag
     fmt = op.dev_tr
-    k_ms, p_ms = paired_ms(
+    AT = csr_of_transpose(A, dev)
+    same_function("flagship SpMV", lambda: torch.addmv(yt, AT, xt, beta=0.25, alpha=0.5),
+                  lambda: vt.tr_spmv(fmt, xt, 0.5, 0.25, yt))
+    warm = paired_ms(
         [lambda: vt.tr_spmv(fmt, xt, 0.5, 0.25, yt),
-         lambda: vt.tr_spmv_plain(fmt, xt, 0.5, 0.25, yt)], dev)
+         lambda: vt.tr_spmv_plain(fmt, xt, 0.5, 0.25, yt),
+         lambda: torch.addmv(yt, AT, xt, beta=0.25, alpha=0.5)], dev)
+    work = tr_spmv_work(fmt, nonzeros(A), True)
+    out = {"tr_spmv": entry(warm, work)}
     cold_ms = flushed_ms(lambda: vt.tr_spmv(fmt, xt, 0.5, 0.25, yt), dev)
     cold_plain = flushed_ms(lambda: vt.tr_spmv_plain(fmt, xt, 0.5, 0.25, yt), dev)
-    nbytes = fmt.nbytes + 4 * (fmt.m + 2 * fmt.n)  # + x, y in, y out
+    nbytes = work[0]
+    k_ms = warm[0]
     print(f"[8 timing tr_spmv, flagship] kernel {k_ms * 1e3:.2f} us/call "
           f"(back-to-back, L2-warm: {nbytes / 1e6:.1f} MB per call), "
-          f"{cold_ms * 1e3:.2f} us with L2 flushed; plain {p_ms * 1e3:.2f} us, "
-          f"{cold_plain * 1e3:.2f} us flushed; "
-          f"{nbytes / (k_ms * 1e6):.1f} GB/s warm, "
+          f"{cold_ms * 1e3:.2f} us with L2 flushed; plain {warm[1] * 1e3:.2f} us, "
+          f"{cold_plain * 1e3:.2f} us flushed; library (torch.addmv, CSR) "
+          f"{warm[2] * 1e3:.2f} us; bound {out['tr_spmv']['bound_ms'] * 1e3:.2f} "
+          f"us; {nbytes / (k_ms * 1e6):.1f} GB/s warm, "
           f"{nbytes / (cold_ms * 1e6):.1f} GB/s flushed, "
           f"{A.nnz / (k_ms * 1e6):.2f} Gnnz/s warm", flush=True)
 
     A2, op2, xt2, yt2 = fem
-    g_ms, gp_ms = paired_ms([lambda: vt.gather(xt2, op2.perm_t),
-                             lambda: vt.gather_plain(xt2, op2.perm_t)], dev)
+    perm = op2.perm_t
+    same_function("FEM gather", lambda: xt2.index_select(0, perm),
+                  lambda: vt.gather(xt2, perm), tol=None)
+    warm = paired_ms([lambda: vt.gather(xt2, perm),
+                      lambda: vt.gather_plain(xt2, perm),
+                      lambda: xt2.index_select(0, perm)], dev)
+    out["gather"] = entry(warm, (12 * perm.numel(), 0))
     e2e_fem, e2e_flag = paired_ms(
         [lambda: op2.tr_mul(xt2, 2.0, -0.5, yt2),
          lambda: op.tr_mul(xt, 0.5, 0.25, yt)], dev)
     wall_flag = host_ms(lambda: op.tr_mul(xt, 0.5, 0.25, yt), dev)
     wall_fem = host_ms(lambda: op2.tr_mul(xt2, 2.0, -0.5, yt2), dev)
-    print(f"[8 timing gather, FEM perm of {op2.m}] kernel {g_ms * 1e3:.2f} "
-          f"us/call, plain {gp_ms * 1e3:.2f} us; end-to-end tr_mul(alpha, "
-          f"beta, y), device / host wall per call: flagship "
-          f"{e2e_flag * 1e3:.2f} / {wall_flag * 1e3:.2f} us, FEM auto-RCM "
+    print(f"[8 timing gather, FEM perm of {op2.m}] kernel {warm[0] * 1e3:.2f} "
+          f"us/call, plain {warm[1] * 1e3:.2f} us, library (index_select) "
+          f"{warm[2] * 1e3:.2f} us; end-to-end tr_mul(alpha, beta, y), device / "
+          f"host wall per call: flagship {e2e_flag * 1e3:.2f} / "
+          f"{wall_flag * 1e3:.2f} us, FEM auto-RCM ({op2.route_tr[0]} route) "
           f"{e2e_fem * 1e3:.2f} / {wall_fem * 1e3:.2f} us", flush=True)
 
-    spmm_ms = {}
-    for label in ("flagship", "scattered"):
+    for label, A_s in (("flagship", A), ("scattered", None)):
         op_s, Xt, _ = spmm[label]
+        if A_s is None:
+            A_s = operator_matrix(scattered_matrix().astype(np.float32), op_s)
         fmt, k = op_s.dev_tr, Xt.shape[1]
-        s_ms, sp_ms = paired_ms([lambda: vt.tr_spmm(fmt, Xt),
-                                 lambda: vt.tr_spmm_plain(fmt, Xt)], dev)
+        AT_s = AT if label == "flagship" else csr_of_transpose(A_s, dev)
+        same_function(f"{label} SpMM", lambda: AT_s @ Xt, lambda: vt.tr_spmm(fmt, Xt))
+        warm = paired_ms([lambda: vt.tr_spmm(fmt, Xt),
+                          lambda: vt.tr_spmm_plain(fmt, Xt),
+                          lambda: AT_s @ Xt], dev)
+        nnz = nonzeros(A_s)
+        work = (4 * nnz + index_bytes(fmt, nnz) + 4 * k * (fmt.m + fmt.n),
+                2 * nnz * k)
+        rec = entry(warm, work)
         # the X rows the blocks read and the Y written, beside the format
         nbytes = fmt.nbytes + 4 * k * (fmt.idx.numel() + fmt.n)
-        nnz = int(np.count_nonzero(op_s.host_tr.val))
-        print(f"[8 timing tr_spmm, {label} k={k}] kernel {s_ms * 1e3:.2f} us/call,"
-              f" plain {sp_ms * 1e3:.2f} us; {nbytes / 1e6:.1f} MB per call, "
-              f"{nbytes / (s_ms * 1e6):.1f} GB/s effective, "
-              f"{nnz * k / (s_ms * 1e6):.2f} Gnnz*k/s", flush=True)
-        spmm_ms[label] = (s_ms, sp_ms)
+        print(f"[8 timing tr_spmm, {label} k={k}] kernel {warm[0] * 1e3:.2f} "
+              f"us/call, plain {warm[1] * 1e3:.2f} us, library (CSR @ X) "
+              f"{warm[2] * 1e3:.2f} us, bound {rec['bound_ms'] * 1e3:.2f} us; "
+              f"{nbytes / 1e6:.1f} MB per call, "
+              f"{nbytes / (warm[0] * 1e6):.1f} GB/s effective, "
+              f"{nnz * k / (warm[0] * 1e6):.2f} Gnnz*k/s", flush=True)
+        if label == "flagship":
+            out["tr_spmm"] = rec
     op_f, Xt, _ = spmm["flagship"]
     e2e_mat = paired_ms([lambda: op_f.tr_mul_mat(Xt)], dev)[0]
     wall_mat = host_ms(lambda: op_f.tr_mul_mat(Xt), dev)
     print(f"[8 timing tr_mul_mat, flagship k={Xt.shape[1]}] end to end, device "
           f"/ host wall per call: {e2e_mat * 1e3:.2f} / {wall_mat * 1e3:.2f} us",
           flush=True)
-    return {"tr_spmv": (k_ms, p_ms), "gather": (g_ms, gp_ms),
-            "tr_spmm": spmm_ms["flagship"]}
+    return out
+
+
+def chain_loops(fmt, AT, n_iters, alpha):
+    """The chain's two yardsticks: ``n_iters`` launches of the stripe
+    kernel, and ``n_iters`` library SpMV calls (``torch.addmv`` on the CSR
+    of ``A.T``, beta 0)."""
+    buf = torch.empty(fmt.n, dtype=torch.float32, device=fmt.device)
+
+    def launches(x):
+        for _ in range(n_iters):
+            x = vt.tr_spmv(fmt, x, alpha)
+        return x
+
+    def library(x):
+        for _ in range(n_iters):
+            x = torch.addmv(buf, AT, x, beta=0.0, alpha=alpha)
+        return x
+
+    return launches, library
+
+
+def phase_timing_slice4(dev, chains, scat, rel):
+    """The chain kernel at ``CHAIN_ITERS`` beside its plain version, the
+    stripe-kernel launch loop and the library loop; the operators' chain
+    end to end; the scatter kernel on the scattered matrix beside its plain
+    version and the library SpMV; the scatter and stripe kernels on each
+    of the six packs (the route's guard); the relayout."""
+    out = {}
+    n_it, a = CHAIN_ITERS, CHAIN_ALPHA
+    A, op, xt, _ = chains["flagship"]
+    fmt = op.dev_tr
+    launches, library = chain_loops(fmt, csr_of_transpose(A, dev), n_it, a)
+    alpha = chains["flagship"][3]  # bounded values for the comparison
+    check_lib = chain_loops(fmt, csr_of_transpose(A, dev), 5, alpha)
+    same_function("flagship chain", lambda: check_lib[1](xt),
+                  lambda: vt.tr_spmv_chain(fmt, xt, 5, alpha))
+    same_function("flagship chain launches", lambda: check_lib[0](xt),
+                  lambda: vt.tr_spmv_chain(fmt, xt, 5, alpha))
+    warm = paired_ms([lambda: vt.tr_spmv_chain(fmt, xt, n_it, a),
+                      lambda: vt.tr_spmv_chain_plain(fmt, xt, n_it, a),
+                      lambda: library(xt), lambda: launches(xt)], dev, iters=5)
+    out["tr_spmv_chain"] = entry(warm, tr_spmv_work(fmt, nonzeros(A), False, n_it))
+    out["tr_spmv_chain"]["launch_loop_ms"] = warm[3]
+    A2, op2, xt2, _ = chains["FEM"]
+    x2 = vt.gather(xt2, op2.perm_t)
+    launches2, library2 = chain_loops(
+        op2.dev_tr, csr_of_transpose(operator_matrix(A2, op2), dev), n_it, a)
+    warm2 = paired_ms([lambda: vt.tr_spmv_chain(op2.dev_tr, x2, n_it, a),
+                       lambda: library2(x2), lambda: launches2(x2)], dev, iters=5)
+    e2e = paired_ms([lambda: op.tr_mul_chain(xt, n_it, a),
+                     lambda: op2.tr_mul_chain(xt2, n_it, a)], dev, iters=5)
+    wall = [host_ms(lambda: o.tr_mul_chain(x, n_it, a), dev)
+            for o, x in ((op, xt), (op2, xt2))]
+    per_it = tr_spmv_work(fmt, nonzeros(A), False)[0]
+    print(f"[8 timing chain x{n_it}, alpha {a}] flagship: kernel "
+          f"{warm[0] * 1e3:.2f} us/call ({warm[0] * 1e3 / n_it:.3f} us/iteration, "
+          f"{A.nnz * n_it / (warm[0] * 1e6):.1f} Gnnz/s, "
+          f"{per_it * n_it / (warm[0] * 1e6):.1f} GB/s of per-iteration "
+          f"traffic), {n_it} stripe-kernel launches {warm[3] * 1e3:.2f} us, "
+          f"library loop (torch.addmv, CSR) {warm[2] * 1e3:.2f} us, plain "
+          f"{warm[1] * 1e3:.2f} us, bound {out['tr_spmv_chain']['bound_ms'] * 1e3:.2f}"
+          f" us ({out['tr_spmv_chain']['bound_by']}); FEM (relabeled space): "
+          f"kernel {warm2[0] * 1e3:.2f} us, launches {warm2[2] * 1e3:.2f} us, "
+          f"library loop {warm2[1] * 1e3:.2f} us; tr_mul_chain end to end, device "
+          f"/ host wall per call: flagship {e2e[0] * 1e3:.2f} / "
+          f"{wall[0] * 1e3:.2f} us, FEM auto-RCM {e2e[1] * 1e3:.2f} / "
+          f"{wall[1] * 1e3:.2f} us", flush=True)
+
+    A3, op3, xt3, yt3, _, routes = scat
+    _, fmt3, _ = op3.route_tr
+    AT3 = csr_of_transpose(operator_matrix(A3, op3), dev)
+    x3 = xt3 if op3.row_perm is None else vt.gather(xt3, op3.perm_t)
+    same_function("scattered SpMV",
+                  lambda: torch.addmv(yt3, AT3, x3, beta=0.25, alpha=0.5),
+                  lambda: vt.tr_spmv_scatter(fmt3, x3, 0.5, 0.25, yt3))
+    warm = paired_ms([lambda: vt.tr_spmv_scatter(fmt3, x3, 0.5, 0.25, yt3),
+                      lambda: vt.tr_spmv_scatter_plain(fmt3, x3, 0.5, 0.25, yt3),
+                      lambda: torch.addmv(yt3, AT3, x3, beta=0.25, alpha=0.5)],
+                     dev)
+    work = tr_spmv_work(fmt3, nonzeros(A3), True)
+    out["tr_spmv_scatter"] = entry(warm, work)
+    cold = flushed_ms(lambda: vt.tr_spmv_scatter(fmt3, x3, 0.5, 0.25, yt3), dev)
+    e2e = paired_ms([lambda: op3.tr_mul(xt3, 0.5, 0.25, yt3)], dev)[0]
+    wall = host_ms(lambda: op3.tr_mul(xt3, 0.5, 0.25, yt3), dev)
+    nbytes = work[0]
+    print(f"[8 timing scatter, scattered A, {fmt3.row.numel()} entries] kernel "
+          f"{warm[0] * 1e3:.2f} us/call warm ({nbytes / 1e6:.2f} MB, "
+          f"{nbytes / (warm[0] * 1e6):.1f} GB/s), {cold * 1e3:.2f} us flushed; "
+          f"plain {warm[1] * 1e3:.2f} us, library (torch.addmv, CSR) "
+          f"{warm[2] * 1e3:.2f} us, bound "
+          f"{out['tr_spmv_scatter']['bound_ms'] * 1e3:.2f} us; tr_mul(alpha, beta,"
+          f" y) end to end, device / host wall {e2e * 1e3:.2f} / "
+          f"{wall * 1e3:.2f} us", flush=True)
+
+    guard = {}
+    g = torch.Generator(device=dev).manual_seed(14)
+    for label, o in (("flagship", chains["flagship"][1]), ("FEM", op2),
+                     ("scattered", op3)):
+        for direction, host, stripe, route in (
+                ("A", o.host_tr, o.dev_tr, o.route_tr),
+                ("A.T", o.host_fw, o.dev_fw, o.route_fw)):
+            sc = route[1] if route[0] == "scatter" else vt.ScatterDevice.from_host(
+                host, dev)
+            x = torch.randn(stripe.m, device=dev, generator=g)
+            t_sc, t_st = paired_ms([lambda: vt.tr_spmv_scatter(sc, x),
+                                    lambda: vt.tr_spmv(stripe, x)], dev)
+            cnt = torch.diff(sc.colptr)
+            key = f"{label} {direction}"
+            guard[key] = {"mean_width": routes[key][0], "route": route[0],
+                          "scatter_us": t_sc * 1e3, "stripe_us": t_st * 1e3}
+            print(f"[8 guard {key}] mean stripe width {routes[key][0]:.3f}, "
+                  f"entries per column {float(cnt.float().mean()):.2f} mean / "
+                  f"{int(cnt.max())} max, lane group {lanes_per_column(sc)}: "
+                  f"scatter {t_sc * 1e3:.2f} us, stripe {t_st * 1e3:.2f} us, "
+                  f"route {route[0]} "
+                  f"({'the faster' if (t_sc <= t_st) == (route[0] == 'scatter') else 'the slower'})",
+                  flush=True)
+    print("GUARD " + json.dumps(guard), flush=True)
+
+    x, R = rel
+    xpad = torch.zeros(R * 1024, device=dev)
+    xpad[: x.numel()] = x
+    same_function("relayout",
+                  lambda: xpad.view(R, 8, 128).transpose(0, 1).reshape(8, R * 128),
+                  lambda: vt.tile_relayout(x, R), tol=None)
+    warm = paired_ms([lambda: vt.tile_relayout(x, R),
+                      lambda: vt.tile_relayout_plain(x, R),
+                      lambda: xpad.view(R, 8, 128).transpose(0, 1).reshape(8, R * 128)],
+                     dev)
+    out["tile_relayout"] = entry(warm, (4 * x.numel() + 4 * R * 1024, 0))
+    print(f"[8 timing relayout R={R}] kernel {warm[0] * 1e3:.2f} us/call, plain "
+          f"{warm[1] * 1e3:.2f} us, library (view/transpose/reshape of the "
+          f"padded x) {warm[2] * 1e3:.2f} us, bound "
+          f"{out['tile_relayout']['bound_ms'] * 1e3:.2f} us", flush=True)
+    return out
 
 
 def reset_launches():
@@ -671,8 +1163,9 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
-    errs = {"tr_spmv": 0.0, "gather": 0.0, "tr_spmm": 0.0, "tr_spmv_2d": 0.0}
+    errs = {k.__name__: 0.0 for k in KERNELS}
     phase_kernels(dev, errs)
+    phase_kernels_slice4(dev, errs)
 
     reset_launches()
     flag = phase_flagship(dev)
@@ -681,7 +1174,8 @@ def main():
     check(launches["tr_spmv"] > 0 and launches["gather"] > 0,
           f"tr_mul/mul path skipped a kernel: {launches}")
     print(f"[4-5 launches] tr_mul/mul path: stripe TrSpMV {launches['tr_spmv']}, "
-          f"gather {launches['gather']}", flush=True)
+          f"scatter TrSpMV {vt.tr_spmv_scatter.launches}, gather "
+          f"{launches['gather']}", flush=True)
 
     reset_launches()
     spmm = phase_spmm(dev, flag, fem)
@@ -700,37 +1194,64 @@ def main():
     print(f"[7 launches] 2-D path: tile TrSpMV {launches['tr_spmv_2d']}, "
           f"SpMM on the 1-D views {spmm_2d}", flush=True)
 
+    reset_launches()
+    chains = phase_chain(flag, fem)
+    launches["tr_spmv_chain"] = vt.tr_spmv_chain.launches
+    others = {k.__name__: k.launches for k in KERNELS
+              if k not in (vt.tr_spmv_chain, vt.gather)}
+    check(launches["tr_spmv_chain"] == 4 and vt.gather.launches == 4
+          and not any(others.values()),
+          f"chain path: chain {launches['tr_spmv_chain']} launches (want 4, "
+          f"one per call), gather {vt.gather.launches} (want 4), others {others}")
+    print(f"[9 launches] tr_mul_chain path, 4 calls: chain kernel "
+          f"{launches['tr_spmv_chain']}, gather {vt.gather.launches}", flush=True)
+
+    reset_launches()
+    scat = phase_scatter(dev, flag, fem, spmm)
+    launches["tr_spmv_scatter"] = vt.tr_spmv_scatter.launches
+    check(launches["tr_spmv_scatter"] > 0 and vt.tr_spmv.launches == 0,
+          f"scatter path: scatter TrSpMV {launches['tr_spmv_scatter']}, stripe "
+          f"TrSpMV {vt.tr_spmv.launches} launches")
+    print(f"[10 launches] scattered tr_mul/mul path: scatter TrSpMV "
+          f"{launches['tr_spmv_scatter']}, gather {vt.gather.launches}", flush=True)
+
+    reset_launches()
+    rel = phase_relayout(dev)
+    launches["tile_relayout"] = vt.tile_relayout.launches
+    check(launches["tile_relayout"] == 1, "relayout op did not launch its kernel")
+
     phase_path_shapes(flag, fem, spmm, errs)
     phase_path_shapes_2d(parts, errs)
+    scat_routes = {f"{label} {d}": route[1]
+                   for label, o in (("flagship", flag[1]), ("FEM", fem[1]),
+                                    ("scattered", scat[1]))
+                   for d, route in (("A", o.route_tr), ("A.T", o.route_fw))
+                   if route[0] == "scatter"}
+    phase_path_shapes_slice4(chains, scat_routes, rel, errs)
     ms = phase_timing(dev, flag, fem, spmm)
     ms.update(phase_timing_2d(dev, parts))
+    ms.update(phase_timing_slice4(dev, chains, scat, rel))
     check("jax" not in sys.modules, "the port loaded JAX")
-    rec = [
-        {"name": "tr_spmv_stripe", "route": "cuda",
-         "source": "vbcs_tpu_torch/csrc/trspmv.cu",
-         "replaces": "vbcs_tpu/ops/pallas_trspmv3.py:1145",
-         "launches": launches["tr_spmv"], "max_abs_err": errs["tr_spmv"],
-         "ms": ms["tr_spmv"][0], "plain_ms": ms["tr_spmv"][1]},
-        {"name": "gather", "route": "cuda",
-         "source": "vbcs_tpu_torch/csrc/gather.cu",
-         "replaces": "vbcs_tpu/ops/windowed_gather.py:184",
-         "launches": launches["gather"], "max_abs_err": errs["gather"],
-         "ms": ms["gather"][0], "plain_ms": ms["gather"][1]},
-        {"name": "tr_spmm", "route": "cuda",
-         "source": "vbcs_tpu_torch/csrc/spmm.cu",
-         "replaces": "vbcs_tpu/ops/pallas_spmm4.py:209, "
-                     "vbcs_tpu/ops/pallas_spmm3.py:42, "
-                     "vbcs_tpu/ops/pallas_spmm.py:33, "
-                     "vbcs_tpu/ops/pallas_trspmv.py:215",
-         "launches": launches["tr_spmm"], "max_abs_err": errs["tr_spmm"],
-         "ms": ms["tr_spmm"][0], "plain_ms": ms["tr_spmm"][1]},
-        {"name": "tr_spmv_2d", "route": "cuda",
-         "source": "vbcs_tpu_torch/csrc/trspmv2d.cu",
-         "replaces": "vbcs_tpu/ops/pallas_trspmv2d.py:336, "
-                     "vbcs_tpu/ops/pallas_trspmv2.py:435",
-         "launches": launches["tr_spmv_2d"], "max_abs_err": errs["tr_spmv_2d"],
-         "ms": ms["tr_spmv_2d"][0], "plain_ms": ms["tr_spmv_2d"][1]},
+    meta = [
+        ("tr_spmv_stripe", "tr_spmv", "trspmv.cu",
+         "vbcs_tpu/ops/pallas_trspmv3.py:1145"),
+        ("gather", "gather", "gather.cu", "vbcs_tpu/ops/windowed_gather.py:184"),
+        ("tr_spmm", "tr_spmm", "spmm.cu",
+         "vbcs_tpu/ops/pallas_spmm4.py:209, vbcs_tpu/ops/pallas_spmm3.py:42, "
+         "vbcs_tpu/ops/pallas_spmm.py:33, vbcs_tpu/ops/pallas_trspmv.py:215"),
+        ("tr_spmv_2d", "tr_spmv_2d", "trspmv2d.cu",
+         "vbcs_tpu/ops/pallas_trspmv2d.py:336, vbcs_tpu/ops/pallas_trspmv2.py:435"),
+        ("tr_spmv_chain", "tr_spmv_chain", "chain.cu",
+         "vbcs_tpu/ops/pallas_trspmv3.py:954"),
+        ("tr_spmv_scatter", "tr_spmv_scatter", "scatter.cu",
+         "vbcs_tpu/ops/pallas_scatter.py:185"),
+        ("tile_relayout", "tile_relayout", "relayout.cu",
+         "vbcs_tpu/ops/pallas_trspmv3.py:1117"),
     ]
+    rec = [{"name": name, "route": "cuda",
+            "source": f"vbcs_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches[key], "max_abs_err": errs[key], **ms[key]}
+           for name, key, src, replaces in meta]
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all, the build "
           f"included", flush=True)
     print(smi)

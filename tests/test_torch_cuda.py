@@ -6,10 +6,11 @@ machine that has only the port's dependencies:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
-Tolerance for the stripe and tile TrSpMV and the SpMM: ``|Δ| / max|y|
-<= 2e-5`` (f32 sums in another order than the plain version's atomic
-``index_add_``); the gather moves values without arithmetic and must be
-bitwise equal.
+Tolerance for the stripe, tile, chain and scatter TrSpMV and the SpMM:
+``|Δ| / max|y| <= 2e-5`` (f32 sums in another order than the plain
+version's atomic ``index_add_``, and than the f64 oracle); the gather
+and the relayout move values without arithmetic and must be bitwise
+equal.
 """
 
 import os
@@ -22,11 +23,13 @@ import torch
 
 import vbcs_tpu_torch as vt
 from corpus import NAMES, load_corpus
+from vbcs_tpu_torch.ops import _lib
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from bench import blocky2d_matrix, blocky_matrix, fem_matrix  # noqa: E402
-from chip_smoke import (long_stripes, mixed_height_pack,  # noqa: E402
-                        mixed_stripes, straddle_pack)
+from chip_smoke import (chain_oracle, long_stripes,  # noqa: E402
+                        mixed_height_pack, mixed_stripes, scatter_packs,
+                        straddle_pack)
 
 TOL = 2e-5
 
@@ -318,3 +321,172 @@ def test_operator_2d_on_card(plan, cuda_device):
     assert rel_err(op.tr_mul_mat(Xt[: A.shape[0]].contiguous()),
                    torch.from_numpy(A64.T @ X[: A.shape[0]])) <= TOL
     assert rel_err(op.mul_mat(Xt), torch.from_numpy(A64 @ X)) <= TOL
+
+
+def oracle_chain(A, x, n_iters, alpha):
+    return torch.from_numpy(chain_oracle(A, x.double().cpu().numpy(), n_iters,
+                                         alpha))
+
+
+# square matrices for the chain: name -> (matrix, W, chunker)
+CHAIN_CASES = {
+    "uniform8": CASES["uniform8"],
+    "multiclass_dp": CASES["multiclass_dp"],
+    "long_multigroup_stripes": lambda: (long_stripes(), 8, vt.EquiChunker(8)),
+    "flagship_l2048": CASES["flagship_l2048"],
+}
+
+
+@pytest.mark.parametrize("alpha", [None, 0.5])
+@pytest.mark.parametrize("n_iters", [1, 2, 5])
+@pytest.mark.parametrize("case", sorted(CHAIN_CASES))
+def test_tr_spmv_chain_kernel_matches_plain(case, n_iters, alpha, cuda_device):
+    A, W, method = CHAIN_CASES[case]()
+    fmt = vt.VBC1DDevice.from_host(vt.vbc1d(A, W, method), cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(n_iters)
+    x = torch.randn(A.shape[0], device=cuda_device, generator=g)
+    before = vt.tr_spmv_chain.launches
+    got = vt.tr_spmv_chain(fmt, x, n_iters, alpha)
+    assert vt.tr_spmv_chain.launches == before + 1  # one launch per chain
+    want = vt.tr_spmv_chain_plain(fmt, x, n_iters, alpha)
+    torch.cuda.synchronize()
+    assert got.shape == (A.shape[1],) and torch.isfinite(got).all()
+    assert rel_err(got, want) <= TOL
+    assert rel_err(got, oracle_chain(A, x, n_iters, alpha)) <= TOL
+
+
+def launch_chain(fmt, x, n_iters, alpha, blocks):
+    """The chain's C launcher at a given grid size (the wrapper always
+    takes every block that fits): (return code, output)."""
+    out = torch.empty(fmt.n, device=x.device)
+    bufs = torch.empty(2, fmt.n, device=x.device)
+    rc = _lib.load().vbcs_tr_spmv_chain(
+        fmt.n, n_iters, fmt.spl.data_ptr(), fmt.pos.data_ptr(),
+        fmt.idx.data_ptr(), fmt.ofs.data_ptr(), fmt.col_stripe.data_ptr(),
+        fmt.val.data_ptr(), x.data_ptr(), alpha, bufs[0].data_ptr(),
+        bufs[1].data_ptr(), out.data_ptr(), blocks,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    return rc, out
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 7])
+def test_tr_spmv_chain_small_grids(blocks, cuda_device):
+    """Fewer threads than columns: each thread walks several columns, and
+    the grid barrier still orders the iterations."""
+    A, W, method = CASES["flagship_l2048"]()
+    fmt = vt.VBC1DDevice.from_host(vt.vbc1d(A, W, method), cuda_device)
+    x = torch.randn(A.shape[0], device=cuda_device)
+    rc, got = launch_chain(fmt, x, 4, 0.25, blocks)
+    assert rc == 0
+    assert rel_err(got, vt.tr_spmv_chain_plain(fmt, x, 4, 0.25)) <= TOL
+
+
+def test_tr_spmv_chain_grid_too_large_raises(cuda_device):
+    """A cooperative launch whose blocks cannot all be resident is refused,
+    and the launcher's code makes the wrapper's check raise."""
+    A, W, method = CASES["uniform8"]()
+    fmt = vt.VBC1DDevice.from_host(vt.vbc1d(A, W, method), cuda_device)
+    x = torch.randn(A.shape[0], device=cuda_device)
+    rc, _ = launch_chain(fmt, x, 3, 1.0, 1 << 20)
+    assert rc != 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _lib.check(_lib.load(), rc, "tr_spmv_chain")
+    # the refusal leaves the context usable
+    got = vt.tr_spmv_chain(fmt, x, 3)
+    assert rel_err(got, vt.tr_spmv_chain_plain(fmt, x, 3)) <= TOL
+
+
+@pytest.mark.parametrize("k", [40, 80])
+def test_operator_chain_on_card(k, cuda_device):
+    A = fem_matrix(k=k).astype(np.float32)
+    op = vt.VBCOperator.from_csc(A, W=8, device=cuda_device)
+    assert (op.row_perm is not None) == (k >= 80)
+    x = torch.randn(A.shape[0], device=cuda_device)
+    chains, gathers = vt.tr_spmv_chain.launches, vt.gather.launches
+    got = op.tr_mul_chain(x, 5, 0.125)
+    assert vt.tr_spmv_chain.launches == chains + 1
+    assert vt.gather.launches == gathers + (2 if k >= 80 else 0)
+    assert rel_err(got, oracle_chain(A, x, 5, 0.125)) <= TOL
+    assert torch.equal(op.tr_mul_chain(x, 0), x)
+    with pytest.raises(ValueError, match="square"):
+        vt.VBCOperator.from_csc(A[:, :100].tocsc(), device=cuda_device
+                                ).tr_mul_chain(x, 2)
+
+
+SCATTER_PACKS = dict(scatter_packs())
+
+
+@pytest.mark.parametrize("with_y", [False, True])
+@pytest.mark.parametrize("case", sorted(SCATTER_PACKS))
+def test_tr_spmv_scatter_kernel_matches_plain(case, with_y, cuda_device):
+    B = SCATTER_PACKS[case]
+    fmt = vt.ScatterDevice.from_host(B, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(B.m, device=cuda_device, generator=g)
+    y = torch.randn(B.n, device=cuda_device, generator=g)
+    args = (0.5, 0.25, y) if with_y else ()
+    before = vt.tr_spmv_scatter.launches
+    got = vt.tr_spmv_scatter(fmt, x, *args)
+    assert vt.tr_spmv_scatter.launches == before + 1
+    want = vt.tr_spmv_scatter_plain(fmt, x, *args)
+    torch.cuda.synchronize()
+    assert got.shape == (B.n,) and torch.isfinite(got).all()
+    assert rel_err(got, want) <= TOL
+    oracle = B.tr_mul(x.double().cpu().numpy(), *(
+        (0.5, 0.25, y.double().cpu().numpy()) if with_y else ()))
+    assert rel_err(got, torch.from_numpy(oracle)) <= TOL
+
+
+@pytest.mark.parametrize("lanes", [4, 8, 16, 32])
+def test_tr_spmv_scatter_every_lane_group(lanes, cuda_device, monkeypatch):
+    """Each lane group on the same pack (long and empty columns)."""
+    from vbcs_tpu_torch.ops import scatter as pst
+
+    monkeypatch.setattr(pst, "lanes_per_column", lambda fmt: lanes)
+    fmt = vt.ScatterDevice.from_host(SCATTER_PACKS["column_of_90_and_empty"],
+                                     cuda_device)
+    x = torch.randn(fmt.m, device=cuda_device)
+    assert rel_err(vt.tr_spmv_scatter(fmt, x),
+                   vt.tr_spmv_scatter_plain(fmt, x)) <= TOL
+
+
+def test_tr_spmv_scatter_basis_vectors_exact(cuda_device):
+    B = vt.vbc1d(banded(256, 256, 4, 20, 9), 8, vt.EquiChunker(1))
+    fmt = vt.ScatterDevice.from_host(B, cuda_device)
+    D = torch.from_numpy(B.to_dense().astype(np.float32))
+    for i in list(range(0, 256, 37)) + [255]:
+        e = torch.zeros(256, device=cuda_device)
+        e[i] = 1.0
+        assert torch.equal(vt.tr_spmv_scatter(fmt, e).cpu(), D[i, :])
+
+
+@pytest.mark.parametrize("reorder", ["never", "auto"])
+def test_operator_scatter_route_on_card(reorder, cuda_device):
+    """An unstructured matrix: both directions take the scatter route,
+    natural and relabeled by auto-RCM."""
+    rng = np.random.default_rng(9)
+    n, nnz = 8000, 56000
+    A = sp.coo_matrix((rng.standard_normal(nnz).astype(np.float32),
+                       (rng.integers(0, n, nnz), rng.integers(0, n, nnz))),
+                      shape=(n, n)).tocsc()
+    A.sum_duplicates()
+    op = vt.VBCOperator.from_csc(A, W=8, reorder=reorder, device=cuda_device)
+    assert (op.row_perm is not None) == (reorder == "auto")
+    assert op.route_tr[0] == op.route_fw[0] == "scatter"
+    x = torch.randn(A.shape[0], device=cuda_device)
+    y = torch.randn(A.shape[1], device=cuda_device)
+    before = vt.tr_spmv_scatter.launches
+    got = op.tr_mul(x, 0.5, 0.25, y)
+    assert vt.tr_spmv_scatter.launches == before + 1
+    A64 = A.astype(np.float64)
+    want = 0.5 * (A64.T @ x.double().cpu().numpy()) + 0.25 * y.double().cpu().numpy()
+    assert rel_err(got, torch.from_numpy(want)) <= TOL
+
+
+@pytest.mark.parametrize("R, m", [(1, 1000), (3, 3000), (8, 8192), (313, 320_000)])
+def test_tile_relayout_kernel_bitwise(R, m, cuda_device):
+    x = torch.randn(m, device=cuda_device)
+    before = vt.tile_relayout.launches
+    got = vt.tile_relayout(x, R)
+    assert vt.tile_relayout.launches == before + 1
+    assert torch.equal(got, vt.tile_relayout_plain(x, R))

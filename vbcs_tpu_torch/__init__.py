@@ -5,17 +5,18 @@ keeps the JAX package's layout, so each module has its counterpart
 there:
 
 * ``formats``  — CSC ingest, the host ``VBC1D``/``VBC2D`` (exact NumPy
-  oracles), and ``VBC1DDevice``/``VBC2DDevice``, their arrays on a torch
-  device;
+  oracles), and ``VBC1DDevice``/``VBC2DDevice``/``ScatterDevice``, their
+  arrays on a torch device;
 * ``plan``     — chunkers, the ``DynamicTotalChunker`` optimal DP, the
   ``AlternatingPacker`` 2-D planner, symmetric RCM and its locality
   estimate;
 * ``models``   — the 1-D and 2-D cost models;
 * ``ops``      — the hand-written CUDA kernels (``csrc/``) with their
   plain PyTorch versions;
-* ``native``   — ctypes bindings to the JAX package's C++ host paths;
-* ``operator`` — ``VBCOperator`` and ``VBC2DOperator`` (``tr_mul``/
-  ``mul``, ``tr_mul_mat``/``mul_mat``).
+* ``native``   — ctypes bindings to the C++ host paths (the port's own
+  copy of the JAX package's source);
+* ``operator`` — ``VBCOperator`` (``tr_mul``/``mul``, ``tr_mul_chain``,
+  ``tr_mul_mat``/``mul_mat``) and ``VBC2DOperator``.
 
 Importing this package loads no JAX.  Devices are never picked
 implicitly: every constructor that places tensors takes ``device``.
@@ -23,7 +24,7 @@ implicitly: every constructor that places tensors takes ``device``.
 
 from .api import default_1d_partitioner, default_2d_partitioner, vbc1d, vbc2d
 from .formats.csc import CSC
-from .formats.device import VBC1DDevice, VBC2DDevice
+from .formats.device import ScatterDevice, VBC1DDevice, VBC2DDevice
 from .formats.partition import MapPartition, SplitPartition
 from .formats.vbc1d import VBC1D, pack_1dvbc
 from .formats.vbc2d import VBC2D, pack_vbc2d
@@ -43,7 +44,10 @@ from .models.cost import (
     total_value,
 )
 from .operator import VBC2DOperator, VBCOperator, route_tr_spmv, route_tr_spmv_2d
+from .ops.chain import tr_spmv_chain, tr_spmv_chain_plain
 from .ops.gather import gather, gather_plain
+from .ops.relayout import tile_relayout, tile_relayout_plain
+from .ops.scatter import tr_spmv_scatter, tr_spmv_scatter_plain
 from .ops.spmm import tr_spmm, tr_spmm_plain
 from .ops.trspmv import tr_spmv, tr_spmv_plain
 from .ops.trspmv2d import tr_spmv_2d, tr_spmv_2d_plain

@@ -8,6 +8,9 @@ the matrix for Mosaic (width and (u, w) classes, A-tables, window ids,
 slot space).  The GPU kernels read the host VBC1D/VBC2D arrays as they
 are, so these formats are only their int32/f32 copies on an explicit
 device, plus ``col_stripe[j]``, the stripe that owns output column ``j``.
+``ScatterDevice`` is the port of ``ScatterFormat`` in
+``vbcs_tpu/ops/pallas_scatter.py``: the same per-column entry lists, as
+a CSC on the device instead of an (8, Np) slot buffer with a router.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["VBC1DDevice", "VBC2DDevice"]
+__all__ = ["VBC1DDevice", "VBC2DDevice", "ScatterDevice"]
 
 _I32_MAX = np.iinfo(np.int32).max
 
@@ -28,6 +31,32 @@ def _i32(a, name: str, device) -> torch.Tensor:
     if a.size and (int(a.max()) > _I32_MAX or int(a.min()) < 0):
         raise ValueError(f"{name} does not fit in int32")
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+
+
+def _vbc1d_arrays(host):
+    """``(m, n, spl, pos, idx, ofs, val)`` of a host 1D-VBC, the index
+    arrays as int64; raises ``ValueError`` on an inconsistent pack, a
+    block row out of range or dimensions beyond int32."""
+    spl = np.asarray(host.Phi.spl, dtype=np.int64)
+    pos = np.asarray(host.pos, dtype=np.int64)
+    idx = np.asarray(host.idx, dtype=np.int64)
+    ofs = np.asarray(host.ofs, dtype=np.int64)
+    val = np.asarray(host.val)
+    L = spl.size - 1
+    m, n = int(host.m), int(host.n)
+    widths = np.diff(spl)
+    nblk = np.diff(pos)
+    if not (pos.size == ofs.size == L + 1 and spl[0] == 0 and spl[-1] == n
+            and pos[0] == 0 and pos[-1] == idx.size and ofs[0] == 0
+            and ofs[-1] == val.size and np.all(widths >= 0)
+            and np.all(nblk >= 0)
+            and np.array_equal(np.diff(ofs), nblk * widths)):
+        raise ValueError("inconsistent 1D-VBC pack")
+    if idx.size and (int(idx.min()) < 0 or int(idx.max()) >= m):
+        raise ValueError("block row index out of range")
+    if max(m, n) > _I32_MAX:
+        raise ValueError("matrix dimensions do not fit in int32")
+    return m, n, spl, pos, idx, ofs, val
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,26 +95,9 @@ class VBC1DDevice:
         stored as f32.  Raises ``ValueError`` on an inconsistent pack or
         on an index that does not fit in int32 (the kernel does no bounds
         checks of its own)."""
-        spl = np.asarray(host.Phi.spl, dtype=np.int64)
-        pos = np.asarray(host.pos, dtype=np.int64)
-        idx = np.asarray(host.idx, dtype=np.int64)
-        ofs = np.asarray(host.ofs, dtype=np.int64)
-        val = np.asarray(host.val)
+        m, n, spl, pos, idx, ofs, val = _vbc1d_arrays(host)
         L = spl.size - 1
-        m, n = int(host.m), int(host.n)
-        widths = np.diff(spl)
-        nblk = np.diff(pos)
-        if not (pos.size == ofs.size == L + 1 and spl[0] == 0 and spl[-1] == n
-                and pos[0] == 0 and pos[-1] == idx.size and ofs[0] == 0
-                and ofs[-1] == val.size and np.all(widths >= 0)
-                and np.all(nblk >= 0)
-                and np.array_equal(np.diff(ofs), nblk * widths)):
-            raise ValueError("inconsistent 1D-VBC pack")
-        if idx.size and (int(idx.min()) < 0 or int(idx.max()) >= m):
-            raise ValueError("block row index out of range")
-        if max(m, n) > _I32_MAX:
-            raise ValueError("matrix dimensions do not fit in int32")
-        col_stripe = np.repeat(np.arange(L, dtype=np.int64), widths)
+        col_stripe = np.repeat(np.arange(L, dtype=np.int64), np.diff(spl))
         return VBC1DDevice(
             m=m,
             n=n,
@@ -251,3 +263,59 @@ class VBC2DDevice:
             m=self.m, n=self.n, W=self.W, spl=self.spl, pos=pos.int(),
             idx=idx.int(), ofs=self.ofs, val=self.val,
             col_stripe=self.col_stripe)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScatterDevice:
+    """A 1D-VBC pack as a CSC on a torch device — each column's (row,
+    value) entries, explicit fill kept — for the column-parallel scatter
+    kernel (``ops/scatter.py``)."""
+
+    m: int
+    n: int
+    colptr: torch.Tensor  # [n + 1] int32 entry pointers per column
+    row: torch.Tensor  # [nnz_stored] int32 row of each entry
+    val: torch.Tensor  # [nnz_stored] f32 value of each entry
+
+    @property
+    def device(self) -> torch.device:
+        return self.val.device
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the format arrays (each read once per call)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.colptr, self.row, self.val))
+
+    @staticmethod
+    def from_host(host, device) -> "ScatterDevice":
+        """Flatten a host 1D-VBC (this port's or the JAX package's) into
+        per-column entry lists (``ops.scatter.column_entries``), each
+        column's entries in block order, and copy them to ``device``.
+        Raises ``ValueError`` on an inconsistent pack or when an index or
+        the entry count does not fit in int32."""
+        from ..ops.scatter import column_entries
+
+        m, n, _, _, _, _, val = _vbc1d_arrays(host)
+        cols, js, rows, vidx = column_entries(host)
+        order = np.lexsort((js, cols))
+        colptr = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(np.bincount(cols, minlength=n), out=colptr[1:])
+        return ScatterDevice(
+            m=m,
+            n=n,
+            colptr=_i32(colptr, "colptr", device),
+            row=_i32(rows[order], "row", device),
+            val=torch.from_numpy(np.ascontiguousarray(
+                val[vidx[order]], dtype=np.float32)).to(device),
+        )
+
+    @functools.cached_property
+    def value_coords(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(row, col) of every entry, int64 — the index form the plain
+        PyTorch TrSpMV uses (computed once per format)."""
+        counts = (self.colptr[1:] - self.colptr[:-1]).long()
+        col = torch.repeat_interleave(
+            torch.arange(self.n, device=self.device), counts,
+            output_size=self.row.numel())
+        return self.row.long(), col

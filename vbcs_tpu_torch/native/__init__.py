@@ -1,11 +1,12 @@
 """ctypes bindings for the C++ host fast paths (built with g++ on first use).
 
-Port of ``vbcs_tpu/native/__init__.py``.  The C++ source is the JAX
-package's own ``vbcs_tpu/native/vbc_native.cpp``, found by file path and
-compiled into ``build/`` at the repository root; importing it as a
-module would load JAX (``vbcs_tpu/__init__.py``), so only the file is
-shared.  The bindings keep the JAX package's signatures; the slice
-needs the DP planner, the 1D-VBC packer and the overlap chunker.
+Port of ``vbcs_tpu/native/__init__.py``.  The C++ source is the port's
+own ``vbc_native.cpp`` beside this file, a verbatim copy of the JAX
+package's, so the planner stays bitwise the same while the port builds
+and reads nothing of the JAX package.  It is compiled into ``build/`` at
+the repository root.  The bindings keep the JAX package's signatures;
+the port needs the DP planner, the 1D-VBC packer and the overlap
+chunker.
 
 Set ``VBCS_NO_NATIVE=1`` to force the pure-NumPy implementations, which
 stay the bitwise oracles.
@@ -30,7 +31,7 @@ __all__ = [
 ]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SRC = os.path.join(_ROOT, "vbcs_tpu", "native", "vbc_native.cpp")
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vbc_native.cpp")
 SO = os.path.join(_ROOT, "build", "libvbcnative.so")
 _lock = threading.Lock()
 _lib = None

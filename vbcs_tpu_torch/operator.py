@@ -5,10 +5,14 @@ plans and packs ``A`` (and ``A.T``) on the host exactly as the JAX
 operator does — the min-memory DP, ``pack_1dvbc`` and the auto-RCM
 decision — then copies the packs to an explicit torch ``device``:
 
-* ``tr_mul``: ``y = alpha * A.T @ x + beta * y`` through the stripe
-  kernel (``ops/trspmv.py``), alpha/beta fused into its store;
-* ``mul``: ``y = alpha * A @ x + beta * y``, the same kernel on the
+* ``tr_mul``: ``y = alpha * A.T @ x + beta * y`` through the kernel
+  :func:`route_tr_spmv` picks for the pack — the stripe kernel
+  (``ops/trspmv.py``) or, on unstructured packs, the column-parallel
+  scatter kernel (``ops/scatter.py``) — alpha/beta fused into its store;
+* ``mul``: ``y = alpha * A @ x + beta * y``, the same route on the
   column-striped ``A.T`` (scatter-free);
+* ``tr_mul_chain``: ``y = (alpha * A.T)^k @ x`` for a square operator, one
+  launch of the persistent chain kernel (``ops/chain.py``);
 * ``tr_mul_mat``/``mul_mat``: ``Y = A.T @ X`` and ``Y = A @ X`` for a
   dense RHS ``X [rows, k]``, through the stripe SpMM kernel
   (``ops/spmm.py``) on the same two packs;
@@ -23,8 +27,7 @@ and W swapped; ``tr_mul``/``mul`` run the tile kernel
 SpMM kernel on their 1-D views, as the JAX operator does.
 
 Every kernel writes natural order, so nothing follows it on a natural
-operator.  f64, bool and int32 semirings and ``tr_mul_chain`` wait
-(ROADMAP.md).
+operator.  f64, bool and int32 semirings wait (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -39,7 +42,9 @@ from .api import default_1d_partitioner, vbc2d
 from .formats.csc import CSC
 from .formats.device import VBC1DDevice, VBC2DDevice
 from .formats.vbc1d import VBC1D, pack_1dvbc
+from .ops.chain import tr_spmv_chain
 from .ops.gather import gather
+from .ops.scatter import pack_scatter, tr_spmv_scatter
 from .ops.spmm import _check_mat, tr_spmm
 from .ops.trspmv import _check_vec, tr_spmv
 from .ops.trspmv2d import tr_spmv_2d
@@ -51,12 +56,25 @@ __all__ = ["VBCOperator", "VBC2DOperator", "route_tr_spmv", "route_tr_spmv_2d"]
 _WAITS = "is not ported yet; see ROADMAP.md, queue 1"
 
 
-def route_tr_spmv(B, device):
+def route_tr_spmv(B, device, stripe: VBC1DDevice | None = None):
     """The per-call TrSpMV kernel :meth:`VBCOperator.tr_mul` runs for a
     packed f32 format ``B`` — ``(name, fmt, call)`` with
-    ``call(fmt, x) -> y`` — for harnesses that must time the shipped
-    path.  The port has one route: the stripe kernel takes every plan."""
-    return "stripe", VBC1DDevice.from_host(B, device), tr_spmv
+    ``call(fmt, x, alpha, beta, y) -> y`` — for harnesses that must time
+    the shipped path, and the one place the operator's route is decided.
+
+    ``"scatter"`` (the column-parallel kernel on ``B``'s CSC) when the
+    scatter guard admits ``B`` (``ops.scatter.scatter_admits``: mean
+    stripe width at most ``MAX_MEAN_WIDTH``), else ``"stripe"``.  The JAX
+    package tries its one-shot first and reaches the scatter tier only
+    when that pack refuses; the port's stripe kernel refuses nothing, so
+    the guard alone decides.  ``stripe`` is ``B`` already on ``device``,
+    reused instead of a second copy."""
+    fmt = pack_scatter(B, device)
+    if fmt is not None:
+        return "scatter", fmt, tr_spmv_scatter
+    if stripe is None:
+        stripe = VBC1DDevice.from_host(B, device)
+    return "stripe", stripe, tr_spmv
 
 
 def route_tr_spmv_2d(B2, device):
@@ -215,34 +233,67 @@ class VBCOperator:
 
     # ---- compute ---------------------------------------------------------
 
-    def _apply(self, fmt, x, alpha, beta, y):
+    @functools.cached_property
+    def route_tr(self):
+        """``route_tr_spmv`` of the A pack, ``(name, fmt, call)``; the
+        scatter pack is built on first use."""
+        if self.dev_tr is None:
+            raise ValueError("operator packed without the transposed direction")
+        return route_tr_spmv(self.host_tr, self.device, self.dev_tr)
+
+    @functools.cached_property
+    def route_fw(self):
+        """``route_tr_spmv`` of the A.T pack (for ``mul``; lazy)."""
+        if self.dev_fw is None:
+            raise ValueError("operator packed without the forward direction")
+        return route_tr_spmv(self.host_fw, self.device, self.dev_fw)
+
+    def _apply(self, route, x, alpha, beta, y):
+        _, fmt, call = route
         if self.row_perm is None:
-            return tr_spmv(fmt, x, alpha, beta, y)  # alpha/beta fused
+            return call(fmt, x, alpha, beta, y)  # alpha/beta fused
         # the gather reads x[perm] unchecked on the card, and y skips the
-        # kernel: check both as tr_spmv would
+        # kernel: check both as the kernel's wrapper would
         _check_vec("x", x, fmt.m, fmt.device)
         if y is not None and beta is not None:
             _check_vec("y", y, fmt.n, fmt.device)
-        out = tr_spmv(fmt, gather(x, self.perm_t), alpha)  # alpha fused
+        out = call(fmt, gather(x, self.perm_t), alpha)  # alpha fused
         return _axpby(gather(out, self.inv_t), None, beta, y)
 
     def tr_mul(self, x, alpha=None, beta=None, y=None):
         """y = alpha * (A.T @ x) + beta * y on the operator's device
         (reference ``mul!(y, A', x, alpha, beta)``, with ``alpha``
-        applied)."""
-        if self.dev_tr is None:
-            raise ValueError("operator packed without the transposed direction")
-        return self._apply(self.dev_tr, x, alpha, beta, y)
+        applied), through the kernel :func:`route_tr_spmv` picks."""
+        return self._apply(self.route_tr, x, alpha, beta, y)
 
     def mul(self, x, alpha=None, beta=None, y=None):
         """y = alpha * (A @ x) + beta * y on the operator's device
-        (scatter-free: the gather kernel on the A.T pack)."""
-        if self.dev_fw is None:
-            raise ValueError("operator packed without the forward direction")
-        return self._apply(self.dev_fw, x, alpha, beta, y)
+        (scatter-free: the routed kernel on the A.T pack)."""
+        return self._apply(self.route_fw, x, alpha, beta, y)
 
     def tr_mul_chain(self, x, n_iters: int, alpha=None):
-        raise NotImplementedError(f"tr_mul_chain {_WAITS} item 6")
+        """y = (alpha * A.T)^n_iters @ x — iterative TrSpMV in one launch
+        of the persistent chain kernel (``ops/chain.py``), whatever the
+        plan; alpha scales every iteration.
+
+        The operator must be square (``ValueError`` otherwise).
+        ``n_iters == 0`` returns a copy of ``x``.  An auto-RCM operator
+        gathers x into permuted space once, runs the whole chain there
+        and gathers y out once."""
+        if self.dev_tr is None:
+            raise ValueError("operator packed without the transposed direction")
+        if self.m != self.n:
+            raise ValueError(f"tr_mul_chain needs a square operator, got "
+                             f"{self.m}x{self.n}")
+        if n_iters < 0:
+            raise ValueError(f"n_iters must be >= 0, got {n_iters}")
+        _check_vec("x", x, self.m, self.device)
+        if n_iters == 0:
+            return x.clone()
+        if self.row_perm is None:
+            return tr_spmv_chain(self.dev_tr, x, n_iters, alpha)
+        out = tr_spmv_chain(self.dev_tr, gather(x, self.perm_t), n_iters, alpha)
+        return gather(out, self.inv_t)
 
     def _apply_mat(self, fmt, X):
         if self.row_perm is None:

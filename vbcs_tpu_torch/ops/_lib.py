@@ -106,6 +106,14 @@ def load():
             lib.vbcs_tr_spmm.restype = i32
             lib.vbcs_gather.argtypes = [i32, vp, vp, vp, vp, vp]
             lib.vbcs_gather.restype = i32
+            lib.vbcs_tr_spmv_scatter.argtypes = [i32, i32] + [vp] * 5 + [
+                f32, f32, vp, vp]
+            lib.vbcs_tr_spmv_scatter.restype = i32
+            lib.vbcs_tr_spmv_chain.argtypes = [i32, i32] + [vp] * 7 + [
+                f32, vp, vp, vp, i32, vp]
+            lib.vbcs_tr_spmv_chain.restype = i32
+            lib.vbcs_tile_relayout.argtypes = [i32, i32, vp, vp, vp]
+            lib.vbcs_tile_relayout.restype = i32
             lib.vbcs_error_string.argtypes = [i32]
             lib.vbcs_error_string.restype = ctypes.c_char_p
             _lib = lib

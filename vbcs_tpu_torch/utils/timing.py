@@ -51,10 +51,11 @@ def _elapsed_ms(work: Callable[[], object], before=None) -> float:
     return start.elapsed_time(stop)
 
 
-def paired_ms(fns: Sequence[Callable[[], object]], device) -> list[float]:
+def paired_ms(fns: Sequence[Callable[[], object]], device,
+              iters: int = ITERS) -> list[float]:
     """Median device milliseconds per call of each of ``fns``.
 
-    Each rep times ``ITERS`` back-to-back calls of every function between
+    Each rep times ``iters`` back-to-back calls of every function between
     two CUDA events on the current stream, after a device sleep twice as
     long as the host takes to enqueue them; the order alternates between
     reps.  Raises ``ValueError`` for a non-CUDA device: a CPU clock is no
@@ -62,7 +63,7 @@ def paired_ms(fns: Sequence[Callable[[], object]], device) -> list[float]:
     device = _cuda(device)
 
     def run(f):
-        for _ in range(ITERS):
+        for _ in range(iters):
             f()
 
     with torch.cuda.device(device):
@@ -84,7 +85,7 @@ def paired_ms(fns: Sequence[Callable[[], object]], device) -> list[float]:
             for k in order:
                 times[k].append(_elapsed_ms(
                     lambda: run(fns[k]),
-                    before=lambda: torch.cuda._sleep(cycles)) / ITERS)
+                    before=lambda: torch.cuda._sleep(cycles)) / iters)
     return [statistics.median(t) for t in times]
 
 
