@@ -18,8 +18,10 @@ Phases (one line each; any failure raises and exits non-zero):
    SpMM at k = 1, 5, 32, 128, 130); the 2-D tile TrSpMV, with and without
    alpha/beta/y, on the corpus under ``vbc2d(A, 4, 4)``, an explicit
    mixed-height row partition, a tile straddling an aligned 1024-row
-   boundary, a 600 x 900 rectangle and a U=W=8 default plan; the gather
-   on a masked random permutation (bitwise);
+   boundary, a 600 x 900 rectangle, a U=W=8 default plan, a pack with a
+   height-0 tile and an empty stripe, stripes wider than a warp (w = 33,
+   40, 64), tiles taller than 32 / w rows and one tile per stripe; the
+   gather on a masked random permutation (bitwise);
 4. the main path at flagship scale: ``bench.blocky_matrix()`` (320,000
    columns, ~2.55M nonzeros) through ``VBCOperator.from_csc(A, W=8,
    device="cuda")``, ``tr_mul`` with alpha/beta/y and ``mul``, then
@@ -46,8 +48,11 @@ Phases (one line each; any failure raises and exits non-zero):
    the matrix's nonzeros, their index arrays, the vectors; a pack's stored
    fill is not counted),
    the tile kernel also beside the stripe kernel on the same matrix's 1-D
-   view, the chain beside ``CHAIN_ITERS`` stripe-kernel launches and as
-   many library calls, the scatter and stripe kernels on each of the six
+   view and beside itself on a one-tile pack (its launch floor), the chain beside ``CHAIN_ITERS`` stripe-kernel launches and as
+   many library calls, beside itself at a shared-memory budget of 0
+   (streamed), and beside its barrier floor (a 1,024-column diagonal
+   pack at the full grid), with its grid and the share of each pack
+   resident in shared memory, the scatter and stripe kernels on each of the six
    packs of phases 4-6 (the route's guard), and the operators' per-call
    time on the host clock;
 9. the chain at full width: ``tr_mul_chain`` on the flagship and FEM
@@ -60,7 +65,9 @@ Phases (one line each; any failure raises and exits non-zero):
 
 Phase 3 also holds the chain (n_iters 1, 2, 5; alpha None and 0.5; the
 square corpus, a multi-class DP plan, long stripes) against its plain
-version and the f64 oracle, the scatter kernel on width-1 packs (the
+version and the f64 oracle, with its pack resident in shared memory,
+partly resident (a budget of half the largest block range) and streamed
+(budget 0), the scatter kernel on width-1 packs (the
 corpus, a rectangle, a 90-entry column beside an empty one, columns for
 every lane group), and the relayout at R = 1, 3, 313 (bitwise).
 
@@ -75,7 +82,8 @@ plain version at the shapes those paths gave it: the stripe kernel on
 both packs of both operators, the gather on the FEM operator's
 permutation and its inverse (bitwise), the SpMM kernel on both packs of
 all five operators with their RHS, the tile kernel on the four 2-D
-packs, the chain on the flagship and FEM packs, the scatter kernel on
+packs, the chain on the flagship and FEM packs (resident, partly
+resident and streamed), the scatter kernel on
 every scatter-route pack, the relayout at R = 313 (bitwise).
 The next-to-last line is the kernels' JSON record; the last line is the
 run's JSON result.  It imports no JAX: the JAX package is the reference,
@@ -95,7 +103,9 @@ import torch
 import vbcs_tpu_torch as vt
 from vbcs_tpu_torch import native
 from vbcs_tpu_torch.ops import _lib
+from vbcs_tpu_torch.ops.chain import chain_grid, chain_plan
 from vbcs_tpu_torch.ops.scatter import MAX_MEAN_WIDTH, lanes_per_column
+from vbcs_tpu_torch.ops.trspmv2d import lanes_per_stripe
 from vbcs_tpu_torch.utils.timing import flushed_ms, host_ms, paired_ms
 
 from bench import blocky2d_matrix, blocky_matrix, fem_matrix, scattered_matrix
@@ -175,6 +185,41 @@ def straddle_pack():
                          vt.SplitPartition(np.array([0, 4, 8])), 4, 4)
 
 
+def zero_height_pack(pkg=vt):
+    """A 6 x 7 pack with an empty row block, a zero-width stripe, an empty
+    stripe, and a tile of height 0 (row block 1) first in stripe 0 — built
+    with ``pkg``'s ``pack_vbc2d``/``VBC2D`` (this port's by default)."""
+    D = np.zeros((6, 7), np.float32)
+    D[0:2, 0:3] = [[1, 2, 3], [4, 5, 6]]
+    D[5, 5:7] = [7, 8]
+    B2 = pkg.pack_vbc2d(pkg.CSC.from_scipy(sp.csc_matrix(D)),
+                        pkg.SplitPartition(np.array([0, 2, 2, 5, 6])),
+                        pkg.SplitPartition(np.array([0, 3, 3, 5, 7])), 3, 3)
+    pos = B2.pos + (np.arange(B2.pos.size) >= 1)
+    return pkg.VBC2D(m=B2.m, n=B2.n, U=B2.U, W=B2.W, Pi=B2.Pi, Phi=B2.Phi,
+                     pos=pos, idx=np.insert(B2.idx, 0, 1), ofs=B2.ofs,
+                     val=B2.val)
+
+
+def lane_group_packs():
+    """2-D packs for the tile kernel's lane layout: stripes wider than a
+    warp (w = 33, 40, 64: column chunks), tiles taller than 32 / w rows
+    (u = 9 at w = 8), and one tile per stripe."""
+    def equi(A, U, W):
+        return vt.vbc2d(A, U, W, vt.AlternatingPacker(vt.EquiChunker(W),
+                                                      vt.EquiChunker(U)))
+    rng = np.random.default_rng(24)
+    one = sp.csc_matrix(np.kron(np.eye(50, dtype=np.float32),
+                                rng.standard_normal((4, 8)).astype(np.float32)))
+    return [
+        ("wide_w33", equi(banded(300, 330, 6, 40, 25), 3, 33)),
+        ("wide_w40", equi(banded(300, 400, 6, 40, 26), 3, 40)),
+        ("wide_w64", equi(banded(200, 640, 4, 30, 27), 2, 64)),
+        ("tall_u9_w8", equi(banded(900, 400, 12, 60, 28), 9, 8)),
+        ("one_tile_stripes", equi(one, 4, 8)),
+    ]
+
+
 def mixed_stripes(B2) -> int:
     """How many stripes of a 2-D pack hold tiles of more than one height."""
     u = B2.Pi.widths()[B2.idx]
@@ -193,6 +238,48 @@ def chain_oracle(A, x, n_iters, alpha):
     for _ in range(n_iters):
         y = a * (AT @ y)
     return y
+
+
+def launch_chain(fmt, x, n_iters, alpha, blocks, budget):
+    """The chain's C launcher at an explicit grid and shared-memory budget
+    a block (``tr_spmv_chain`` takes the largest budget and every block
+    that fits it), under ``chain_plan`` for the same pair: (return code,
+    output).  A comparison launch: it is not counted in
+    ``tr_spmv_chain.launches``."""
+    plan = chain_plan(fmt, blocks, budget)
+    out = torch.empty(fmt.n, device=x.device)
+    bufs = torch.empty(2, fmt.n, device=x.device)
+    count = torch.empty(1, dtype=torch.int32, device=x.device)
+    rc = _lib.load().vbcs_tr_spmv_chain(
+        n_iters, fmt.L, plan.buf.data_ptr(), fmt.spl.data_ptr(), fmt.pos.data_ptr(),
+        fmt.idx.data_ptr(), fmt.ofs.data_ptr(), fmt.col_stripe.data_ptr(),
+        fmt.val.data_ptr(), x.data_ptr(), 1.0 if alpha is None else alpha,
+        bufs[0].data_ptr(), bufs[1].data_ptr(), out.data_ptr(),
+        count.data_ptr(), blocks, budget,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    return rc, out
+
+
+def chain_bytes(fmt, plan):
+    """(bytes of each block's range, bytes resident in each block) of a
+    chain plan: values and block rows, 4 bytes each."""
+    lo, hi, res = plan.lo[:-1].long(), plan.lo[1:].long(), plan.res.long()
+    at = (fmt.ofs + fmt.pos).long()
+    return 4 * (at[hi] - at[lo]), 4 * (at[res] - at[lo])
+
+
+def chain_residencies(fmt, dev):
+    """``(label, blocks, budget)`` of three launches of the chain kernel on
+    ``fmt``: the wrapper's (the largest budget: the flagship and the FEM
+    are then resident in full), one whose budget is half the largest
+    block range of the streamed grid as the plan lays it out in shared
+    memory (partly resident), and budget 0 (streamed)."""
+    blocks0, _ = chain_grid(dev, 0)
+    plan = chain_plan(fmt, blocks0, 0)
+    at = (fmt.spl + plan.pad + fmt.pos).long()  # shared words, padding included
+    half = int((at[plan.lo[1:].long()] - at[plan.lo[:-1].long()]).max()) * 4 // 32 * 16
+    return [("resident", *chain_grid(dev)), ("partly resident", *chain_grid(dev, half)),
+            ("streamed", blocks0, 0)]
 
 
 def scatter_packs():
@@ -390,6 +477,8 @@ def phase_kernels(dev, errs):
         ("straddling_tile", straddle_pack()),
         ("rectangular_600x900", vt.vbc2d(banded(600, 900, 5, 60, 17), 4, 8)),
         ("default_u8w8", vt.vbc2d(blocky_matrix(L=2048), 8, 8)),
+        ("zero_height_tile", zero_height_pack()),
+        *lane_group_packs(),
     ]
     tile_worst = [0.0, 0.0]
     for name, B2 in tile_cases:
@@ -428,6 +517,7 @@ def phase_kernels_slice4(dev, errs):
         ("long_multigroup_stripes", long_stripes(), 8, vt.EquiChunker(8)),
     ]
     worst = [0.0, 0.0]
+    n_res = 0
     for name, A, W, method in cases:
         fmt = vt.VBC1DDevice.from_host(vt.vbc1d(A, W, method), dev)
         x = rng.standard_normal(A.shape[0]).astype(np.float32)
@@ -448,6 +538,19 @@ def phase_kernels_slice4(dev, errs):
                 # checked, and the record's absolute one comes from the
                 # path's shapes, at a bounded alpha
                 worst = [max(worst[0], e_p), max(worst[1], e_o)]
+        # the same kernel with its pack partly resident and streamed
+        plain = vt.tr_spmv_chain_plain(fmt, xt, 5, 0.5).cpu().numpy()
+        oracle = chain_oracle(A, x, 5, 0.5)
+        for label, blocks, budget in chain_residencies(fmt, dev)[1:]:
+            rc, got = launch_chain(fmt, xt, 5, 0.5, blocks, budget)
+            _lib.check(_lib.load(), rc, f"{name} chain, {label}")
+            got = got.cpu().numpy()
+            e_p, e_o = rel_err(got, plain), rel_err(got, oracle)
+            check(np.isfinite(got).all() and e_p <= TOL and e_o <= TOL,
+                  f"{name}: chain {label} off by {e_p:.2e} (plain), {e_o:.2e} "
+                  f"(oracle)")
+            worst = [max(worst[0], e_p), max(worst[1], e_o)]
+            n_res += 1
 
     packs = scatter_packs()
     sc_worst = [0.0, 0.0]
@@ -468,7 +571,8 @@ def phase_kernels_slice4(dev, errs):
         errs["tile_relayout"] = max(errs["tile_relayout"],
                                     float((got - plain).abs().max()))
     print(f"[3 kernels, slice 4] chain: {6 * len(cases)} checks (n_iters 1, 2, "
-          f"5; alpha None, 0.5) on {len(cases)} square matrices, worst |Δ|/max|y| "
+          f"5; alpha None, 0.5) on {len(cases)} square matrices, resident, and "
+          f"{n_res} partly resident or streamed (x5), worst |Δ|/max|y| "
           f"{worst[0]:.3e} vs plain, {worst[1]:.3e} vs f64 oracle; scatter: "
           f"{2 * len(packs)} checks on {len(packs)} packs, lane groups "
           f"{sorted(lanes)}, worst {sc_worst[0]:.3e} vs plain, {sc_worst[1]:.3e} "
@@ -843,13 +947,19 @@ def phase_path_shapes_slice4(chains, scat_routes, rel, errs):
     worst = worst_sc = 0.0
     for label, (_, op, xt, alpha) in chains.items():
         x = xt if op.row_perm is None else vt.gather(xt, op.perm_t)
-        got = vt.tr_spmv_chain(op.dev_tr, x, 5, alpha)
         plain = vt.tr_spmv_chain_plain(op.dev_tr, x, 5, alpha)
-        e = rel_err(got.cpu().numpy(), plain.cpu().numpy())
-        check(e <= TOL, f"{label} chain off its plain version by {e:.2e}")
-        worst = max(worst, e)
-        errs["tr_spmv_chain"] = max(errs["tr_spmv_chain"],
-                                    float((got - plain).abs().max()))
+        runs = [("resident", vt.tr_spmv_chain(op.dev_tr, x, 5, alpha))]
+        for res, blocks, budget in chain_residencies(op.dev_tr, x.device)[1:]:
+            rc, got = launch_chain(op.dev_tr, x, 5, alpha, blocks, budget)
+            _lib.check(_lib.load(), rc, f"{label} chain, {res}")
+            runs.append((res, got))
+        for res, got in runs:
+            e = rel_err(got.cpu().numpy(), plain.cpu().numpy())
+            check(e <= TOL, f"{label} chain ({res}) off its plain version by "
+                            f"{e:.2e}")
+            worst = max(worst, e)
+            errs["tr_spmv_chain"] = max(errs["tr_spmv_chain"],
+                                        float((got - plain).abs().max()))
     g = torch.Generator(device=xt.device).manual_seed(13)
     for label, fmt in scat_routes.items():
         x = torch.randn(fmt.m, device=fmt.device, generator=g)
@@ -867,7 +977,8 @@ def phase_path_shapes_slice4(chains, scat_routes, rel, errs):
     got, plain = vt.tile_relayout(x, R), vt.tile_relayout_plain(x, R)
     check(torch.equal(got, plain), "relayout differs from its plain version")
     print(f"[9-11 kernels at the path's shapes] chain on the flagship and FEM "
-          f"packs, 5 iterations: worst |Δ|/max|y| {worst:.3e} vs plain; scatter "
+          f"packs, 5 iterations, resident, partly resident and streamed: worst "
+          f"|Δ|/max|y| {worst:.3e} vs plain; scatter "
           f"on the {len(scat_routes)} scatter-route packs, with and without "
           f"alpha/beta/y: {worst_sc:.3e} vs plain (tol {TOL}); relayout at "
           f"R={R}: bitwise equal", flush=True)
@@ -896,14 +1007,20 @@ def phase_timing_2d(dev, parts):
             same_function("2-D (a) SpMV",
                           lambda: torch.addmv(yt, AT, xt, beta=0.25, alpha=0.5),
                           calls[0])
+            # the kernel's launch floor: the same call on a one-tile pack
+            tiny = vt.VBC2DDevice.from_host(vt.vbc2d(sp.csc_matrix(
+                np.ones((4, 8), np.float32)), 4, 8), dev)
+            x4, y8 = torch.ones(4, device=dev), torch.ones(8, device=dev)
             calls += [lambda: vt.tr_spmv_2d_plain(fmt, xt, 0.5, 0.25, yt),
-                      lambda: torch.addmv(yt, AT, xt, beta=0.25, alpha=0.5)]
+                      lambda: torch.addmv(yt, AT, xt, beta=0.25, alpha=0.5),
+                      lambda: vt.tr_spmv_2d(tiny, x4, 0.5, 0.25, y8)]
         warm = paired_ms(calls, dev)
         cold = [flushed_ms(c, dev) for c in calls[:2]]
         io = 4 * (fmt.m + 2 * fmt.n)  # x, y in, y out
         stored, nnz = fmt.val.numel(), A.nnz
         line = (f"[8 timing 2-D ({part}), {stored} stored values, {nnz} nnz] "
-                f"tile kernel {warm[0] * 1e3:.2f} us/call warm, "
+                f"tile kernel ({lanes_per_stripe(fmt)} lanes a stripe) "
+                f"{warm[0] * 1e3:.2f} us/call warm, "
                 f"{cold[0] * 1e3:.2f} us flushed ({(fmt.nbytes + io) / 1e6:.2f} MB "
                 f"per call: {(fmt.nbytes + io) / (warm[0] * 1e6):.1f} GB/s warm, "
                 f"{(fmt.nbytes + io) / (cold[0] * 1e6):.1f} flushed; "
@@ -919,7 +1036,8 @@ def phase_timing_2d(dev, parts):
                                       tr_spmv_work(fmt, nonzeros(A), True))
             line += (f"; plain {warm[2] * 1e3:.2f} us warm; library (torch.addmv"
                      f", CSR) {warm[3] * 1e3:.2f} us; bound "
-                     f"{out['tr_spmv_2d']['bound_ms'] * 1e3:.2f} us")
+                     f"{out['tr_spmv_2d']['bound_ms'] * 1e3:.2f} us; launch floor "
+                     f"(the tile kernel on one 4 x 8 tile) {warm[4] * 1e3:.2f} us")
             e2e, e2e_mat = paired_ms([lambda: op.tr_mul(xt, 0.5, 0.25, yt),
                                       lambda: op.tr_mul_mat(Xt)], dev)
             wall = host_ms(lambda: op.tr_mul(xt, 0.5, 0.25, yt), dev)
@@ -1053,9 +1171,17 @@ def phase_timing_slice4(dev, chains, scat, rel):
                   lambda: vt.tr_spmv_chain(fmt, xt, 5, alpha))
     same_function("flagship chain launches", lambda: check_lib[0](xt),
                   lambda: vt.tr_spmv_chain(fmt, xt, 5, alpha))
+    blocks, budget = chain_grid(dev)
+    blocks0, _ = chain_grid(dev, 0)
+    diag = vt.VBC1DDevice.from_host(vt.vbc1d(
+        sp.identity(1024, np.float32, format="csc"), 8, vt.EquiChunker(8)), dev)
+    xd = torch.ones(1024, device=dev)
     warm = paired_ms([lambda: vt.tr_spmv_chain(fmt, xt, n_it, a),
                       lambda: vt.tr_spmv_chain_plain(fmt, xt, n_it, a),
-                      lambda: library(xt), lambda: launches(xt)], dev, iters=5)
+                      lambda: library(xt), lambda: launches(xt),
+                      lambda: launch_chain(fmt, xt, n_it, a, blocks0, 0),
+                      lambda: launch_chain(diag, xd, n_it, a, blocks, budget)],
+                     dev, iters=5)
     out["tr_spmv_chain"] = entry(warm, tr_spmv_work(fmt, nonzeros(A), False, n_it))
     out["tr_spmv_chain"]["launch_loop_ms"] = warm[3]
     A2, op2, xt2, _ = chains["FEM"]
@@ -1063,21 +1189,39 @@ def phase_timing_slice4(dev, chains, scat, rel):
     launches2, library2 = chain_loops(
         op2.dev_tr, csr_of_transpose(operator_matrix(A2, op2), dev), n_it, a)
     warm2 = paired_ms([lambda: vt.tr_spmv_chain(op2.dev_tr, x2, n_it, a),
-                       lambda: library2(x2), lambda: launches2(x2)], dev, iters=5)
+                       lambda: library2(x2), lambda: launches2(x2),
+                       lambda: launch_chain(op2.dev_tr, x2, n_it, a, blocks0, 0)],
+                      dev, iters=5)
     e2e = paired_ms([lambda: op.tr_mul_chain(xt, n_it, a),
                      lambda: op2.tr_mul_chain(xt2, n_it, a)], dev, iters=5)
     wall = [host_ms(lambda: o.tr_mul_chain(x, n_it, a), dev)
             for o, x in ((op, xt), (op2, xt2))]
+    res = {}
+    for label, f in (("flagship", fmt), ("FEM", op2.dev_tr)):
+        ranges, resident = chain_bytes(f, chain_plan(f, blocks, budget))
+        res[label] = (int((resident == ranges).sum()),
+                      float(resident.sum()) / max(1, float(ranges.sum())),
+                      float(ranges.sum()) / 1e6)
     per_it = tr_spmv_work(fmt, nonzeros(A), False)[0]
+    print(f"[8 timing chain x{n_it}, alpha {a}] grid {blocks} blocks of 1024 "
+          f"threads at {budget} B of shared memory each ({blocks0} at budget 0); "
+          + "; ".join(f"{k}: {v[0]} of {blocks} blocks hold their whole range, "
+                      f"{v[1]:.4f} of the {v[2]:.2f} MB of values and block rows "
+                      f"resident" for k, v in res.items())
+          + f"; barrier floor (1024-column diagonal pack, full grid) "
+          f"{warm[5] * 1e3:.2f} us/call ({warm[5] * 1e3 / n_it:.3f} us/iteration)",
+          flush=True)
     print(f"[8 timing chain x{n_it}, alpha {a}] flagship: kernel "
           f"{warm[0] * 1e3:.2f} us/call ({warm[0] * 1e3 / n_it:.3f} us/iteration, "
           f"{A.nnz * n_it / (warm[0] * 1e6):.1f} Gnnz/s, "
           f"{per_it * n_it / (warm[0] * 1e6):.1f} GB/s of per-iteration "
-          f"traffic), {n_it} stripe-kernel launches {warm[3] * 1e3:.2f} us, "
+          f"traffic), at budget 0 (streamed) {warm[4] * 1e3:.2f} us, "
+          f"{n_it} stripe-kernel launches {warm[3] * 1e3:.2f} us, "
           f"library loop (torch.addmv, CSR) {warm[2] * 1e3:.2f} us, plain "
           f"{warm[1] * 1e3:.2f} us, bound {out['tr_spmv_chain']['bound_ms'] * 1e3:.2f}"
           f" us ({out['tr_spmv_chain']['bound_by']}); FEM (relabeled space): "
-          f"kernel {warm2[0] * 1e3:.2f} us, launches {warm2[2] * 1e3:.2f} us, "
+          f"kernel {warm2[0] * 1e3:.2f} us, at budget 0 {warm2[3] * 1e3:.2f} us, "
+          f"launches {warm2[2] * 1e3:.2f} us, "
           f"library loop {warm2[1] * 1e3:.2f} us; tr_mul_chain end to end, device "
           f"/ host wall per call: flagship {e2e[0] * 1e3:.2f} / "
           f"{wall[0] * 1e3:.2f} us, FEM auto-RCM {e2e[1] * 1e3:.2f} / "

@@ -24,12 +24,14 @@ import torch
 import vbcs_tpu_torch as vt
 from corpus import NAMES, load_corpus
 from vbcs_tpu_torch.ops import _lib
+from vbcs_tpu_torch.ops.chain import chain_grid, chain_plan
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from bench import blocky2d_matrix, blocky_matrix, fem_matrix  # noqa: E402
-from chip_smoke import (chain_oracle, long_stripes,  # noqa: E402
-                        mixed_height_pack, mixed_stripes, scatter_packs,
-                        straddle_pack)
+from chip_smoke import (chain_bytes, chain_oracle,  # noqa: E402
+                        chain_residencies, lane_group_packs, launch_chain,
+                        long_stripes, mixed_height_pack, mixed_stripes,
+                        scatter_packs, straddle_pack, zero_height_pack)
 
 TOL = 2e-5
 
@@ -244,6 +246,8 @@ TILE_CASES = {
     "straddling_tile": straddle_pack,
     "rectangular_600x900": lambda: vt.vbc2d(banded(600, 900, 5, 60, 17), 4, 8),
     "default_u8w8": lambda: vt.vbc2d(blocky_matrix(L=2048), 8, 8),
+    "zero_height_tile": zero_height_pack,
+    **{name: (lambda B2=B2: B2) for name, B2 in lane_group_packs()},
 }
 
 
@@ -266,6 +270,23 @@ def test_tr_spmv_2d_kernel_matches_plain(case, with_y, cuda_device):
     oracle = B2.tr_mul(x.double().cpu().numpy(), *(
         (0.5, 0.25, y.double().cpu().numpy()) if with_y else ()))
     assert rel_err(got, torch.from_numpy(oracle)) <= TOL
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+def test_tr_spmv_2d_every_lane_group(lanes, cuda_device, monkeypatch):
+    """Each lane group on packs that exercise its slots and chunks: mixed
+    tile heights, a height-0 tile and an empty stripe, stripes wider than
+    a warp, tiles taller than 32 / w rows."""
+    from vbcs_tpu_torch.ops import trspmv2d
+
+    monkeypatch.setattr(trspmv2d, "lanes_per_stripe", lambda fmt: lanes)
+    for case in ("mixed_heights", "zero_height_tile", "wide_w40", "tall_u9_w8"):
+        B2 = TILE_CASES[case]()
+        fmt = vt.VBC2DDevice.from_host(B2, cuda_device)
+        x = torch.randn(B2.m, device=cuda_device)
+        y = torch.randn(B2.n, device=cuda_device)
+        got = vt.tr_spmv_2d(fmt, x, 0.5, 0.25, y)
+        assert rel_err(got, vt.tr_spmv_2d_plain(fmt, x, 0.5, 0.25, y)) <= TOL
 
 
 def test_tr_spmv_2d_mixed_heights_exact(cuda_device):
@@ -355,30 +376,88 @@ def test_tr_spmv_chain_kernel_matches_plain(case, n_iters, alpha, cuda_device):
     assert rel_err(got, oracle_chain(A, x, n_iters, alpha)) <= TOL
 
 
-def launch_chain(fmt, x, n_iters, alpha, blocks):
-    """The chain's C launcher at a given grid size (the wrapper always
-    takes every block that fits): (return code, output)."""
-    out = torch.empty(fmt.n, device=x.device)
-    bufs = torch.empty(2, fmt.n, device=x.device)
-    rc = _lib.load().vbcs_tr_spmv_chain(
-        fmt.n, n_iters, fmt.spl.data_ptr(), fmt.pos.data_ptr(),
-        fmt.idx.data_ptr(), fmt.ofs.data_ptr(), fmt.col_stripe.data_ptr(),
-        fmt.val.data_ptr(), x.data_ptr(), alpha, bufs[0].data_ptr(),
-        bufs[1].data_ptr(), out.data_ptr(), blocks,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    return rc, out
-
-
 @pytest.mark.parametrize("blocks", [1, 3, 7])
 def test_tr_spmv_chain_small_grids(blocks, cuda_device):
-    """Fewer threads than columns: each thread walks several columns, and
-    the grid barrier still orders the iterations."""
+    """Few blocks at the largest budget: each thread walks many columns,
+    a block's range may be larger than its shared memory (at 1 block it
+    is: partly resident), and the grid barrier still orders the
+    iterations."""
     A, W, method = CASES["flagship_l2048"]()
     fmt = vt.VBC1DDevice.from_host(vt.vbc1d(A, W, method), cuda_device)
+    _, budget = chain_grid(cuda_device)
+    ranges, resident = chain_bytes(fmt, chain_plan(fmt, blocks, budget))
+    assert bool((resident < ranges).any()) == bool((ranges > budget).any())
     x = torch.randn(A.shape[0], device=cuda_device)
-    rc, got = launch_chain(fmt, x, 4, 0.25, blocks)
+    rc, got = launch_chain(fmt, x, 4, 0.25, blocks, budget)
     assert rc == 0
     assert rel_err(got, vt.tr_spmv_chain_plain(fmt, x, 4, 0.25)) <= TOL
+
+
+@pytest.mark.parametrize("residency", ["resident", "partly resident", "streamed"])
+@pytest.mark.parametrize("case", sorted(CHAIN_CASES))
+def test_tr_spmv_chain_residency(case, residency, cuda_device):
+    """The kernel with its pack in shared memory in full, in part (a
+    budget of half the largest block range: ranges split on a stripe
+    boundary) and not at all (budget 0), through the C launcher at the
+    occupancy grid of each budget, against the plain loop and the f64
+    oracle."""
+    A, W, method = CHAIN_CASES[case]()
+    fmt = vt.VBC1DDevice.from_host(vt.vbc1d(A, W, method), cuda_device)
+    _, blocks, budget = {r[0]: r for r in chain_residencies(fmt, cuda_device)}[
+        residency]
+    ranges, resident = chain_bytes(fmt, chain_plan(fmt, blocks, budget))
+    want_full = {"resident": True, "partly resident": False, "streamed": False}
+    assert bool((resident == ranges).all()) == want_full[residency]
+    assert bool((resident > 0).any()) == (residency != "streamed")
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(A.shape[0], device=cuda_device, generator=g)
+    before = vt.tr_spmv_chain.launches
+    rc, got = launch_chain(fmt, x, 5, 0.5, blocks, budget)
+    assert rc == 0 and vt.tr_spmv_chain.launches == before
+    torch.cuda.synchronize()
+    assert got.shape == (A.shape[1],) and torch.isfinite(got).all()
+    assert rel_err(got, vt.tr_spmv_chain_plain(fmt, x, 5, 0.5)) <= TOL
+    assert rel_err(got, oracle_chain(A, x, 5, 0.5)) <= TOL
+
+
+# packs for the chain's column groups (4 adjacent columns of a stripe):
+# float4 rows, a width-5 stripe's group of 4 and group of 1, mixed widths
+GROUP_CASES = {
+    "width8": CHAIN_CASES["flagship_l2048"],
+    "width5": lambda: (banded(300, 300, 6, 50, 4), 5, vt.EquiChunker(5)),
+    "multiclass_dp": CHAIN_CASES["multiclass_dp"],
+}
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_tr_spmv_chain_column_groups(case, streamed, cuda_device):
+    """The chain's column groups, whole and partial, with their values in
+    shared memory and read from the pack, against the plain loop and the
+    f64 oracle."""
+    A, W, method = GROUP_CASES[case]()
+    fmt = vt.VBC1DDevice.from_host(vt.vbc1d(A, W, method), cuda_device)
+    blocks, budget = chain_grid(cuda_device, 0 if streamed else -1)
+    x = torch.randn(A.shape[0], device=cuda_device)
+    rc, got = launch_chain(fmt, x, 3, 0.5, blocks, budget)
+    assert rc == 0
+    assert rel_err(got, vt.tr_spmv_chain_plain(fmt, x, 3, 0.5)) <= TOL
+    assert rel_err(got, oracle_chain(A, x, 3, 0.5)) <= TOL
+
+
+def test_tr_spmv_chain_budget_over_limit_raises(cuda_device):
+    """A shared-memory budget over the device's opt-in limit is refused by
+    the grid query and by the launcher, and the wrapper still runs."""
+    A, W, method = CASES["uniform8"]()
+    fmt = vt.VBC1DDevice.from_host(vt.vbc1d(A, W, method), cuda_device)
+    blocks, limit = chain_grid(cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        chain_grid(cuda_device, limit + 16)
+    x = torch.randn(A.shape[0], device=cuda_device)
+    rc, _ = launch_chain(fmt, x, 3, 1.0, blocks, limit + 16)
+    assert rc != 0
+    got = vt.tr_spmv_chain(fmt, x, 3)
+    assert rel_err(got, vt.tr_spmv_chain_plain(fmt, x, 3)) <= TOL
 
 
 def test_tr_spmv_chain_grid_too_large_raises(cuda_device):
@@ -387,7 +466,7 @@ def test_tr_spmv_chain_grid_too_large_raises(cuda_device):
     A, W, method = CASES["uniform8"]()
     fmt = vt.VBC1DDevice.from_host(vt.vbc1d(A, W, method), cuda_device)
     x = torch.randn(A.shape[0], device=cuda_device)
-    rc, _ = launch_chain(fmt, x, 3, 1.0, 1 << 20)
+    rc, _ = launch_chain(fmt, x, 3, 1.0, 1 << 20, 0)
     assert rc != 0
     with pytest.raises(RuntimeError, match="launch failed"):
         _lib.check(_lib.load(), rc, "tr_spmv_chain")

@@ -20,6 +20,9 @@ own rounding).  On basis vectors each output is one stored value times
 1, so the result must equal ``to_dense`` exactly.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -33,6 +36,9 @@ from vbcs_tpu.ops import pallas_trspmv as pk1
 from vbcs_tpu.ops import pallas_trspmv2 as pk2
 from vbcs_tpu.ops import pallas_trspmv2d as pk2d
 from vbcs_tpu.ops import windowed_gather as wg
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from chip_smoke import zero_height_pack  # noqa: E402
 
 TOL = 2e-5
 
@@ -240,6 +246,55 @@ def test_edge_shapes():
         f0 = vt.VBC2DDevice.from_host(B0, "cpu")
         got = vt.tr_spmv_2d(f0, torch.ones(shape[0]))
         np.testing.assert_array_equal(got.numpy(), np.zeros(shape[1]))
+
+
+TILE_PACKS = {
+    "uniform": lambda: v.vbc2d(blocky(40, 30, 3, 4, 0.3, seed=1), 3, 4,
+                               v.AlternatingPacker(v.EquiChunker(4),
+                                                   v.EquiChunker(3))),
+    "mixed_heights": lambda: mixed_pack()[1],
+    "straddling_tile": lambda: straddle_pack()[1],
+    "empty_stripe_and_zero_height_tile": lambda: zero_height_pack(v),
+    "rectangle": lambda: v.vbc2d(banded(600, 900, 5, 60, 17), 4, 8),
+}
+
+
+@pytest.mark.parametrize("pack", sorted(TILE_PACKS))
+def test_tile_places_match_jax_pack(pack):
+    """``tile_row``/``tile_ofs``, built on the device, against the JAX
+    package's ``VBC2D``: ``Pi.spl[idx]`` and the running sum of ``u * w``."""
+    B2 = TILE_PACKS[pack]()
+    fmt = vt.VBC2DDevice.from_host(B2, "cpu")
+    u = np.diff(B2.Pi.spl)[B2.idx]
+    w = np.repeat(np.diff(B2.Phi.spl), np.diff(B2.pos))
+    assert fmt.tile_row.dtype == fmt.tile_ofs.dtype == torch.int32
+    np.testing.assert_array_equal(fmt.tile_row.numpy(), B2.Pi.spl[B2.idx])
+    np.testing.assert_array_equal(fmt.tile_ofs.numpy(),
+                                  np.concatenate([[0], np.cumsum(u * w)]))
+    np.testing.assert_array_equal(fmt.tile_ofs.numpy()[B2.pos], B2.ofs)
+    assert fmt.nbytes == sum(a.size * 4 for a in (
+        B2.Pi.spl, B2.Phi.spl, B2.pos, B2.idx, B2.ofs, B2.val)) + 4 * (
+        B2.n + 2 * B2.idx.size + 1)
+    if pack == "empty_stripe_and_zero_height_tile":
+        assert 0 in u and np.any(np.diff(B2.pos) == 0)
+        x = np.arange(1, B2.m + 1, dtype=np.float32)
+        got = vt.tr_spmv_2d(fmt, torch.from_numpy(x), 2.0).numpy()
+        np.testing.assert_allclose(got, B2.tr_mul(x.astype(np.float64), 2.0),
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("pack", sorted(TILE_PACKS))
+def test_lanes_per_stripe(pack):
+    """The tile kernel's lane group: a power of two up to a warp that
+    covers the mean stripe width, about 16 stored values a lane."""
+    from vbcs_tpu_torch.ops.trspmv2d import VALUES_PER_LANE, lanes_per_stripe
+
+    B2 = TILE_PACKS[pack]()
+    fmt = vt.VBC2DDevice.from_host(B2, "cpu")
+    G = lanes_per_stripe(fmt)
+    assert G in (1, 2, 4, 8, 16, 32)
+    want = max(1.0, B2.n / B2.L, B2.val.size / (B2.L * VALUES_PER_LANE))
+    assert G >= min(32, want) and (G == 1 or G / 2 < want)
 
 
 def test_from_host_checks():

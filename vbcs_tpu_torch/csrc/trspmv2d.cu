@@ -9,108 +9,153 @@
 // to the 1-D stream expansion.  It computes exactly the host oracle
 // VBC2D.tr_mul (vbcs_tpu/formats/vbc2d.py):
 //
-//   y[j] = alpha * sum over the tiles b of stripe s = col_stripe[j],
-//          with k = idx[b], i0 = rspl[k], u = rspl[k+1] - i0:
-//            sum_{r<u} val[q_b + r*w_s + (j - spl[s])] * x[i0 + r]
+//   y[j] = alpha * sum over the tiles b of stripe s = col_stripe[j]:
+//            sum_{r<u_b} val[tile_ofs[b] + r*w_s + (j - spl[s])]
+//                        * x[tile_row[b] + r]
 //          (+ beta * y_in[j])
 //
-// where q_b = ofs[s] + the sum of u*w_s over the earlier tiles of the
-// stripe.
+// where tile_row[b] = Pi.spl[idx[b]] and tile_ofs[b] is the running sum
+// of u*w over the tiles before b; the device pack holds both
+// (formats/device.py: VBC2DDevice), so a tile's place is one load, not
+// the idx -> Pi.spl chain, and u_b*w_s = tile_ofs[b+1] - tile_ofs[b].
 //
-// Design: one thread per output column j, as in trspmv.cu.  Stripes own
-// disjoint columns, so no atomics and no cross-block reduction.  The
-// thread walks its stripe's tiles in order and loads idx[b] and the
-// tile's row range once per tile (not once per row: the 2-D format's
-// point), then runs u FMAs down the tile's column.  The value pointer
-// steps by w per row, so after a tile it sits at the next tile's row 0:
-// the running offset q_b needs no table.  The height is read per tile, so
-// uniform and mixed-height stripes, empty row blocks (u = 0) and empty
-// stripes run the same code.
-//
-// The tile's row range hangs off a dependent chain (idx[b], then
-// rspl[k] and rspl[k+1], then x), so each iteration loads the next
-// tile's row range and the tile-after-next's idx before it runs the
-// current tile's rows: those loads are in flight while the FMAs wait on
-// theirs.  Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), L2
-// warm: 8.78 -> 6.35 us on bench.blocky2d_matrix() under the equi plan,
-// 11.3 -> 9.9 us on the flagship's mostly height-1 default plan, where
-// the stripe kernel on the 1-D view still wins (7.6 us): per tile this
-// kernel reads two rspl entries more.  The TPU kernels' (u, w) classes, window
+// Design: a group of G lanes per stripe (G = 1, 2, ..., 32, a power of
+// two the wrapper picks from the pack: ops/trspmv2d.py, lanes_per_stripe;
+// 32 / G stripes a warp), its lanes laid out as (tile slot, column).  A
+// stripe of width w <= G has G / w slots of w lanes; slot k takes the
+// stripe's tiles k, k + slots, ..., kUnroll of them at a time, loads each
+// tile's row base and value range once, and walks the tile's rows, lane c
+// reading column c.  So the slots read neighbouring tiles together (four
+// height-1 tiles of width 8 are one 128-byte load), and a lane has
+// kUnroll tiles' loads in flight.  A shuffle reduction across the slots
+// gives the w column sums; alpha and beta are fused into the store, and
+// y is written in natural order.  Stripes wider than G run in chunks of G
+// columns.  The loop reads each tile's height from its value range, so
+// tiles of any height (0 included), mixed-height stripes and empty
+// stripes run the same code.  The TPU kernels' (u, w) classes, window
 // ids, x-tiles, straddle carries, slot space and exit permute existed
-// only because Mosaic gathers inside one vreg; here x[i0 + r] is an
-// ordinary load and y is written in natural order.
+// only because Mosaic gathers inside one vreg; here x[tile_row + r] is
+// an ordinary load.
 //
-// What bounds it on this card: bytes.  Each stored value is used once
-// (2 flops per 4-byte value), so the floor is (val + idx + metadata + x
-// + y) bytes over bandwidth.  The w_s threads of a stripe are adjacent
-// and read the w_s contiguous values of a tile row together (coalesced);
-// idx[b], rspl[k] and x[i0 + r] are one address broadcast to them.  A
-// warp per stripe, shared-memory x windows and TMA staging are later
-// work.
+// What bounds it on this card: the latency of its dependent loads (stripe
+// range, then tile places, then values and x), which only occupancy
+// hides.  Each stored value is used once (2 flops per 4-byte value), so
+// the floor is bytes: values, tile places, the x sectors the tiles touch
+// and y.  On an H100 (PERF.md) the best shapes were the smallest ones:
+// kUnroll = 2 (40 registers, 48 warps an SM) beat 1, 4 and 8, and G that
+// gives each lane ~16 stored values beat wider and narrower groups; a
+// warp per stripe ran 4x the warps of the one-thread-per-column design
+// for the same work, and lost, and so did slots over rows (a warp
+// reading contiguous values) for tiles of one height.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void tr_spmv_tile_kernel(
-    int n, const int* __restrict__ rspl, const int* __restrict__ spl,
-    const int* __restrict__ pos, const int* __restrict__ idx,
-    const int* __restrict__ ofs, const int* __restrict__ col_stripe,
+constexpr int kThreads = 256;
+constexpr int kUnroll = 2;  // tiles a lane has in flight at once
+
+// One group of G lanes per stripe, 32 / G stripes per warp.
+template <int G>
+__global__ void __launch_bounds__(kThreads) tr_spmv_tile_kernel(
+    int L, const int* __restrict__ spl, const int* __restrict__ pos,
+    const int* __restrict__ tile_row, const int* __restrict__ tile_ofs,
     const float* __restrict__ val, const float* __restrict__ x,
     const float* __restrict__ y_in, float alpha, float beta,
     float* __restrict__ y_out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const int s = col_stripe[j];
-  const int j0 = spl[s];
-  const int w = spl[s + 1] - j0;
-  const int b0 = pos[s];
-  const int b1 = pos[s + 1];  // tiles exist only if K >= 1: rspl[1] is valid
-  const float* v = val + ofs[s] + (j - j0);
-  float acc = 0.0f;
-  if (b0 < b1) {
-    const int k = __ldg(idx + b0);
-    int i0 = __ldg(rspl + k);
-    int i1 = __ldg(rspl + k + 1);
-    int kn = b0 + 1 < b1 ? __ldg(idx + b0 + 1) : 0;
-    for (int b = b0; b < b1; ++b) {
-      const int i0n = __ldg(rspl + kn);
-      const int i1n = __ldg(rspl + kn + 1);
-      const int knn = b + 2 < b1 ? __ldg(idx + b + 2) : 0;
-#pragma unroll 4
-      for (int r = i0; r < i1; ++r, v += w) {
-        acc = fmaf(__ldg(v), __ldg(x + r), acc);
+  const int lane = threadIdx.x % 32;
+  const int g = lane / G;   // the group in the warp
+  const int gl = lane % G;  // the lane in the group
+  const int s = (blockIdx.x * (kThreads / 32) + threadIdx.x / 32) * (32 / G) + g;
+  if (s >= L) return;  // the whole group
+  const unsigned mask = G == 32 ? 0xffffffffu : ((1u << G) - 1) << (g * G);
+  const int j0 = __ldg(spl + s);
+  const int w = __ldg(spl + s + 1) - j0;
+  if (w == 0) return;
+  const int b0 = __ldg(pos + s);
+  const int b1 = __ldg(pos + s + 1);
+  const int cw = w < G ? w : G;  // columns of a chunk
+  const int slots = G / cw;
+  const int slot = gl / cw;
+  const int c = gl - slot * cw;
+  for (int cb = 0; cb < w; cb += cw) {
+    const int col = cb + c;
+    const bool live = slot < slots && col < w;
+    float acc = 0.0f;
+    for (int b = b0 + slot; b < b1; b += kUnroll * slots) {
+      int tr[kUnroll], tq[kUnroll], te[kUnroll];  // row, value, u * w
+      int emax = 0;
+#pragma unroll
+      for (int m = 0; m < kUnroll; ++m) {
+        const int t = b + m * slots;
+        tr[m] = tq[m] = te[m] = 0;
+        if (live && t < b1) {
+          tr[m] = __ldg(tile_row + t);
+          tq[m] = __ldg(tile_ofs + t);
+          te[m] = __ldg(tile_ofs + t + 1) - tq[m];
+          tq[m] += col;
+        }
+        emax = max(emax, te[m]);
       }
-      i0 = i0n;
-      i1 = i1n;
-      kn = knn;
+#pragma unroll 4
+      for (int rw = 0, r = 0; rw < emax; rw += w, ++r) {
+#pragma unroll
+        for (int m = 0; m < kUnroll; ++m) {
+          if (rw < te[m]) {
+            acc = fmaf(__ldg(val + tq[m] + rw), __ldg(x + tr[m] + r), acc);
+          }
+        }
+      }
+    }
+    for (int d = 1; d < slots; d *= 2) {
+      const float other = __shfl_down_sync(mask, acc, d * cw, G);
+      if (slot + d < slots) acc += other;
+    }
+    if (slot == 0 && col < w) {
+      float out = alpha * acc;
+      if (y_in != nullptr) out = fmaf(beta, y_in[j0 + col], out);
+      y_out[j0 + col] = out;
     }
   }
-  float out = alpha * acc;
-  if (y_in != nullptr) out = fmaf(beta, y_in[j], out);
-  y_out[j] = out;
+}
+
+template <int G>
+void launch(int L, const int* spl, const int* pos, const int* tile_row,
+            const int* tile_ofs, const float* val, const float* x,
+            const float* y_in, float alpha, float beta, float* y_out,
+            cudaStream_t stream) {
+  constexpr int per_block = kThreads / G;  // stripes
+  tr_spmv_tile_kernel<G><<<(L + per_block - 1) / per_block, kThreads, 0,
+                           stream>>>(L, spl, pos, tile_row, tile_ofs, val, x,
+                                     y_in, alpha, beta, y_out);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream`; returns cudaGetLastError() (0 = launched).
-// y_in may be null (then beta is unused).  n > 0.
-int vbcs_tr_spmv_2d(int n, const void* rspl, const void* spl, const void* pos,
-                    const void* idx, const void* ofs, const void* col_stripe,
+// Launches on `stream` with `lanes` (1, 2, 4, 8, 16 or 32) lanes a stripe;
+// returns cudaGetLastError() (0 = launched; cudaErrorInvalidValue for
+// another lane count).  y_in may be null (then beta is unused).  L > 0.
+int vbcs_tr_spmv_2d(int L, int lanes, const void* spl, const void* pos,
+                    const void* tile_row, const void* tile_ofs,
                     const void* val, const void* x, const void* y_in,
                     float alpha, float beta, void* y_out, void* stream) {
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  tr_spmv_tile_kernel<<<blocks, threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      n, static_cast<const int*>(rspl), static_cast<const int*>(spl),
-      static_cast<const int*>(pos), static_cast<const int*>(idx),
-      static_cast<const int*>(ofs), static_cast<const int*>(col_stripe),
-      static_cast<const float*>(val), static_cast<const float*>(x),
-      static_cast<const float*>(y_in), alpha, beta,
-      static_cast<float*>(y_out));
+  auto* f = &launch<32>;
+  switch (lanes) {
+    case 1: f = &launch<1>; break;
+    case 2: f = &launch<2>; break;
+    case 4: f = &launch<4>; break;
+    case 8: f = &launch<8>; break;
+    case 16: f = &launch<16>; break;
+    case 32: break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  f(L, static_cast<const int*>(spl), static_cast<const int*>(pos),
+    static_cast<const int*>(tile_row), static_cast<const int*>(tile_ofs),
+    static_cast<const float*>(val), static_cast<const float*>(x),
+    static_cast<const float*>(y_in), alpha, beta, static_cast<float*>(y_out),
+    static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

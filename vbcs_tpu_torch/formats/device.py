@@ -7,7 +7,10 @@ Port of the device-format role of ``vbcs_tpu/formats/device.py``
 the matrix for Mosaic (width and (u, w) classes, A-tables, window ids,
 slot space).  The GPU kernels read the host VBC1D/VBC2D arrays as they
 are, so these formats are only their int32/f32 copies on an explicit
-device, plus ``col_stripe[j]``, the stripe that owns output column ``j``.
+device, plus ``col_stripe[j]``, the stripe that owns output column ``j``,
+and for the 2-D format each tile's first row and value offset
+(``tile_row``, ``tile_ofs``), built once on the device so that the tile
+kernel reads a tile's place without the ``idx -> Pi.spl`` chain.
 ``ScatterDevice`` is the port of ``ScatterFormat`` in
 ``vbcs_tpu/ops/pallas_scatter.py``: the same per-column entry lists, as
 a CSC on the device instead of an (8, Np) slot buffer with a router.
@@ -129,6 +132,12 @@ class VBC1DDevice:
         row = self.idx[blk].long()
         return row, col
 
+    @functools.cached_property
+    def chain_plans(self) -> dict:
+        """The chain kernel's partitions of this pack, by (blocks, budget)
+        (filled by ``ops.chain.chain_plan``)."""
+        return {}
+
 
 @dataclasses.dataclass(frozen=True)
 class VBC2DDevice:
@@ -143,6 +152,8 @@ class VBC2DDevice:
     ofs: torch.Tensor  # [L + 1] int32 value offsets per stripe
     val: torch.Tensor  # [total_vals] f32 tile values, row-major u x w
     col_stripe: torch.Tensor  # [n] int32 stripe of each column
+    tile_row: torch.Tensor  # [num_tiles] int32 first row of each tile
+    tile_ofs: torch.Tensor  # [num_tiles + 1] int32 value offset of each tile
 
     @property
     def device(self) -> torch.device:
@@ -161,7 +172,7 @@ class VBC2DDevice:
         """Bytes of the format arrays (each read at most once per call)."""
         return sum(t.numel() * t.element_size() for t in (
             self.rspl, self.spl, self.pos, self.idx, self.ofs, self.val,
-            self.col_stripe))
+            self.col_stripe, self.tile_row, self.tile_ofs))
 
     @staticmethod
     def from_host(host, device) -> "VBC2DDevice":
@@ -198,20 +209,33 @@ class VBC2DDevice:
                              "are not the sums of their tiles' u * w")
         if max(m, n) > _I32_MAX:
             raise ValueError("matrix dimensions do not fit in int32")
+        d_rspl = _i32(rspl, "Pi.spl", device)
+        d_spl = _i32(spl, "Phi.spl", device)
+        d_pos = _i32(pos, "pos", device)
+        d_idx = _i32(idx, "idx", device)
+        k = d_idx.long()
+        w_tile = torch.repeat_interleave(
+            (d_spl[1:] - d_spl[:-1]).long(), (d_pos[1:] - d_pos[:-1]).long(),
+            output_size=idx.size)
+        tile_ofs = torch.zeros(idx.size + 1, dtype=torch.int64, device=device)
+        torch.cumsum((d_rspl[k + 1] - d_rspl[k]).long() * w_tile, 0,
+                     out=tile_ofs[1:])
         return VBC2DDevice(
             m=m,
             n=n,
             U=int(host.U),
             W=int(host.W),
-            rspl=_i32(rspl, "Pi.spl", device),
-            spl=_i32(spl, "Phi.spl", device),
-            pos=_i32(pos, "pos", device),
-            idx=_i32(idx, "idx", device),
+            rspl=d_rspl,
+            spl=d_spl,
+            pos=d_pos,
+            idx=d_idx,
             ofs=_i32(ofs, "ofs", device),
             val=torch.from_numpy(
                 np.ascontiguousarray(val, dtype=np.float32)).to(device),
             col_stripe=_i32(np.repeat(np.arange(L), widths), "col_stripe",
                             device),
+            tile_row=d_rspl[k],
+            tile_ofs=tile_ofs.int(),  # ends at ofs[-1] = val.size: fits int32
         )
 
     def _tiles(self):
@@ -228,16 +252,14 @@ class VBC2DDevice:
         """(row, col) of every stored value, int64 — the index form the
         plain PyTorch TrSpMV uses (computed once per format)."""
         dev = self.device
-        stripe, u = self._tiles()
-        w = (self.spl[1:] - self.spl[:-1]).long()[stripe]
-        size = u * w
+        stripe, _ = self._tiles()
+        start = self.tile_ofs.long()
         tile = torch.repeat_interleave(
-            torch.arange(self.idx.numel(), device=dev), size,
+            torch.arange(self.idx.numel(), device=dev), start[1:] - start[:-1],
             output_size=self.val.numel())
-        local = (torch.arange(self.val.numel(), device=dev)
-                 - (torch.cumsum(size, 0) - size)[tile])
-        wt = w[tile]
-        row = (self.rspl[self.idx.long()].long()[tile]
+        local = torch.arange(self.val.numel(), device=dev) - start[tile]
+        wt = (self.spl[1:] - self.spl[:-1]).long()[stripe][tile]
+        row = (self.tile_row.long()[tile]
                + torch.div(local, wt, rounding_mode="floor"))
         col = self.spl[stripe].long()[tile] + local % wt
         return row, col
@@ -257,7 +279,7 @@ class VBC2DDevice:
             raise ValueError("the 1-D view's block count does not fit in int32")
         tile = torch.repeat_interleave(
             torch.arange(self.idx.numel(), device=dev), u, output_size=total)
-        idx = (self.rspl[self.idx.long()].long()[tile]
+        idx = (self.tile_row.long()[tile]
                + torch.arange(total, device=dev) - (torch.cumsum(u, 0) - u)[tile])
         return VBC1DDevice(
             m=self.m, n=self.n, W=self.W, spl=self.spl, pos=pos.int(),

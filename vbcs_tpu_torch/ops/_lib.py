@@ -100,7 +100,7 @@ def load():
                                  ctypes.c_int64, ctypes.c_float)
             lib.vbcs_tr_spmv.argtypes = [i32] + [vp] * 8 + [f32, f32, vp, vp]
             lib.vbcs_tr_spmv.restype = i32
-            lib.vbcs_tr_spmv_2d.argtypes = [i32] + [vp] * 9 + [f32, f32, vp, vp]
+            lib.vbcs_tr_spmv_2d.argtypes = [i32, i32] + [vp] * 7 + [f32, f32, vp, vp]
             lib.vbcs_tr_spmv_2d.restype = i32
             lib.vbcs_tr_spmm.argtypes = [i32, i64] + [vp] * 8
             lib.vbcs_tr_spmm.restype = i32
@@ -109,9 +109,11 @@ def load():
             lib.vbcs_tr_spmv_scatter.argtypes = [i32, i32] + [vp] * 5 + [
                 f32, f32, vp, vp]
             lib.vbcs_tr_spmv_scatter.restype = i32
-            lib.vbcs_tr_spmv_chain.argtypes = [i32, i32] + [vp] * 7 + [
-                f32, vp, vp, vp, i32, vp]
+            lib.vbcs_tr_spmv_chain.argtypes = [i32, i32] + [vp] * 8 + [
+                f32, vp, vp, vp, vp, i32, i32, vp]
             lib.vbcs_tr_spmv_chain.restype = i32
+            lib.vbcs_chain_grid.argtypes = [ctypes.POINTER(i32)] * 2
+            lib.vbcs_chain_grid.restype = i32
             lib.vbcs_tile_relayout.argtypes = [i32, i32, vp, vp, vp]
             lib.vbcs_tile_relayout.restype = i32
             lib.vbcs_error_string.argtypes = [i32]

@@ -3,14 +3,20 @@
 Port of ``vbcs_tpu/ops/pallas_trspmv3.py``'s chain path
 (``tr_spmv_chain3``; Pallas kernel ``_chain_kernel``).  On a CUDA tensor
 :func:`tr_spmv_chain` makes one cooperative launch of
-``csrc/chain.cu``, a persistent kernel that runs every iteration with a
-grid barrier between them; on a CPU tensor it runs
-:func:`tr_spmv_chain_plain`, a loop of the plain TrSpMV.
+``csrc/chain.cu``, a persistent kernel whose blocks each hold a
+contiguous range of stripes (:func:`chain_plan`) in shared memory and run
+every iteration from there, a thread per group of 4 columns, gathering x
+from a window of it staged in shared memory, with a grid barrier between
+iterations; on a CPU tensor it runs :func:`tr_spmv_chain_plain`, a loop
+of the plain TrSpMV.
 
 ``alpha`` scales every iteration (``None`` is 1), as in the JAX kernel.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -18,7 +24,20 @@ from ..formats.device import VBC1DDevice
 from . import _lib
 from .trspmv import _check_vec, tr_spmv_plain
 
-__all__ = ["tr_spmv_chain", "tr_spmv_chain_plain"]
+__all__ = ["tr_spmv_chain", "tr_spmv_chain_plain", "chain_plan", "chain_grid",
+           "ChainPlan"]
+
+# columns a thread takes together: one float4 of a stripe's value row
+# (csrc/chain.cu: kCols)
+GROUP = 4
+# a resident stripe's values start where its first column does, modulo
+# ALIGN words: a float4 of a width-4k row is aligned, and the 32 adjacent
+# columns a quarter-warp reads as float4s fall in 32 banks
+ALIGN = 32
+# a column's weight in the partition, in stored values: its store and the
+# loop around its blocks, so runs of empty or narrow stripes still count
+COLUMN_WEIGHT = 2
+_grids: dict = {}  # CUDA device index -> the default launch's (blocks, budget)
 
 
 def _check_chain(fmt, n_iters: int) -> None:
@@ -26,6 +45,114 @@ def _check_chain(fmt, n_iters: int) -> None:
         raise ValueError(f"the chain needs a square matrix, got {fmt.m}x{fmt.n}")
     if n_iters < 1:
         raise ValueError(f"n_iters must be >= 1, got {n_iters}")
+
+
+class ChainPlan(NamedTuple):
+    """The chain kernel's partition of a pack over ``G`` blocks (int32, on
+    the pack's device).  ``buf`` holds the other fields back to back, in
+    this order, and is what the kernel reads; the fields are views of it.
+
+    Block ``k`` owns stripes ``lo[k]:lo[k + 1]`` and holds ``lo[k]:res[k]``
+    of them resident in shared memory: their values (stripe ``s``'s start
+    at ``spl[s] - spl[lo[k]] + pad[s] - pad[lo[k]]`` words, ``pad`` a
+    multiple of ``ALIGN``, so column ``j``'s values start at ``j -
+    spl[lo[k]]`` modulo ``ALIGN``) and block rows.  Where ``win[k]`` is
+    not 0 it stages ``x[win_lo[k]:win_lo[k] + win[k]]``, every row its
+    stripes read, in shared memory each iteration.  Its threads take the
+    column groups ``glo[k]:glo[k + 1]``: up to ``GROUP`` adjacent columns
+    of one stripe, the first at ``gcol[g]``."""
+
+    buf: torch.Tensor
+    lo: torch.Tensor  # [G + 1]
+    res: torch.Tensor  # [G]
+    win_lo: torch.Tensor  # [G]
+    win: torch.Tensor  # [G]
+    glo: torch.Tensor  # [G + 1]
+    pad: torch.Tensor  # [L + 1]
+    gcol: torch.Tensor  # [column groups]
+
+
+def chain_plan(fmt: VBC1DDevice, blocks: int, budget: int) -> ChainPlan:
+    """The chain kernel's partition of ``fmt`` over ``blocks`` blocks with
+    ``budget`` bytes of shared memory each (:class:`ChainPlan`).
+
+    Block ``k`` takes the stripes whose start, in stored values plus
+    ``COLUMN_WEIGHT`` per column, falls in ``[k, k + 1) * total /
+    blocks``, so no block's load exceeds the mean by more than one
+    stripe.  A block whose whole range fits the budget holds it, and
+    stages its x window too where that still fits; any other block holds
+    the longest prefix of its range that fits.  Computed with torch ops
+    once per (format, blocks, budget) and cached on the format
+    (``fmt.chain_plans``)."""
+    if blocks < 1 or budget < 0:
+        raise ValueError(f"need blocks >= 1 and budget >= 0, got {blocks}, {budget}")
+    key = (blocks, budget)
+    plan = fmt.chain_plans.get(key)
+    if plan is None:
+        spl, pos, ofs = fmt.spl.long(), fmt.pos.long(), fmt.ofs.long()
+        dev = ofs.device
+        widths = spl[1:] - spl[:-1]
+        cost = (ofs[1:] - ofs[:-1]) + COLUMN_WEIGHT * widths
+        start = torch.cumsum(cost, 0) - cost  # each stripe's, exclusive
+        total = cost.sum()
+        k = torch.arange(blocks + 1, device=dev)
+        lo = torch.searchsorted(start * blocks, k * total)
+        lo[-1] = fmt.L
+        # the block rows each block reads: its x window
+        owner = torch.repeat_interleave(
+            torch.arange(blocks, device=dev), pos[lo[1:]] - pos[lo[:-1]],
+            output_size=fmt.idx.numel())
+        rows = fmt.idx.long()
+        first = torch.full((blocks,), fmt.m, device=dev).scatter_reduce_(
+            0, owner, rows, "amin")
+        last = torch.full((blocks,), -1, device=dev).scatter_reduce_(
+            0, owner, rows, "amax")
+        # each resident stripe starts where its first column does, modulo
+        # ALIGN: after its first value row, a multiple of ALIGN words
+        pad = _exclusive_cumsum(ALIGN * torch.div(
+            ofs[1:] - ofs[:-1] - widths + ALIGN - 1, ALIGN,
+            rounding_mode="floor").clamp(min=0))
+        # shared bytes before each stripe boundary: padded values, block rows
+        resident = 4 * (spl + pad + pos)
+        # the window is staged where it fits beside the whole range
+        win = (last - first + 1).clamp(min=0)
+        win = torch.where(resident[lo[1:]] - resident[lo[:-1]] + 4 * win <= budget,
+                          win, 0)
+        res = torch.searchsorted(resident, resident[lo[:-1]] + budget - 4 * win,
+                                 right=True) - 1
+        # column groups: GROUP adjacent columns of a stripe
+        ngroups = torch.div(widths + GROUP - 1, GROUP, rounding_mode="floor")
+        gofs = _exclusive_cumsum(ngroups)
+        n_groups = int(gofs[-1])
+        gstripe = torch.repeat_interleave(torch.arange(fmt.L, device=dev), ngroups,
+                                          output_size=n_groups)
+        gcol = spl[gstripe] + GROUP * (torch.arange(n_groups, device=dev)
+                                       - gofs[gstripe])
+        parts = [lo, torch.minimum(res, lo[1:]), torch.where(win > 0, first, 0),
+                 win, gofs[lo], pad, gcol]
+        buf = torch.cat(parts).int()
+        plan = ChainPlan(buf, *torch.split(buf, [p.numel() for p in parts]))
+        fmt.chain_plans[key] = plan
+    return plan
+
+
+def _exclusive_cumsum(t: torch.Tensor) -> torch.Tensor:
+    out = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    torch.cumsum(t, 0, out=out[1:])
+    return out
+
+
+def chain_grid(device, budget: int = -1) -> tuple[int, int]:
+    """``(blocks, budget)`` of a cooperative chain launch on the CUDA
+    ``device``: every block the occupancy API fits at ``budget`` bytes of
+    shared memory a block (``-1``: the largest a block may take).  Raises
+    ``RuntimeError`` for a budget over the device's limit."""
+    lib = _lib.load()
+    b, n = ctypes.c_int(budget), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.vbcs_chain_grid(ctypes.byref(b), ctypes.byref(n))
+    _lib.check(lib, rc, "tr_spmv_chain grid")
+    return n.value, b.value
 
 
 def tr_spmv_chain_plain(fmt: VBC1DDevice, x: torch.Tensor, n_iters: int,
@@ -44,8 +171,9 @@ def tr_spmv_chain(fmt: VBC1DDevice, x: torch.Tensor, n_iters: int,
     square ``fmt`` and ``n_iters >= 1``.
 
     CUDA tensors run the persistent chain kernel in one cooperative launch
-    over every block the card can hold resident at once (a refused launch
-    raises ``RuntimeError``); CPU tensors run :func:`tr_spmv_chain_plain`."""
+    over every block the card holds at the largest shared-memory size (a
+    refused launch raises ``RuntimeError``); CPU tensors run
+    :func:`tr_spmv_chain_plain`."""
     _check_chain(fmt, n_iters)
     dev = fmt.device
     _check_vec("x", x, fmt.m, dev)
@@ -56,16 +184,22 @@ def tr_spmv_chain(fmt: VBC1DDevice, x: torch.Tensor, n_iters: int,
     out = torch.empty(fmt.n, dtype=torch.float32, device=dev)
     if fmt.n == 0:
         return out
+    lib = _lib.load()
+    if dev.index not in _grids:
+        _grids[dev.index] = chain_grid(dev)
+    blocks, budget = _grids[dev.index]
+    plan = chain_plan(fmt, blocks, budget)
     bufs = (torch.empty(2, fmt.n, dtype=torch.float32, device=dev)
             if n_iters > 1 else None)
-    lib = _lib.load()
+    count = torch.empty(1, dtype=torch.int32, device=dev)  # the grid barrier's
     with torch.cuda.device(dev):
         rc = lib.vbcs_tr_spmv_chain(
-            fmt.n, n_iters, fmt.spl.data_ptr(), fmt.pos.data_ptr(),
+            n_iters, fmt.L, plan.buf.data_ptr(), fmt.spl.data_ptr(), fmt.pos.data_ptr(),
             fmt.idx.data_ptr(), fmt.ofs.data_ptr(), fmt.col_stripe.data_ptr(),
             fmt.val.data_ptr(), x.data_ptr(), 1.0 if alpha is None else float(alpha),
             None if bufs is None else bufs[0].data_ptr(),
-            None if bufs is None else bufs[1].data_ptr(), out.data_ptr(), 0,
+            None if bufs is None else bufs[1].data_ptr(), out.data_ptr(),
+            count.data_ptr(), blocks, budget,
             torch.cuda.current_stream(dev).cuda_stream)
     _lib.check(lib, rc, "tr_spmv_chain")
     tr_spmv_chain.launches += 1
