@@ -61,7 +61,17 @@ Phases (one line each; any failure raises and exits non-zero):
 10. the scatter path: ``tr_mul``/``mul`` on the scattered matrix's
     operator against the f64 product, and the route of each of the six
     packs;
-11. the standalone relayout op at the flagship's R = 313.
+11. the standalone relayout op at the flagship's R = 313;
+12. the probes (``vbcs_tpu_torch/probes``, the ports of
+    ``bench_tools/probe_*.py``) through their entry points: the launch
+    probe (one and two ``add_one`` launches a step, the elementwise and
+    pad steps, eager on the caller's clock and as CUDA graphs, the ctypes
+    path and its parts), both chunk probes (every variant warm and with
+    L2 flushed beside its bound), the chain probe (A-D, the marginal
+    iteration, beside the chain's barrier floor of phase 8) and the SpMM
+    load-path probe (the FMA kernel beside ``torch.einsum``, the row
+    gather); then every variant of the four probe kernels against its
+    plain version at full size.
 
 Phase 3 also holds the chain (n_iters 1, 2, 5; alpha None and 0.5; the
 square corpus, a multi-class DP plan, long stripes) against its plain
@@ -69,22 +79,27 @@ version and the f64 oracle, with its pack resident in shared memory,
 partly resident (a budget of half the largest block range) and streamed
 (budget 0), the scatter kernel on width-1 packs (the
 corpus, a rectangle, a 90-entry column beside an empty one, columns for
-every lane group), and the relayout at R = 1, 3, 313 (bitwise).
+every lane group), and the relayout at R = 1, 3, 313 (bitwise); and the
+repaired iteration count of the chain: a launch whose grid-barrier
+counter starts 5 rounds short of 2^32, and a chain split across launches
+at a cap of 3 iterations a launch.
 
 Each path is driven between a reset and a read of the launch counts:
 ``tr_mul``/``mul`` of phases 4-5 (stripe and scatter TrSpMV, gather),
 the SpMM calls of phases 4-6 (SpMM kernel), the 2-D calls of phase 7
 (tile TrSpMV, and the SpMM kernel on the 1-D views), the four
 ``tr_mul_chain`` calls of phase 9 (one chain launch each, two gathers on
-the FEM), the scattered ``tr_mul``/``mul`` of phase 10 (scatter TrSpMV)
-and the relayout of phase 11.  Then each kernel is held against its
+the FEM), the scattered ``tr_mul``/``mul`` of phase 10 (scatter TrSpMV),
+the relayout of phase 11 and the five probes of phase 12 (the launch,
+chunk, chain-probe and FMA kernels).  Then each kernel is held against its
 plain version at the shapes those paths gave it: the stripe kernel on
 both packs of both operators, the gather on the FEM operator's
 permutation and its inverse (bitwise), the SpMM kernel on both packs of
 all five operators with their RHS, the tile kernel on the four 2-D
 packs, the chain on the flagship and FEM packs (resident, partly
 resident and streamed), the scatter kernel on
-every scatter-route pack, the relayout at R = 313 (bitwise).
+every scatter-route pack, the relayout at R = 313 (bitwise), and the
+probe kernels on their probes' inputs.
 The next-to-last line is the kernels' JSON record; the last line is the
 run's JSON result.  It imports no JAX: the JAX package is the reference,
 not a dependency.
@@ -103,9 +118,14 @@ import torch
 import vbcs_tpu_torch as vt
 from vbcs_tpu_torch import native
 from vbcs_tpu_torch.ops import _lib
+from vbcs_tpu_torch.ops import chain as chain_op
 from vbcs_tpu_torch.ops.chain import chain_grid, chain_plan
 from vbcs_tpu_torch.ops.scatter import MAX_MEAN_WIDTH, lanes_per_column
 from vbcs_tpu_torch.ops.trspmv2d import lanes_per_stripe
+from vbcs_tpu_torch.probes import chunk as probe_chunk
+from vbcs_tpu_torch.probes import (probe_chain, probe_kernel, probe_kernel2,
+                                   probe_launch, probe_spmm4)
+from vbcs_tpu_torch.probes._common import marginal_ms
 from vbcs_tpu_torch.utils.timing import flushed_ms, host_ms, paired_ms
 
 from bench import blocky2d_matrix, blocky_matrix, fem_matrix, scattered_matrix
@@ -116,6 +136,9 @@ TOL = 2e-5
 SPMM_K = (1, 5, 32, 128, 130)  # scalar path, float4 path, two 128-col tiles
 KERNELS = (vt.tr_spmv, vt.gather, vt.tr_spmm, vt.tr_spmv_2d, vt.tr_spmv_chain,
            vt.tr_spmv_scatter, vt.tile_relayout)
+# the probes' kernel wrappers (phase 12)
+PROBES = (probe_launch.add_one, probe_chunk.chunk, probe_chain.chain,
+          probe_spmm4.fma)
 CHAIN_ITERS = 100  # the timed chain, at the JAX bench's alpha (bench.py:495)
 CHAIN_ALPHA = 0.999
 # H100 SXM data sheet: device-memory rate, f32 rate outside the tensor cores
@@ -240,12 +263,12 @@ def chain_oracle(A, x, n_iters, alpha):
     return y
 
 
-def launch_chain(fmt, x, n_iters, alpha, blocks, budget):
+def launch_chain(fmt, x, n_iters, alpha, blocks, budget, start=0):
     """The chain's C launcher at an explicit grid and shared-memory budget
     a block (``tr_spmv_chain`` takes the largest budget and every block
-    that fits it), under ``chain_plan`` for the same pair: (return code,
-    output).  A comparison launch: it is not counted in
-    ``tr_spmv_chain.launches``."""
+    that fits it), under ``chain_plan`` for the same pair, its grid
+    barrier's counter starting at ``start``: (return code, output).  A
+    comparison launch: it is not counted in ``tr_spmv_chain.launches``."""
     plan = chain_plan(fmt, blocks, budget)
     out = torch.empty(fmt.n, device=x.device)
     bufs = torch.empty(2, fmt.n, device=x.device)
@@ -255,7 +278,7 @@ def launch_chain(fmt, x, n_iters, alpha, blocks, budget):
         fmt.idx.data_ptr(), fmt.ofs.data_ptr(), fmt.col_stripe.data_ptr(),
         fmt.val.data_ptr(), x.data_ptr(), 1.0 if alpha is None else alpha,
         bufs[0].data_ptr(), bufs[1].data_ptr(), out.data_ptr(),
-        count.data_ptr(), blocks, budget,
+        count.data_ptr(), start, blocks, budget,
         torch.cuda.current_stream(x.device).cuda_stream)
     return rc, out
 
@@ -577,6 +600,38 @@ def phase_kernels_slice4(dev, errs):
           f"{2 * len(packs)} checks on {len(packs)} packs, lane groups "
           f"{sorted(lanes)}, worst {sc_worst[0]:.3e} vs plain, {sc_worst[1]:.3e} "
           f"vs f64 oracle; relayout at R = 1, 3, 313: bitwise equal", flush=True)
+
+
+def phase_chain_repair(dev):
+    """The chain's iteration count: a launch whose grid-barrier counter
+    starts 5 rounds short of 2^32 (the targets of rounds 5-9 wrap), and a
+    chain split across launches at a cap of 3 iterations a launch (10 =
+    3 + 3 + 3 + 1), each against the plain loop."""
+    fmt = vt.VBC1DDevice.from_host(vt.vbc1d(blocky_matrix(L=2048), 8), dev)
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal(fmt.m).astype(
+        np.float32)).to(dev)
+    blocks, budget = chain_grid(dev)
+    rc, got = launch_chain(fmt, x, 10, 0.25, blocks, budget, start=2**32 - 5 * blocks)
+    _lib.check(_lib.load(), rc, "chain with a wrapping barrier counter")
+    e_wrap = rel_err(got.cpu().numpy(),
+                     vt.tr_spmv_chain_plain(fmt, x, 10, 0.25).cpu().numpy())
+    cap = chain_op.MAX_LAUNCH_ITERS
+    chain_op.MAX_LAUNCH_ITERS = 3
+    try:
+        before = vt.tr_spmv_chain.launches
+        got = vt.tr_spmv_chain(fmt, x, 10, 0.5)
+        n_launches = vt.tr_spmv_chain.launches - before
+    finally:
+        chain_op.MAX_LAUNCH_ITERS = cap
+    e_split = rel_err(got.cpu().numpy(),
+                      vt.tr_spmv_chain_plain(fmt, x, 10, 0.5).cpu().numpy())
+    check(e_wrap <= TOL and e_split <= TOL and n_launches == 4,
+          f"chain repair: counter wrap off by {e_wrap:.2e}, split ({n_launches} "
+          f"launches) off by {e_split:.2e}")
+    print(f"[3 chain repair] barrier counter from 2^32 - 5 x {blocks} blocks, 10 "
+          f"iterations: |Δ|/max|y| {e_wrap:.3e} vs plain; chain of 10 at "
+          f"{3} iterations a launch: {n_launches} launches, {e_split:.3e} vs "
+          f"plain (tol {TOL})", flush=True)
 
 
 def phase_flagship(dev):
@@ -1184,6 +1239,7 @@ def phase_timing_slice4(dev, chains, scat, rel):
                      dev, iters=5)
     out["tr_spmv_chain"] = entry(warm, tr_spmv_work(fmt, nonzeros(A), False, n_it))
     out["tr_spmv_chain"]["launch_loop_ms"] = warm[3]
+    out["tr_spmv_chain"]["barrier_floor_ms"] = warm[5]
     A2, op2, xt2, _ = chains["FEM"]
     x2 = vt.gather(xt2, op2.perm_t)
     launches2, library2 = chain_loops(
@@ -1296,6 +1352,118 @@ def phase_timing_slice4(dev, chains, scat, rel):
     return out
 
 
+def phase_probes(dev, floor_ms):
+    """12: the five probes through their entry points (each module's
+    ``run``, what ``python -m vbcs_tpu_torch.probes.probe_<name>`` runs),
+    between a reset and a read of the probe kernels' launch counts; then
+    every variant of the four probe kernels against its plain version at
+    full size (gathers bitwise, sums to ``TOL``), each kernel's record for
+    the kernels line, and the chain probe's marginal iterations beside the
+    chain's barrier floor of phase 8 (``floor_ms`` a 100-iteration call)."""
+    t_phase = time.perf_counter()
+    sp4 = probe_spmm4.inputs().to(dev)  # built once: 83M normal draws
+    for k in PROBES:
+        k.launches = 0
+    t0 = time.perf_counter()
+    launch = probe_launch.run(dev)
+    pk = probe_kernel.run(dev)
+    pk2 = probe_kernel2.run(dev)
+    chains = probe_chain.run(dev)
+    spmm4 = probe_spmm4.run(dev, inp=sp4)
+    t_run = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in PROBES}
+    check(all(launches.values()), f"a probe kernel was not launched: {launches}")
+    print(f"[12 probes] five probes in {t_run:.1f} s; probe kernel launches "
+          f"{launches}", flush=True)
+    probe_launch.print_record(launch, dev)
+    probe_chunk.print_records(pk + pk2, dev)
+    probe_chain.print_records(chains, dev)
+    probe_spmm4.print_record(spmm4, dev)
+    floor_us = floor_ms * 1e3 / CHAIN_ITERS
+    print(f"[12 probes] chain probe, marginal us an iteration: "
+          + ", ".join(f"{r['variant']} {r['ms'] * 1e3:.3f}" for r in chains)
+          + f"; the chain kernel's barrier floor (phase 8) {floor_us:.3f} us an "
+          f"iteration; tiny launch a step: eager {launch['one']['wall_ms'] * 1e3:.2f}"
+          f" us (caller's clock), graph {launch['one']['graph_ms'] * 1e3:.2f} us "
+          f"(device); add_one through "
+          f"ctypes {launch['add_one']['wall_ms'] * 1e3:.2f} us, tr_spmv on one "
+          f"stripe {launch['tr_spmv_one_stripe']['wall_ms'] * 1e3:.2f} us on the "
+          f"caller's clock", flush=True)
+
+    # every variant against its plain version (not counted: after the read)
+    errs = dict.fromkeys(launches, 0.0)
+    x = torch.randn(8, 128, device=dev)
+    got = probe_launch.add_one(x)
+    check(torch.equal(got, probe_launch.add_one_plain(x)), "add_one differs from plain")
+    n_chunk = 0
+    built = {}
+    for probe in (probe_kernel, probe_kernel2):
+        for var, kw in dict.fromkeys((v, tuple(kw.items()))
+                                     for _, v, kw in probe.VARIANTS):
+            if (probe, kw) not in built:
+                built[probe, kw] = probe.inputs(**dict(kw)).to(dev)
+            inp = built[probe, kw]
+            got, want = probe_chunk.chunk(var, inp), probe_chunk.chunk_plain(var, inp)
+            torch.cuda.synchronize()
+            e = rel_err(got.cpu().numpy(), want.cpu().numpy())
+            check(got.shape == want.shape and bool(torch.isfinite(got).all())
+                  and (torch.equal(got, want) if var in probe_chunk.BITWISE
+                       else e <= TOL),
+                  f"{probe.__name__} {var} {kw}: kernel off its plain version "
+                  f"by {e:.2e}")
+            errs["chunk"] = max(errs["chunk"], float((got - want).abs().max()))
+            n_chunk += 1
+    worst_chain = 0.0
+    for _, var, wblk in probe_chain.VARIANTS:
+        inp = probe_chain.inputs(wblk=wblk).to(dev)
+        for n in (1, 2, 3):
+            got = probe_chain.chain(var, inp, n)
+            want = probe_chain.chain_plain(var, inp, n)
+            e = rel_err(got.cpu().numpy(), want.cpu().numpy())
+            check(bool(torch.isfinite(got).all()) and e <= TOL,
+                  f"probe chain {var} x{n}: off its plain version by {e:.2e}")
+            worst_chain = max(worst_chain, e)
+            errs["chain"] = max(errs["chain"], float((got - want).abs().max()))
+    got, want = probe_spmm4.fma(sp4.Xg, sp4.Vl), probe_spmm4.fma_plain(sp4.Xg, sp4.Vl)
+    e_fma = rel_err(got.cpu().numpy(), want.cpu().numpy())
+    check(e_fma <= TOL, f"probe spmm4 FMA off its plain version by {e_fma:.2e}")
+    errs["fma"] = float((got - want).abs().max())
+    same_function("probe spmm4 FMA", lambda: probe_spmm4.fma_library(sp4.Xg, sp4.Vl),
+                  lambda: probe_spmm4.fma(sp4.Xg, sp4.Vl))
+    same_function("probe add_one", lambda: torch.add(x, 1.0),
+                  lambda: probe_launch.add_one(x), tol=None)
+    print(f"[12 probes, kernels against plain] add_one bitwise; chunk: {n_chunk} "
+          f"variants at T = 39, gathers bitwise, worst |Δ| {errs['chunk']:.3e}; "
+          f"chain probe A-D x1-3 at T = 40: worst |Δ|/max {worst_chain:.3e}; "
+          f"spmm4 FMA at T = 157: {e_fma:.3e} (tol {TOL})", flush=True)
+
+    # the kernels line: the full v3 chunk (probe_kernel2 d), the chain
+    # probe's full body (B) an iteration, the FMA
+    inp = built[probe_kernel2, ()]
+    d = paired_ms([lambda: probe_chunk.chunk("take2_red", inp),
+                   lambda: probe_chunk.chunk_plain("take2_red", inp)], dev)
+    b_inp = probe_chain.inputs().to(dev)
+    plain_it = marginal_ms(lambda n: probe_chain.chain_plain("B", b_inp, n), 1, 4,
+                           dev, iters=1)
+    fma_plain = paired_ms([lambda: probe_spmm4.fma_plain(sp4.Xg, sp4.Vl)], dev,
+                          iters=3)[0]
+    a = launch["add_one"]
+    b = next(r for r in chains if r["variant"] == "B")
+    ms = {
+        "add_one": entry([a["ms"], a["plain_ms"], a["library_ms"]], (a["bytes"], 0)),
+        "chunk": entry([d[0], d[1], None], (probe_chunk.needed_bytes("take2_red", inp),
+                                            2 * inp.val.numel())),
+        "chain": entry([b["ms"], plain_it, None], (b["bytes"], b["flops"])),
+        "fma": entry([spmm4["fma_ms"], fma_plain, spmm4["library_ms"]],
+                     (spmm4["fma_bytes"], spmm4["fma_flops"])),
+    }
+    print(f"[12 probes, records] chunk (probe_kernel2 d) {d[0] * 1e3:.2f} us, plain "
+          f"{d[1] * 1e3:.2f} us; chain probe B plain {plain_it * 1e3:.2f} us an "
+          f"iteration; FMA plain {fma_plain * 1e3:.2f} us; phase 12 in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, errs, ms
+
+
 def reset_launches():
     for kern in KERNELS:
         kern.launches = 0
@@ -1310,6 +1478,7 @@ def main():
     errs = {k.__name__: 0.0 for k in KERNELS}
     phase_kernels(dev, errs)
     phase_kernels_slice4(dev, errs)
+    phase_chain_repair(dev)
 
     reset_launches()
     flag = phase_flagship(dev)
@@ -1375,6 +1544,11 @@ def main():
     ms = phase_timing(dev, flag, fem, spmm)
     ms.update(phase_timing_2d(dev, parts))
     ms.update(phase_timing_slice4(dev, chains, scat, rel))
+    p_launches, p_errs, p_ms = phase_probes(
+        dev, ms["tr_spmv_chain"]["barrier_floor_ms"])
+    launches.update(p_launches)
+    errs.update(p_errs)
+    ms.update(p_ms)
     check("jax" not in sys.modules, "the port loaded JAX")
     meta = [
         ("tr_spmv_stripe", "tr_spmv", "trspmv.cu",
@@ -1391,6 +1565,11 @@ def main():
          "vbcs_tpu/ops/pallas_scatter.py:185"),
         ("tile_relayout", "tile_relayout", "relayout.cu",
          "vbcs_tpu/ops/pallas_trspmv3.py:1117"),
+        ("probe_add_one", "add_one", "probe_launch.cu", "bench_tools/probe_launch.py:22"),
+        ("probe_chunk", "chunk", "probe_chunk.cu",
+         "bench_tools/probe_kernel.py:78, bench_tools/probe_kernel2.py:71"),
+        ("probe_chain", "chain", "probe_chain.cu", "bench_tools/probe_chain.py:66"),
+        ("probe_spmm4_fma", "fma", "probe_spmm4.cu", "bench_tools/probe_spmm4.py:45"),
     ]
     rec = [{"name": name, "route": "cuda",
             "source": f"vbcs_tpu_torch/csrc/{src}", "replaces": replaces,

@@ -140,3 +140,42 @@ def test_nonsquare_raises():
         vt.tr_spmv_chain(op.dev_tr, torch.zeros(300), 2)
     with pytest.raises(ValueError, match="square"):
         vt.tr_spmv_chain_plain(op.dev_tr, torch.zeros(300), 2)
+
+
+def test_long_chain_splits_into_launches(monkeypatch):
+    """A chain longer than MAX_LAUNCH_ITERS runs as several launches, each
+    applying alpha; on the CPU each launch is the plain chain, so the
+    split changes no bit of the result."""
+    from vbcs_tpu_torch.ops import chain
+
+    monkeypatch.setattr(chain, "MAX_LAUNCH_ITERS", 3)
+    assert list(chain.launch_iters(10)) == [3, 3, 3, 1]
+    assert list(chain.launch_iters(9)) == [3, 3, 3]
+    assert list(chain.launch_iters(2)) == [2]
+    A = banded(300, 300, 3, 30, 4)
+    fmt = vt.VBC1DDevice.from_host(v.vbc1d(A, 8), "cpu")
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(300).astype(
+        np.float32))
+    runs = []
+    plain = chain.tr_spmv_chain_plain
+    monkeypatch.setattr(chain, "tr_spmv_chain_plain",
+                        lambda f, xx, k, a=None: runs.append(k) or plain(f, xx, k, a))
+    got = chain.tr_spmv_chain(fmt, x, 10, 0.5)
+    assert runs == [3, 3, 3, 1]
+    assert torch.equal(got, plain(fmt, x, 10, 0.5))
+    assert rel_err(got.numpy(), oracle(A, x.numpy(), 10, 0.5)) <= TOL
+
+
+def test_launch_cap_is_the_launchers_int():
+    from vbcs_tpu_torch.ops import chain
+
+    assert chain.MAX_LAUNCH_ITERS == 2**31 - 1
+    assert list(chain.launch_iters(2**31 + 4)) == [2**31 - 1, 5]
+    assert list(chain.launch_iters(2**33)) == [2**31 - 1] * 4 + [4]
+    assert all(0 < k <= 2**31 - 1 for k in chain.launch_iters(3 * 2**32 + 7))
+    fmt = vt.VBC1DDevice.from_host(v.vbc1d(banded(50, 50, 3, 5, 2), 8), "cpu")
+    x = torch.ones(50)
+    with pytest.raises(TypeError):
+        vt.tr_spmv_chain(fmt, x, 2.0)  # a count is an integer
+    assert torch.equal(vt.tr_spmv_chain(fmt, x, np.int64(2)),
+                       vt.tr_spmv_chain_plain(fmt, x, 2))

@@ -569,3 +569,128 @@ def test_tile_relayout_kernel_bitwise(R, m, cuda_device):
     got = vt.tile_relayout(x, R)
     assert vt.tile_relayout.launches == before + 1
     assert torch.equal(got, vt.tile_relayout_plain(x, R))
+
+
+def test_tr_spmv_chain_barrier_counter_wraps(cuda_device):
+    """The grid barrier's counter started 5 rounds short of 2^32: the
+    targets of rounds 5-9 wrap past 2^32, and the wrap-safe comparison
+    still orders the 10 iterations."""
+    A, W, method = CASES["flagship_l2048"]()
+    fmt = vt.VBC1DDevice.from_host(vt.vbc1d(A, W, method), cuda_device)
+    blocks, budget = chain_grid(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(A.shape[0], device=cuda_device, generator=g)
+    rc, got = launch_chain(fmt, x, 10, 0.25, blocks, budget,
+                           start=2**32 - 5 * blocks)
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert rel_err(got, vt.tr_spmv_chain_plain(fmt, x, 10, 0.25)) <= TOL
+    assert rel_err(got, oracle_chain(A, x, 10, 0.25)) <= TOL
+
+
+def test_tr_spmv_chain_split_across_launches(cuda_device, monkeypatch):
+    """At a cap of 3 iterations a launch, a chain of 10 is 4 launches
+    (3, 3, 3, 1) handing x over between them, alpha in each."""
+    from vbcs_tpu_torch.ops import chain
+
+    monkeypatch.setattr(chain, "MAX_LAUNCH_ITERS", 3)
+    A, W, method = CHAIN_CASES["multiclass_dp"]()
+    fmt = vt.VBC1DDevice.from_host(vt.vbc1d(A, W, method), cuda_device)
+    x = torch.randn(A.shape[0], device=cuda_device)
+    for n_iters, launches in ((10, 4), (9, 3), (4, 2), (1, 1)):
+        before = vt.tr_spmv_chain.launches
+        got = vt.tr_spmv_chain(fmt, x, n_iters, 0.5)
+        assert vt.tr_spmv_chain.launches == before + launches
+        assert rel_err(got, vt.tr_spmv_chain_plain(fmt, x, n_iters, 0.5)) <= TOL
+        assert rel_err(got, oracle_chain(A, x, n_iters, 0.5)) <= TOL
+
+
+def test_probe_add_one_kernel(cuda_device):
+    from vbcs_tpu_torch.probes import probe_launch as pl_
+
+    x = torch.randn(8, 128, device=cuda_device)
+    before = pl_.add_one.launches
+    got = pl_.add_one(x)
+    assert pl_.add_one.launches == before + 1
+    assert torch.equal(got, pl_.add_one_plain(x))
+    y = torch.randn(1000, device=cuda_device)
+    assert torch.equal(pl_.add_one(y), y + 1.0)
+
+
+def test_probe_launch_graph_replays_the_eager_steps(cuda_device):
+    from vbcs_tpu_torch.probes import probe_launch as pl_
+
+    x0, xb = (t.to(cuda_device) for t in pl_.inputs())
+    for kind in pl_.STEPS:
+        x = xb if kind == "pad" else x0
+        want = pl_.chained(kind, x, 7)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = pl_.chained(kind, x, 7)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def chunk_cases():
+    from vbcs_tpu_torch.probes import probe_kernel, probe_kernel2
+
+    cases = {f"probe_kernel {v}": (v, kw) for _, v, kw in probe_kernel.VARIANTS}
+    cases.update({f"probe_kernel2 {name.split()[0]} {v}": (v, kw)
+                  for name, v, kw in probe_kernel2.VARIANTS})
+    return cases
+
+
+CHUNK_CASES = chunk_cases()
+
+
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_probe_chunk_kernel_matches_plain(case, cuda_device):
+    """Every chunk variant at full size (T = 39) on its probe's inputs."""
+    from vbcs_tpu_torch.probes import chunk, probe_kernel, probe_kernel2
+
+    variant, kw = CHUNK_CASES[case]
+    probe = probe_kernel if case.startswith("probe_kernel ") else probe_kernel2
+    inp = probe.inputs(**kw).to(cuda_device)
+    before = chunk.chunk.launches
+    got = chunk.chunk(variant, inp)
+    assert chunk.chunk.launches == before + 1
+    want = chunk.chunk_plain(variant, inp)
+    torch.cuda.synchronize()
+    assert got.shape == (8, 39 * 1024) and torch.isfinite(got).all()
+    if variant in chunk.BITWISE:
+        assert torch.equal(got, want)
+    else:
+        assert rel_err(got, want) <= TOL
+
+
+@pytest.mark.parametrize("n_iters", [1, 2, 3])
+@pytest.mark.parametrize("variant", ["A", "B", "C", "D"])
+def test_probe_chain_kernel_matches_plain(variant, n_iters, cuda_device):
+    """One cooperative launch of the chain probe at full size (T = 40)."""
+    from vbcs_tpu_torch.probes import probe_chain
+
+    wblk = dict((v, w) for _, v, w in probe_chain.VARIANTS)[variant]
+    inp = probe_chain.inputs(wblk=wblk).to(cuda_device)
+    before = probe_chain.chain.launches
+    got = probe_chain.chain(variant, inp, n_iters)
+    assert probe_chain.chain.launches == before + 1
+    want = probe_chain.chain_plain(variant, inp, n_iters)
+    torch.cuda.synchronize()
+    assert got.shape == (8, 40 * 1024) and torch.isfinite(got).all()
+    assert rel_err(got, want) <= TOL
+
+
+def test_probe_spmm4_fma_kernel_matches_plain(cuda_device):
+    """The FMA at full size (T = 157: Xg and out 164.6 MB each)."""
+    from vbcs_tpu_torch.probes import probe_spmm4
+
+    inp = probe_spmm4.inputs(m=10).to(cuda_device)
+    before = probe_spmm4.fma.launches
+    got = probe_spmm4.fma(inp.Xg, inp.Vl)
+    assert probe_spmm4.fma.launches == before + 1
+    want = probe_spmm4.fma_plain(inp.Xg, inp.Vl)
+    torch.cuda.synchronize()
+    assert got.shape == (157 * 2048, 128) and torch.isfinite(got).all()
+    assert rel_err(got, want) <= TOL
+    assert rel_err(probe_spmm4.fma_library(inp.Xg, inp.Vl), want) <= TOL

@@ -16,7 +16,10 @@ there:
 * ``native``   — ctypes bindings to the C++ host paths (the port's own
   copy of the JAX package's source);
 * ``operator`` — ``VBCOperator`` (``tr_mul``/``mul``, ``tr_mul_chain``,
-  ``tr_mul_mat``/``mul_mat``) and ``VBC2DOperator``.
+  ``tr_mul_mat``/``mul_mat``) and ``VBC2DOperator``;
+* ``probes``   — micro-probes of the kernels on the card (ports of
+  ``bench_tools/probe_*.py``, each on a kernel of its own);
+* ``utils``    — CUDA-event timing and the roofline and trace helpers.
 
 Importing this package loads no JAX.  Devices are never picked
 implicitly: every constructor that places tensors takes ``device``.

@@ -37,11 +37,13 @@
 // or y_out at the last iteration; alpha is fused into every store.  One
 // barrier per iteration is enough: the buffer iteration i + 1 overwrites
 // was last read in iteration i - 1, before the barrier that ended it.
-// The barrier is grid_barrier below, not cooperative_groups' grid.sync():
-// the same arrive-and-wait on one counter, with a release add and acquire
-// loads instead of two full fences, which ran the flagship's chain
-// faster on an H100 when the two were timed in one run.  The launch
-// stays cooperative, so every block is resident.
+// The barrier is grid_barrier (barrier.cuh), not cooperative_groups'
+// grid.sync(): the same arrive-and-wait on one counter, with a release add
+// and acquire loads instead of two full fences, which ran the flagship's
+// chain faster on an H100 when the two were timed in one run; its target
+// is compared wrap-safe, so a launch may run up to INT32_MAX iterations
+// (ops/chain.py splits longer chains).  The launch stays cooperative, so
+// every block is resident.
 //
 // Coherence: the ping-pong buffers are written inside this launch, so
 // they are read with ld.global.cg (__ldcg, L2 only) and never through the
@@ -61,6 +63,8 @@
 // the error is returned, not worked around.
 
 #include <cuda_runtime.h>
+
+#include "barrier.cuh"
 
 namespace {
 
@@ -195,35 +199,13 @@ __device__ __forceinline__ void store(const Group& q, float alpha,
   }
 }
 
-// All blocks of the (cooperative, hence co-resident) grid meet: each
-// block's thread 0 adds one to *count with release semantics (the
-// block's stores, ordered before it by __syncthreads, become visible
-// first) and waits with acquire loads until all gridDim.x blocks of
-// this round have arrived.  *count is 0 at launch; round k waits for
-// k * gridDim.x arrivals.
-__device__ __forceinline__ void grid_barrier(unsigned* count, unsigned target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(count)
-                 : "memory");
-    unsigned seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                   : "=r"(seen)
-                   : "l"(count)
-                   : "memory");
-    } while (seen < target);
-  }
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(kThreads, 1) tr_spmv_chain_kernel(
     int n_iters, int L, const int* __restrict__ plan_buf,
     const int* __restrict__ spl, const int* __restrict__ pos,
     const int* __restrict__ idx, const int* __restrict__ ofs,
     const int* __restrict__ col_stripe, const float* __restrict__ val,
     const float* x, float alpha, float* buf0, float* buf1, float* y_out,
-    unsigned* count, int smem_bytes) {
+    unsigned* count, unsigned start, int smem_bytes) {
   extern __shared__ float4 smem[];  // float4: 16-byte alignment
   const Plan p(plan_buf, gridDim.x, L);
   const int k = blockIdx.x;
@@ -283,7 +265,7 @@ __global__ void __launch_bounds__(kThreads, 1) tr_spmv_chain_kernel(
       run(locate(g, r, p.gcol, spl, pos, ofs, col_stripe));
     }
     if (i + 1 < n_iters) {
-      grid_barrier(count, static_cast<unsigned>(i + 1) * gridDim.x);
+      grid_barrier(count, start + static_cast<unsigned>(i + 1) * gridDim.x);
     }
   }
 }
@@ -324,19 +306,25 @@ int vbcs_chain_grid(int* budget, int* blocks) {
 // Launches the chain cooperatively on `stream`: `blocks` blocks of 1024
 // threads with `budget` bytes of dynamic shared memory each, under `plan`
 // (ChainPlan.buf of ops/chain.py: chain_plan for the same blocks and
-// budget, on a pack of L stripes).  `count` is 4 bytes of scratch for the grid barrier, zeroed
-// here on `stream` before the launch.  Returns the first error (0 =
-// launched; cudaErrorCooperativeLaunchTooLarge when the grid cannot be
-// resident).  buf0/buf1 hold n floats each and may be null when
-// n_iters == 1; n_iters >= 1.
+// budget, on a pack of L stripes).  `count` is 4 bytes of scratch for the
+// grid barrier, set to `start` here on `stream` before the launch (the
+// wrapper passes 0; a test starts it near 2^32 to cross the wrap).
+// Returns the first error (0 = launched; cudaErrorCooperativeLaunchTooLarge
+// when the grid cannot be resident).  buf0/buf1 hold n floats each and may
+// be null when n_iters == 1; n_iters >= 1.
 int vbcs_tr_spmv_chain(int n_iters, int L, const void* plan, const void* spl,
                        const void* pos, const void* idx, const void* ofs,
                        const void* col_stripe, const void* val, const void* x,
                        float alpha, void* buf0, void* buf1, void* y_out,
-                       void* count, int blocks, int budget, void* stream) {
+                       void* count, unsigned start, int blocks, int budget,
+                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned* a_count = static_cast<unsigned*>(count);
   cudaError_t err = allow_smem(budget);
-  if (err == cudaSuccess) err = cudaMemsetAsync(count, 0, sizeof(unsigned), st);
+  if (err == cudaSuccess) {
+    set_counter<<<1, 1, 0, st>>>(a_count, start);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(err);
@@ -352,11 +340,10 @@ int vbcs_tr_spmv_chain(int n_iters, int L, const void* plan, const void* spl,
   float* a_b0 = static_cast<float*>(buf0);
   float* a_b1 = static_cast<float*>(buf1);
   float* a_y = static_cast<float*>(y_out);
-  unsigned* a_count = static_cast<unsigned*>(count);
   void* args[] = {&n_iters, &L,     &a_plan, &a_spl,   &a_pos,
                   &a_idx,    &a_ofs, &a_cs,   &a_val,   &a_x,
                   &alpha,    &a_b0,  &a_b1,   &a_y,     &a_count,
-                  &budget};
+                  &start,    &budget};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(tr_spmv_chain_kernel), dim3(blocks),
       dim3(kThreads), args, static_cast<size_t>(budget), st);

@@ -273,8 +273,9 @@ class VBCOperator:
 
     def tr_mul_chain(self, x, n_iters: int, alpha=None):
         """y = (alpha * A.T)^n_iters @ x — iterative TrSpMV in one launch
-        of the persistent chain kernel (``ops/chain.py``), whatever the
-        plan; alpha scales every iteration.
+        of the persistent chain kernel (``ops/chain.py``) for every
+        ``MAX_LAUNCH_ITERS`` (2^31 - 1) iterations, whatever the plan;
+        alpha scales every iteration.
 
         The operator must be square (``ValueError`` otherwise).
         ``n_iters == 0`` returns a copy of ``x``.  An auto-RCM operator

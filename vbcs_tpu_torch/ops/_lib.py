@@ -68,8 +68,9 @@ def build() -> tuple[float, str]:
     source.  Returns (seconds spent, compiler output); raises
     ``RuntimeError`` when nvcc is missing or fails."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    headers = glob.glob(os.path.join(CSRC, "*.cuh"))
     if os.path.exists(SO) and os.path.getmtime(SO) >= max(
-            os.path.getmtime(s) for s in sources):
+            os.path.getmtime(s) for s in sources + headers):
         return 0.0, ""
     os.makedirs(os.path.dirname(SO), exist_ok=True)
     nvcc = _nvcc()
@@ -96,8 +97,9 @@ def load():
         if _lib is None:
             build()
             lib = ctypes.CDLL(SO)
-            vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
-                                 ctypes.c_int64, ctypes.c_float)
+            vp, i32, u32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_uint32, ctypes.c_int64,
+                                      ctypes.c_float)
             lib.vbcs_tr_spmv.argtypes = [i32] + [vp] * 8 + [f32, f32, vp, vp]
             lib.vbcs_tr_spmv.restype = i32
             lib.vbcs_tr_spmv_2d.argtypes = [i32, i32] + [vp] * 7 + [f32, f32, vp, vp]
@@ -110,12 +112,23 @@ def load():
                 f32, f32, vp, vp]
             lib.vbcs_tr_spmv_scatter.restype = i32
             lib.vbcs_tr_spmv_chain.argtypes = [i32, i32] + [vp] * 8 + [
-                f32, vp, vp, vp, vp, i32, i32, vp]
+                f32, vp, vp, vp, vp, u32, i32, i32, vp]
             lib.vbcs_tr_spmv_chain.restype = i32
             lib.vbcs_chain_grid.argtypes = [ctypes.POINTER(i32)] * 2
             lib.vbcs_chain_grid.restype = i32
             lib.vbcs_tile_relayout.argtypes = [i32, i32, vp, vp, vp]
             lib.vbcs_tile_relayout.restype = i32
+            # the probes (vbcs_tpu_torch/probes)
+            lib.vbcs_probe_add_one.argtypes = [i32, vp, vp, vp]
+            lib.vbcs_probe_add_one.restype = i32
+            lib.vbcs_probe_chunk.argtypes = [i32] * 4 + [vp] * 7
+            lib.vbcs_probe_chunk.restype = i32
+            lib.vbcs_probe_chain_grid.argtypes = [i32, ctypes.POINTER(i32)]
+            lib.vbcs_probe_chain_grid.restype = i32
+            lib.vbcs_probe_chain.argtypes = [i32] * 4 + [vp] * 8 + [u32, i32, vp]
+            lib.vbcs_probe_chain.restype = i32
+            lib.vbcs_probe_spmm4_fma.argtypes = [i32] + [vp] * 4
+            lib.vbcs_probe_spmm4_fma.restype = i32
             lib.vbcs_error_string.argtypes = [i32]
             lib.vbcs_error_string.restype = ctypes.c_char_p
             _lib = lib

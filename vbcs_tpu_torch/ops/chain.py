@@ -11,11 +11,15 @@ iterations; on a CPU tensor it runs :func:`tr_spmv_chain_plain`, a loop
 of the plain TrSpMV.
 
 ``alpha`` scales every iteration (``None`` is 1), as in the JAX kernel.
+A chain longer than ``MAX_LAUNCH_ITERS`` iterations (the C launcher's
+``int``) runs as several launches, each applying ``alpha``, so any
+``n_iters`` gives the JAX operator's result.
 """
 
 from __future__ import annotations
 
 import ctypes
+import operator
 from typing import NamedTuple
 
 import torch
@@ -25,7 +29,10 @@ from . import _lib
 from .trspmv import _check_vec, tr_spmv_plain
 
 __all__ = ["tr_spmv_chain", "tr_spmv_chain_plain", "chain_plan", "chain_grid",
-           "ChainPlan"]
+           "ChainPlan", "launch_iters", "MAX_LAUNCH_ITERS"]
+
+# the most iterations one launch runs (the launcher's n_iters is a C int)
+MAX_LAUNCH_ITERS = 2**31 - 1
 
 # columns a thread takes together: one float4 of a stripe's value row
 # (csrc/chain.cu: kCols)
@@ -40,11 +47,15 @@ COLUMN_WEIGHT = 2
 _grids: dict = {}  # CUDA device index -> the default launch's (blocks, budget)
 
 
-def _check_chain(fmt, n_iters: int) -> None:
+def _check_chain(fmt, n_iters: int) -> int:
+    """``n_iters`` as an int; raises for a non-square ``fmt`` or a count
+    below 1."""
+    n_iters = operator.index(n_iters)
     if fmt.m != fmt.n:
         raise ValueError(f"the chain needs a square matrix, got {fmt.m}x{fmt.n}")
     if n_iters < 1:
         raise ValueError(f"n_iters must be >= 1, got {n_iters}")
+    return n_iters
 
 
 class ChainPlan(NamedTuple):
@@ -136,6 +147,16 @@ def chain_plan(fmt: VBC1DDevice, blocks: int, budget: int) -> ChainPlan:
     return plan
 
 
+def launch_iters(n_iters: int):
+    """The iteration counts of the launches a chain of ``n_iters`` makes:
+    ``MAX_LAUNCH_ITERS`` each, then the rest (a generator)."""
+    full, rest = divmod(operator.index(n_iters), MAX_LAUNCH_ITERS)
+    for _ in range(full):
+        yield MAX_LAUNCH_ITERS
+    if rest:
+        yield rest
+
+
 def _exclusive_cumsum(t: torch.Tensor) -> torch.Tensor:
     out = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
     torch.cumsum(t, 0, out=out[1:])
@@ -159,8 +180,7 @@ def tr_spmv_chain_plain(fmt: VBC1DDevice, x: torch.Tensor, n_iters: int,
                         alpha=None) -> torch.Tensor:
     """Plain PyTorch chain: ``n_iters`` calls of :func:`tr_spmv_plain`,
     each scaled by ``alpha``."""
-    _check_chain(fmt, n_iters)
-    for _ in range(n_iters):
+    for _ in range(_check_chain(fmt, n_iters)):
         x = tr_spmv_plain(fmt, x, alpha)
     return x
 
@@ -171,14 +191,19 @@ def tr_spmv_chain(fmt: VBC1DDevice, x: torch.Tensor, n_iters: int,
     square ``fmt`` and ``n_iters >= 1``.
 
     CUDA tensors run the persistent chain kernel in one cooperative launch
-    over every block the card holds at the largest shared-memory size (a
-    refused launch raises ``RuntimeError``); CPU tensors run
-    :func:`tr_spmv_chain_plain`."""
-    _check_chain(fmt, n_iters)
+    for every ``MAX_LAUNCH_ITERS`` iterations (:func:`launch_iters`), over
+    every block the card holds at the largest shared-memory size (a
+    refused launch raises ``RuntimeError``); each launch reads the last
+    one's output and writes the other of two hand-over buffers, so the
+    last launch writes the result.  CPU tensors run
+    :func:`tr_spmv_chain_plain` over the same split."""
+    n_iters = _check_chain(fmt, n_iters)
     dev = fmt.device
     _check_vec("x", x, fmt.m, dev)
     if dev.type == "cpu":
-        return tr_spmv_chain_plain(fmt, x, n_iters, alpha)
+        for k in launch_iters(n_iters):
+            x = tr_spmv_chain_plain(fmt, x, k, alpha)
+        return x
     if dev.type != "cuda":
         raise NotImplementedError(f"no chain kernel for device {dev}")
     out = torch.empty(fmt.n, dtype=torch.float32, device=dev)
@@ -191,18 +216,26 @@ def tr_spmv_chain(fmt: VBC1DDevice, x: torch.Tensor, n_iters: int,
     plan = chain_plan(fmt, blocks, budget)
     bufs = (torch.empty(2, fmt.n, dtype=torch.float32, device=dev)
             if n_iters > 1 else None)
+    n_launches = -(-n_iters // MAX_LAUNCH_ITERS)
+    # launch j writes ends[(n_launches - 1 - j) % 2]: the last one, out
+    ends = (out, torch.empty_like(out) if n_launches > 1 else None)
     count = torch.empty(1, dtype=torch.int32, device=dev)  # the grid barrier's
-    with torch.cuda.device(dev):
-        rc = lib.vbcs_tr_spmv_chain(
-            n_iters, fmt.L, plan.buf.data_ptr(), fmt.spl.data_ptr(), fmt.pos.data_ptr(),
-            fmt.idx.data_ptr(), fmt.ofs.data_ptr(), fmt.col_stripe.data_ptr(),
-            fmt.val.data_ptr(), x.data_ptr(), 1.0 if alpha is None else float(alpha),
-            None if bufs is None else bufs[0].data_ptr(),
-            None if bufs is None else bufs[1].data_ptr(), out.data_ptr(),
-            count.data_ptr(), blocks, budget,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _lib.check(lib, rc, "tr_spmv_chain")
-    tr_spmv_chain.launches += 1
+    src = x
+    for j, k in enumerate(launch_iters(n_iters)):
+        dst = ends[(n_launches - 1 - j) % 2]
+        with torch.cuda.device(dev):
+            rc = lib.vbcs_tr_spmv_chain(
+                k, fmt.L, plan.buf.data_ptr(), fmt.spl.data_ptr(), fmt.pos.data_ptr(),
+                fmt.idx.data_ptr(), fmt.ofs.data_ptr(), fmt.col_stripe.data_ptr(),
+                fmt.val.data_ptr(), src.data_ptr(),
+                1.0 if alpha is None else float(alpha),
+                None if bufs is None else bufs[0].data_ptr(),
+                None if bufs is None else bufs[1].data_ptr(), dst.data_ptr(),
+                count.data_ptr(), 0, blocks, budget,
+                torch.cuda.current_stream(dev).cuda_stream)
+        _lib.check(lib, rc, "tr_spmv_chain")
+        tr_spmv_chain.launches += 1
+        src = dst
     return out
 
 

@@ -1,0 +1,213 @@
+"""Probe 3: the fused chained SpMV on the card, split into its floor, its
+gather and its carry.
+
+Port of ``bench_tools/probe_chain.py``.  Its Pallas kernel runs a grid
+``(n_iters, T)``: iteration ``i`` reads the x slot ``i % 2`` (``xin`` at
+``i = 0``), computes each chunk's ``res [W, NS]`` and writes it to the
+other slot (and to ``out`` at the last iteration).  The state is
+``x [8, X]``, ``X = T * NS``.  For column ``c`` of chunk ``t = c // NS``,
+slice ``v``, with ``m`` the metadata at ``[s, c]``:
+
+* ``A`` (floor): ``res[w, c] = sum_s val[8 w + s, c] + x[w, b + c % 128]
+  * 0``, ``b = wbase[t * 16]``: the value stream and a window read, no
+  gather;
+* ``B`` (full, ``wblk = 2``): ``xg[s, c] = x[A, b + lo]`` with ``lo = m &
+  127``, ``d = (m >> 7) & 3`` (0 at ``wblk = 1``), ``b = wbase[(t * 8 + v)
+  * wblk + d]`` and ``A = (m[s, t * NS + v * 128 + lo] >> (16 + 3 d)) & 7``
+  (the sublane table read at the gathered lane), then ``res[w, c] = 0.999 *
+  sum_s val[8 w + s, c] * xg[s, c]``;
+* ``C``: ``B`` at ``wblk = 1``;
+* ``D``: ``B`` plus the carry: lane 0 of chunk ``t > 0`` adds ``B``'s
+  last lane of chunk ``t - 1`` in the same iteration.
+
+:func:`chain` runs all ``n_iters`` iterations in one cooperative launch of
+``csrc/probe_chain.cu`` on CUDA tensors and :func:`chain_plain` on CPU
+tensors; the probe reports the marginal time of an iteration by the
+difference of ``N_LO`` and ``N_HI`` iterations, as the TPU probe does.
+Values grow by about ``2.8`` an iteration, so long chains overflow to
+inf, on the TPU too: only short chains are compared.
+
+Run on the card:  python -m vbcs_tpu_torch.probes.probe_chain
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops import _lib
+from ._common import card, cuda_device, marginal_ms, report, warm_up
+
+__all__ = ["ChainInputs", "inputs", "VARIANTS", "chain", "chain_plain", "run",
+           "main"]
+
+NG = NS = 1024  # columns of a chunk (the TPU probe's NG and NS)
+W = 8
+T = 40
+NV = NG // 128
+N_LO, N_HI = 20, 220  # the difference method's chain lengths
+# the TPU probe's variants, in its order -> (variant, windows a slice)
+VARIANTS = [
+    ("A chain floor (val+meta+red, no gthr)", "A", 2),
+    ("B FULL v3 chain (2take,wblk=2)", "B", 2),
+    ("C FULL v3 chain (2take,wblk=1)", "C", 1),
+    ("D FULL v3 + carry chain", "D", 2),
+]
+_CODES = {"A": 0, "B": 1, "C": 2, "D": 3}
+_grids: dict = {}  # (device index, variant) -> the occupancy grid
+
+
+class ChainInputs(NamedTuple):
+    """The chain probe's inputs, on one device."""
+
+    val: torch.Tensor  # [64, X] f32
+    meta: torch.Tensor  # [8, X] int32: lo | d << 7 | A0 << 16 | A1 << 19
+    xin: torch.Tensor  # [8, X] f32
+    wbase: torch.Tensor  # [T * NV * wblk] int32 window lanes, multiples of 128
+    wblk: int
+
+    def to(self, device) -> "ChainInputs":
+        return ChainInputs(*(t.to(device) for t in self[:4]), self.wblk)
+
+
+def inputs(T: int = T, wblk: int = 2) -> ChainInputs:
+    """The TPU probe's inputs (``run_variant``), on the CPU."""
+    rng = np.random.default_rng(0)
+    X = T * NS
+    val = rng.standard_normal((8 * W, T * NG)).astype(np.float32)
+    lo = rng.integers(0, 128, (8, T * NG)).astype(np.int32)
+    d = rng.integers(0, wblk, (8, T * NG)).astype(np.int32)
+    A = rng.integers(0, 8, (8, T * NG, 2)).astype(np.int32)
+    meta = lo | (d << 7) | (A[..., 0] << 16) | (A[..., 1] << 19)
+    xin = rng.standard_normal((8, X)).astype(np.float32)
+    wbase = (rng.integers(0, X // 128, (T * NV * wblk,)) * 128).astype(np.int32)
+    return ChainInputs(*(torch.from_numpy(a) for a in (val, meta, xin, wbase)), wblk)
+
+
+def _check(variant: str, inp: ChainInputs, n_iters: int) -> None:
+    if variant not in _CODES:
+        raise ValueError(f"unknown chain variant {variant!r}")
+    if n_iters < 1 or n_iters > 2**31 - 1:
+        raise ValueError(f"n_iters must be in [1, 2^31), got {n_iters}")
+    val, meta, xin, wbase = inp[:4]
+    dev = val.device
+    X = val.shape[1] if val.dim() == 2 else 0
+    if val.dtype != torch.float32 or val.shape != (8 * W, X) or X % NS or X == 0 \
+            or not val.is_contiguous():
+        raise ValueError(f"val must be contiguous f32 [64, T * {NS}]")
+    if meta.dtype != torch.int32 or meta.shape != (8, X) or not meta.is_contiguous():
+        raise ValueError(f"meta must be contiguous int32 [8, {X}]")
+    if xin.dtype != torch.float32 or xin.shape != (8, X) or not xin.is_contiguous():
+        raise ValueError(f"xin must be contiguous f32 [8, {X}]")
+    if wbase.dtype != torch.int32 or wbase.numel() < (X // NS) * NV * inp.wblk \
+            or inp.wblk not in (1, 2):
+        raise ValueError("wbase must be int32 with wblk (1 or 2) windows a slice")
+    if any(t.device != dev for t in (meta, xin, wbase)):
+        raise ValueError("the inputs must lie on one device")
+
+
+def chain(variant: str, inp: ChainInputs, n_iters: int) -> torch.Tensor:
+    """``out [W, X]`` after ``n_iters`` iterations of the chain probe
+    ``variant``: one cooperative launch on CUDA tensors (every block the
+    occupancy API fits, at most one a 256 columns), the plain version on
+    CPU tensors."""
+    _check(variant, inp, n_iters)
+    dev = inp.val.device
+    if dev.type == "cpu":
+        return chain_plain(variant, inp, n_iters)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"no chain probe kernel for device {dev}")
+    X = inp.val.shape[1]
+    lib = _lib.load()
+    key = (dev.index, variant)
+    if key not in _grids:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = lib.vbcs_probe_chain_grid(_CODES[variant], ctypes.byref(n))
+        _lib.check(lib, rc, "probe chain grid")
+        _grids[key] = n.value
+    blocks = min(_grids[key], -(-X // 256))
+    out = torch.empty(W, X, dtype=torch.float32, device=dev)
+    slots = torch.empty(2, 8, X, dtype=torch.float32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.vbcs_probe_chain(
+            _CODES[variant], n_iters, X // NS, inp.wblk, inp.val.data_ptr(),
+            inp.meta.data_ptr(), inp.xin.data_ptr(), inp.wbase.data_ptr(),
+            slots[0].data_ptr(), slots[1].data_ptr(), out.data_ptr(),
+            count.data_ptr(), 0, blocks, torch.cuda.current_stream(dev).cuda_stream)
+    _lib.check(lib, rc, f"probe chain {variant}")
+    chain.launches += 1
+    return out
+
+
+chain.launches = 0
+
+
+def _step(variant: str, inp: ChainInputs, x: torch.Tensor) -> torch.Tensor:
+    """One iteration of the plain chain: ``res [W, X]`` from ``x [8, X]``."""
+    val, meta, _, wbase = inp[:4]
+    dev, X = val.device, val.shape[1]
+    c = torch.arange(X, device=dev)
+    t, v, l = c // NS, (c % NS) // 128, c % 128
+    xf, wb = x.reshape(-1), wbase.long()
+    if variant == "A":
+        red = val.view(W, 8, X).sum(1)
+        lane = wb[t * NV * 2] + l
+        return red + x[:W, lane] * 0.0
+    m = meta.long() & 0xFFFFFFFF
+    lo = m & 127
+    d = torch.zeros_like(m) if inp.wblk == 1 else (m >> 7) & 3
+    dc = d.clamp(max=inp.wblk - 1)
+    b = wb[(t * NV + v) * inp.wblk + dc]
+    a = (m.gather(1, t * NG + v * 128 + lo) >> (16 + 3 * dc)) & 7
+    xg = torch.where(d < inp.wblk, xf[a * X + b + lo], torch.zeros((), device=dev))
+    red = (val.view(W, 8, X) * xg.unsqueeze(0)).sum(1) * 0.999
+    if variant == "D":
+        red[:, NS::NS] = red[:, NS::NS] + red[:, NS - 1:X - 1:NS]
+    return red
+
+
+def chain_plain(variant: str, inp: ChainInputs, n_iters: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`chain` (any device)."""
+    _check(variant, inp, n_iters)
+    x = inp.xin
+    for _ in range(n_iters):
+        x = _step(variant, inp, x)
+    return x
+
+
+def run(device) -> list[dict]:
+    """The marginal device time of one iteration of each variant on the
+    CUDA ``device`` (``probes._common.marginal_ms`` of ``N_LO`` and
+    ``N_HI`` iterations).  Returns one record per variant."""
+    out = []
+    for name, var, wblk in VARIANTS:
+        inp = inputs(T, wblk).to(device)
+        ms = marginal_ms(lambda n, var=var, inp=inp: chain(var, inp, n),
+                         N_LO, N_HI, device)
+        out.append({"name": name, "variant": var, "ms": ms, "T": T,
+                    # per iteration: the pack is read once a call
+                    "bytes": 0, "flops": 2 * inp.val.numel()})
+    return out
+
+
+def print_records(records, device) -> None:
+    for r in records:
+        print(report(r["name"], r["ms"], device, r["bytes"], r["flops"],
+                     chunks=r["T"], nnz=r["T"] * NG * 8 * W, unit="iteration"),
+              flush=True)
+
+
+def main() -> None:
+    device = cuda_device()
+    print(card(device), flush=True)
+    warm_up(device)
+    print_records(run(device), device)
+
+
+if __name__ == "__main__":
+    main()
