@@ -29,10 +29,10 @@ Phases (one line each; any failure raises and exits non-zero):
    host oracle and the f64 scipy product;
 5. the auto-RCM path: the scrambled FEM ``bench.fem_matrix(k=320)``
    through ``from_csc(..., reorder="auto")``, the same calls (SpMM at
-   k=32);
+   k=32) on the packs' natural views (``col_out``), one launch a call;
 6. the scattered matrix ``bench.scattered_matrix()`` (82,654 columns,
    574k nonzeros: the regime that sends the JAX SpMM to its v1
-   fallback), ``tr_mul_mat`` at k=32;
+   fallback; auto-RCM relabels it), ``tr_mul_mat`` at k=32;
 7. the 2-D operator at full width, ``VBC2DOperator.from_csc``: (a)
    ``bench.blocky2d_matrix()`` (40,000 x 80,000) under the JAX bench's
    equi plan (U=4, W=8), (b) the flagship under the default five-pass
@@ -48,13 +48,19 @@ Phases (one line each; any failure raises and exits non-zero):
    the matrix's nonzeros, their index arrays, the vectors; a pack's stored
    fill is not counted),
    the tile kernel also beside the stripe kernel on the same matrix's 1-D
-   view and beside itself on a one-tile pack (its launch floor), the chain beside ``CHAIN_ITERS`` stripe-kernel launches and as
-   many library calls, beside itself at a shared-memory budget of 0
+   view and beside itself on a one-tile pack (its launch floor), the
+   chain beside ``CHAIN_ITERS`` stripe-kernel launches and as many
+   library calls, beside itself at a shared-memory budget of 0
    (streamed), and beside its barrier floor (a 1,024-column diagonal
    pack at the full grid), with its grid and the share of each pack
-   resident in shared memory, the scatter and stripe kernels on each of the six
-   packs of phases 4-6 (the route's guard), and the operators' per-call
-   time on the host clock;
+   resident in shared memory, the scatter kernel on the scattered A
+   (warm and flushed) and on the flagship's A.T (also without its two
+   longest columns), the scatter and stripe kernels on each of the six
+   packs of phases 4-6 (the route's guard, a ``GUARD {...}`` line), the
+   operators' per-call time on the host clock, and the auto-RCM
+   ``tr_mul`` and ``tr_mul_mat`` of the FEM and the scattered operators
+   beside the composed gather path and the half-fused one (a
+   ``RELABEL {...}`` line);
 9. the chain at full width: ``tr_mul_chain`` on the flagship and FEM
    operators, 5 iterations against the f64 oracle, then the timed 100
    at alpha 0.999 (the JAX bench's setting);
@@ -78,22 +84,29 @@ square corpus, a multi-class DP plan, long stripes) against its plain
 version and the f64 oracle, with its pack resident in shared memory,
 partly resident (a budget of half the largest block range) and streamed
 (budget 0), the scatter kernel on width-1 packs (the
-corpus, a rectangle, a 90-entry column beside an empty one, columns for
-every lane group), and the relayout at R = 1, 3, 313 (bitwise); and the
+corpus, a rectangle, a 90-entry column beside an empty one, columns of
+14 and 40, a 10,000-entry column, every third column empty; two calls
+bitwise equal), the stripe, scatter and SpMM kernels through ``col_out``
+on natural views of randomly relabeled square matrices, and the
+relayout at R = 1, 3, 313 (bitwise); and the
 repaired iteration count of the chain: a launch whose grid-barrier
 counter starts 5 rounds short of 2^32, and a chain split across launches
 at a cap of 3 iterations a launch.
 
 Each path is driven between a reset and a read of the launch counts:
-``tr_mul``/``mul`` of phases 4-5 (stripe and scatter TrSpMV, gather),
-the SpMM calls of phases 4-6 (SpMM kernel), the 2-D calls of phase 7
+``tr_mul``/``mul`` of phases 4-5 (stripe and scatter TrSpMV, one launch
+a call; no gather and no ``index_select``), the SpMM calls of phases
+4-6 (SpMM kernel, one a call; no gather, no ``index_select``), the 2-D
+calls of phase 7
 (tile TrSpMV, and the SpMM kernel on the 1-D views), the four
 ``tr_mul_chain`` calls of phase 9 (one chain launch each, two gathers on
-the FEM), the scattered ``tr_mul``/``mul`` of phase 10 (scatter TrSpMV),
+the FEM: the gather's only path), the scattered ``tr_mul``/``mul`` of
+phase 10 (scatter TrSpMV, one a call, no gather),
 the relayout of phase 11 and the five probes of phase 12 (the launch,
 chunk, chain-probe and FMA kernels).  Then each kernel is held against its
 plain version at the shapes those paths gave it: the stripe kernel on
-both packs of both operators, the gather on the FEM operator's
+both packs of both operators (the FEM's natural views), the gather on
+the FEM operator's
 permutation and its inverse (bitwise), the SpMM kernel on both packs of
 all five operators with their RHS, the tile kernel on the four 2-D
 packs, the chain on the flagship and FEM packs (resident, partly
@@ -105,11 +118,14 @@ run's JSON result.  It imports no JAX: the JAX package is the reference,
 not a dependency.
 """
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import scipy.sparse as sp
@@ -120,7 +136,7 @@ from vbcs_tpu_torch import native
 from vbcs_tpu_torch.ops import _lib
 from vbcs_tpu_torch.ops import chain as chain_op
 from vbcs_tpu_torch.ops.chain import chain_grid, chain_plan
-from vbcs_tpu_torch.ops.scatter import MAX_MEAN_WIDTH, lanes_per_column
+from vbcs_tpu_torch.ops.scatter import MAX_MEAN_WIDTH
 from vbcs_tpu_torch.ops.trspmv2d import lanes_per_stripe
 from vbcs_tpu_torch.probes import chunk as probe_chunk
 from vbcs_tpu_torch.probes import (probe_chain, probe_kernel, probe_kernel2,
@@ -305,11 +321,38 @@ def chain_residencies(fmt, dev):
             ("streamed", blocks0, 0)]
 
 
+def coo_matrix(m, n, rows, cols, seed):
+    """An f32 CSC with normal values at (rows, cols), duplicates summed."""
+    vals = np.random.default_rng(seed).standard_normal(len(rows)).astype(np.float32)
+    A = sp.coo_matrix((vals, (rows, cols)), shape=(m, n)).tocsc()
+    A.sum_duplicates()
+    return A
+
+
+def long_column():
+    """A 10,000-entry column among 3,000 scattered entries in 60 columns:
+    far longer than a tile of the scatter kernel, so it fills tiles of
+    its own."""
+    rng = np.random.default_rng(31)
+    rows = np.concatenate([np.arange(10_000), rng.integers(0, 12_000, 3000)])
+    cols = np.concatenate([np.full(10_000, 3), rng.integers(0, 60, 3000)])
+    return coo_matrix(12_000, 60, rows, cols, 31)
+
+
+def empty_columns():
+    """Every third column empty, the first and the last too."""
+    rng = np.random.default_rng(32)
+    cols = rng.integers(1, 2999, 9000)
+    cols = cols[cols % 3 != 0]
+    return coo_matrix(2000, 3000, rng.integers(0, 2000, cols.size), cols, 32)
+
+
 def scatter_packs():
     """1D-VBC packs for the scatter kernel's check: the corpus under a
     width-1 plan, a rectangle, a column of 90 entries (past the JAX
-    kernel's 64-entry spill) beside an empty column, and columns long
-    enough for the 16- and 32-lane groups."""
+    kernel's 64-entry spill) beside an empty column, columns of 14 and 40
+    entries, a column of 10,000 entries among short ones, and every third
+    column empty."""
     one = vt.EquiChunker(1)
     heavy = banded(2000, 2000, 6, 200, 21).tolil()
     heavy[:90, 5] = 1.5
@@ -322,8 +365,35 @@ def scatter_packs():
         ("column_of_90_and_empty", vt.vbc1d(heavy.astype(np.float32), 8, one)),
         ("columns_of_14", vt.vbc1d(banded(800, 700, 14, 100, 22), 8, one)),
         ("columns_of_40", vt.vbc1d(banded(1200, 500, 40, 300, 23), 8, one)),
+        ("column_of_10000", vt.vbc1d(long_column(), 8, one)),
+        ("every_third_column_empty", vt.vbc1d(empty_columns(), 8, one)),
     ]
     return packs
+
+
+def same_twice(label, call):
+    """Two calls of a kernel give bitwise-equal output (no float atomics);
+    returns the first."""
+    a, b = call(), call()
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), f"{label}: two calls differ")
+    return a
+
+
+def natural_cases(dev, rng):
+    """``(name, matrix, perm, pack, scatter pack)`` on ``dev``: square
+    matrices relabeled by a random permutation, packed in relabeled order
+    (the default plan and a width-1 CSC) and taken as natural views."""
+    cases = [(name, A) for name, A in corpus() if A.shape[0] == A.shape[1]]
+    cases.append(("fem_k40", fem_matrix(k=40).astype(np.float32)))
+    for name, A in cases:
+        perm = rng.permutation(A.shape[0])
+        Ap = sp.csc_matrix(A)[perm][:, perm]
+        perm_t = torch.from_numpy(perm.astype(np.int32)).to(dev)
+        yield (name, A, perm_t,
+               vt.VBC1DDevice.from_host(vt.vbc1d(Ap, 8), dev).natural_view(perm_t),
+               vt.ScatterDevice.from_host(vt.vbc1d(Ap, 8, vt.EquiChunker(1)),
+                                          dev).natural_view(perm_t))
 
 
 def csr_of_transpose(A, dev):
@@ -577,14 +647,44 @@ def phase_kernels_slice4(dev, errs):
 
     packs = scatter_packs()
     sc_worst = [0.0, 0.0]
-    lanes = set()
     for name, B in packs:
         fmt = vt.ScatterDevice.from_host(B, dev)
-        lanes.add(lanes_per_column(fmt))
         e = check_tr(name, vt.tr_spmv_scatter, vt.tr_spmv_scatter_plain, B, fmt,
                      rng, dev, errs)
         sc_worst = [max(a, b) for a, b in zip(sc_worst, e)]
-    check(lanes == {4, 8, 16, 32}, f"scatter packs cover lane groups {lanes}")
+        x, y = torch.randn(fmt.m, device=dev), torch.randn(fmt.n, device=dev)
+        same_twice(name, lambda: vt.tr_spmv_scatter(fmt, x, 0.5, 0.25, y))
+    # the three kernels through col_out, on natural views of relabeled packs
+    nat_worst = 0.0
+    n_nat = 0
+    for name, A, perm_t, fmt, sfmt in natural_cases(dev, rng):
+        x = rng.standard_normal(A.shape[0]).astype(np.float32)
+        y = rng.standard_normal(A.shape[1]).astype(np.float32)
+        xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        A64 = A.astype(np.float64)
+        for kernel, plain, f in ((vt.tr_spmv, vt.tr_spmv_plain, fmt),
+                                 (vt.tr_spmv_scatter, vt.tr_spmv_scatter_plain, sfmt)):
+            for args, want in (((), A64.T @ x),
+                               ((0.5, 0.25, yt), 0.5 * (A64.T @ x) + 0.25 * y)):
+                got = kernel(f, xt, *args)
+                ref = plain(f, xt, *args)
+                e = max(rel_err(got.cpu().numpy(), ref.cpu().numpy()),
+                        rel_err(got.cpu().numpy(), want))
+                check(e <= TOL, f"{name} natural view: {kernel.__name__} off by {e:.2e}")
+                errs[kernel.__name__] = max(errs[kernel.__name__],
+                                            float((got - ref).abs().max()))
+                nat_worst = max(nat_worst, e)
+                n_nat += 1
+        for k in (5, 32):
+            X = rng.standard_normal((A.shape[0], k)).astype(np.float32)
+            Xt = torch.from_numpy(X).to(dev)
+            got, ref = vt.tr_spmm(fmt, Xt), vt.tr_spmm_plain(fmt, Xt)
+            e = max(rel_err(got.cpu().numpy(), ref.cpu().numpy()),
+                    rel_err(got.cpu().numpy(), A64.T @ X))
+            check(e <= TOL, f"{name} natural view: SpMM at k={k} off by {e:.2e}")
+            errs["tr_spmm"] = max(errs["tr_spmm"], float((got - ref).abs().max()))
+            nat_worst = max(nat_worst, e)
+            n_nat += 1
 
     for R, m in ((1, 1000), (3, 3000), (313, 320_000)):
         x = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(dev)
@@ -597,9 +697,12 @@ def phase_kernels_slice4(dev, errs):
           f"5; alpha None, 0.5) on {len(cases)} square matrices, resident, and "
           f"{n_res} partly resident or streamed (x5), worst |Δ|/max|y| "
           f"{worst[0]:.3e} vs plain, {worst[1]:.3e} vs f64 oracle; scatter: "
-          f"{2 * len(packs)} checks on {len(packs)} packs, lane groups "
-          f"{sorted(lanes)}, worst {sc_worst[0]:.3e} vs plain, {sc_worst[1]:.3e} "
-          f"vs f64 oracle; relayout at R = 1, 3, 313: bitwise equal", flush=True)
+          f"{2 * len(packs)} checks on {len(packs)} packs, worst "
+          f"{sc_worst[0]:.3e} vs plain, {sc_worst[1]:.3e} vs f64 oracle, two "
+          f"calls bitwise equal on each; natural views (col_out) of relabeled "
+          f"packs: {n_nat} checks of the stripe, scatter and SpMM kernels, worst "
+          f"{nat_worst:.3e} vs plain and f64; relayout at R = 1, 3, 313: bitwise "
+          f"equal", flush=True)
 
 
 def phase_chain_repair(dev):
@@ -927,7 +1030,8 @@ def phase_path_shapes(flag, fem, spmm, errs):
     vectors and RHS of phases 4-6 (after the launch counts are read)."""
     worst = 0.0
     for label, (_, op, xt, yt) in (("flagship", flag), ("FEM", fem)):
-        for direction, fmt in (("tr_mul", op.dev_tr), ("mul", op.dev_fw)):
+        # natural order: the FEM's are the natural views (col_out)
+        for direction, fmt in (("tr_mul", op.nat_tr), ("mul", op.nat_fw)):
             for args in ((None, None, None), (0.5, 0.25, yt)):
                 got = vt.tr_spmv(fmt, xt, *args)
                 plain = vt.tr_spmv_plain(fmt, xt, *args)
@@ -944,14 +1048,15 @@ def phase_path_shapes(flag, fem, spmm, errs):
               f"gather of the FEM {name} permutation differs from its plain version")
         errs["gather"] = max(errs["gather"], float((got - plain).abs().max()))
     print(f"[4-5 kernels at the path's shapes] stripe TrSpMV on the flagship "
-          f"and FEM packs, both directions, with and without alpha/beta/y: "
-          f"worst |Δ|/max|y| {worst:.3e} vs plain (tol {TOL}); gather of the "
-          f"FEM perm (x) and inverse (y): bitwise equal", flush=True)
+          f"packs and the FEM's natural views, both directions, with and "
+          f"without alpha/beta/y: worst |Δ|/max|y| {worst:.3e} vs plain (tol "
+          f"{TOL}); gather of the FEM perm (x) and inverse (y), the chain "
+          f"path's: bitwise equal", flush=True)
 
     worst = 0.0
     for label, (op, Xt, Xft) in spmm.items():
-        for direction, fmt, X in (("tr_mul_mat", op.dev_tr, Xt),
-                                  ("mul_mat", op.dev_fw, Xft)):
+        for direction, fmt, X in (("tr_mul_mat", op.nat_tr, Xt),
+                                  ("mul_mat", op.nat_fw, Xft)):
             if X is None:
                 continue
             got, plain = vt.tr_spmm(fmt, X), vt.tr_spmm_plain(fmt, X)
@@ -960,9 +1065,9 @@ def phase_path_shapes(flag, fem, spmm, errs):
                             f"plain version by {e:.2e}")
             worst = max(worst, e)
             errs["tr_spmm"] = max(errs["tr_spmm"], float((got - plain).abs().max()))
-    print(f"[4-6 SpMM at the path's shapes] SpMM kernel on the flagship, FEM "
-          f"and scattered packs with their RHS: worst |Δ|/max|Y| {worst:.3e} "
-          f"vs plain (tol {TOL})", flush=True)
+    print(f"[4-6 SpMM at the path's shapes] SpMM kernel on the flagship pack "
+          f"and the FEM and scattered natural views with their RHS: worst "
+          f"|Δ|/max|Y| {worst:.3e} vs plain (tol {TOL})", flush=True)
 
 
 def phase_path_shapes_2d(parts, errs):
@@ -1020,7 +1125,7 @@ def phase_path_shapes_slice4(chains, scat_routes, rel, errs):
         x = torch.randn(fmt.m, device=fmt.device, generator=g)
         y = torch.randn(fmt.n, device=fmt.device, generator=g)
         for args in ((None, None, None), (0.5, 0.25, y)):
-            got = vt.tr_spmv_scatter(fmt, x, *args)
+            got = same_twice(label, lambda: vt.tr_spmv_scatter(fmt, x, *args))
             plain = vt.tr_spmv_scatter_plain(fmt, x, *args)
             e = rel_err(got.cpu().numpy(), plain.cpu().numpy())
             check(e <= TOL, f"{label} pack: scatter kernel off its plain "
@@ -1034,9 +1139,10 @@ def phase_path_shapes_slice4(chains, scat_routes, rel, errs):
     print(f"[9-11 kernels at the path's shapes] chain on the flagship and FEM "
           f"packs, 5 iterations, resident, partly resident and streamed: worst "
           f"|Δ|/max|y| {worst:.3e} vs plain; scatter "
-          f"on the {len(scat_routes)} scatter-route packs, with and without "
-          f"alpha/beta/y: {worst_sc:.3e} vs plain (tol {TOL}); relayout at "
-          f"R={R}: bitwise equal", flush=True)
+          f"on the {len(scat_routes)} scatter-route formats ("
+          f"{', '.join(scat_routes)}; natural views where relabeled), with and "
+          f"without alpha/beta/y: {worst_sc:.3e} vs plain (tol {TOL}), two "
+          f"calls bitwise equal; relayout at R={R}: bitwise equal", flush=True)
 
 
 def entry(warm, work):
@@ -1104,6 +1210,19 @@ def phase_timing_2d(dev, parts):
     return out
 
 
+def without_longest_columns(A, k):
+    """``A`` (CSC) with the entries of its ``k`` longest columns dropped,
+    and their entry counts."""
+    cnt = np.diff(A.indptr)
+    top = np.argsort(cnt, kind="stable")[-k:]
+    cols = np.repeat(np.arange(A.shape[1]), cnt)
+    keep = ~np.isin(cols, top)
+    coo = A.tocoo()
+    cut = sp.csc_matrix((coo.data[keep], (coo.row[keep], coo.col[keep])),
+                        shape=A.shape)
+    return cut, [int(c) for c in cnt[top]]
+
+
 def operator_matrix(A, op):
     """The matrix an operator's packs hold: ``A``, or ``A[perm][:, perm]``
     on a relabeled operator."""
@@ -1145,23 +1264,22 @@ def phase_timing(dev, flag, fem, spmm):
                       lambda: vt.gather_plain(xt2, perm),
                       lambda: xt2.index_select(0, perm)], dev)
     out["gather"] = entry(warm, (12 * perm.numel(), 0))
-    e2e_fem, e2e_flag = paired_ms(
-        [lambda: op2.tr_mul(xt2, 2.0, -0.5, yt2),
-         lambda: op.tr_mul(xt, 0.5, 0.25, yt)], dev)
-    wall_flag = host_ms(lambda: op.tr_mul(xt, 0.5, 0.25, yt), dev)
-    wall_fem = host_ms(lambda: op2.tr_mul(xt2, 2.0, -0.5, yt2), dev)
-    print(f"[8 timing gather, FEM perm of {op2.m}] kernel {warm[0] * 1e3:.2f} "
-          f"us/call, plain {warm[1] * 1e3:.2f} us, library (index_select) "
-          f"{warm[2] * 1e3:.2f} us; end-to-end tr_mul(alpha, beta, y), device / "
-          f"host wall per call: flagship {e2e_flag * 1e3:.2f} / "
-          f"{wall_flag * 1e3:.2f} us, FEM auto-RCM ({op2.route_tr[0]} route) "
-          f"{e2e_fem * 1e3:.2f} / {wall_fem * 1e3:.2f} us", flush=True)
+    calls = (lambda: op.tr_mul(xt, 0.5, 0.25, yt), lambda: op.mul(xt, 0.5, 0.25, yt))
+    e2e = paired_ms(list(calls), dev)
+    wall = [host_ms(c, dev) for c in calls]
+    print(f"[8 timing gather, FEM perm of {op2.m}, the chain path's] kernel "
+          f"{warm[0] * 1e3:.2f} us/call, plain {warm[1] * 1e3:.2f} us, library "
+          f"(index_select) {warm[2] * 1e3:.2f} us; flagship end to end, device / "
+          f"host wall per call: tr_mul(alpha, beta, y) ({op.route_tr[0]} route) "
+          f"{e2e[0] * 1e3:.2f} / {wall[0] * 1e3:.2f} us, mul(alpha, beta, y) "
+          f"({op.route_fw[0]} route) {e2e[1] * 1e3:.2f} / {wall[1] * 1e3:.2f} us",
+          flush=True)
 
     for label, A_s in (("flagship", A), ("scattered", None)):
         op_s, Xt, _ = spmm[label]
         if A_s is None:
-            A_s = operator_matrix(scattered_matrix().astype(np.float32), op_s)
-        fmt, k = op_s.dev_tr, Xt.shape[1]
+            A_s = scattered_matrix().astype(np.float32)
+        fmt, k = op_s.nat_tr, Xt.shape[1]  # natural order: x and Y as given
         AT_s = AT if label == "flagship" else csr_of_transpose(A_s, dev)
         same_function(f"{label} SpMM", lambda: AT_s @ Xt, lambda: vt.tr_spmm(fmt, Xt))
         warm = paired_ms([lambda: vt.tr_spmm(fmt, Xt),
@@ -1188,6 +1306,58 @@ def phase_timing(dev, flag, fem, spmm):
           f"/ host wall per call: {e2e_mat * 1e3:.2f} / {wall_mat * 1e3:.2f} us",
           flush=True)
     return out
+
+
+def phase_timing_relabeled(dev, fem, scat, spmm):
+    """The auto-RCM calls on the FEM and scattered operators, device and
+    host wall, each beside the paths they replace, built from the same
+    public pieces in this process: ``tr_mul(alpha, beta, y)`` (one launch
+    on the natural view) against the composed path (gather x, the kernel
+    on the relabeled pack, gather y, ``beta * y``, add: 5 launches) and
+    the half-fused one (gather x, the kernel on the relabeled pack with
+    ``col_out`` and beta: 2); ``tr_mul_mat`` at k=32 against
+    ``index_select``, the SpMM on the relabeled pack, ``index_select``.
+    Prints a ``RELABEL {...}`` line; returns its dict."""
+    res = {}
+    for label, (_, op, x, y), (alpha, beta) in (
+            ("FEM", fem, (2.0, -0.5)), ("scattered", scat[:4], (0.5, 0.25))):
+        name, _, call = op.route_tr
+        perm, inv = op.perm_t, op.inv_t
+        rel = (op.dev_tr if name == "stripe"
+               else vt.ScatterDevice.from_host(op.host_tr, dev))
+        half = dataclasses.replace(rel, col_out=perm)
+        X = spmm[label][1]
+        calls = [lambda: op.tr_mul(x, alpha, beta, y),
+                 lambda: vt.gather(call(rel, vt.gather(x, perm), alpha), inv) + beta * y,
+                 lambda: call(half, vt.gather(x, perm), alpha, beta, y),
+                 lambda: op.tr_mul_mat(X),
+                 lambda: vt.tr_spmm(op.dev_tr, X.index_select(0, perm)).index_select(0, inv)]
+        for i, what in ((1, "composed"), (2, "half-fused"), (4, "composed SpMM")):
+            same_function(f"{label} {what}", calls[i], calls[i - 1 if i < 4 else 3])
+        warm = paired_ms(calls, dev)
+        wall = [host_ms(c, dev) for c in calls]
+        keys = ("tr_mul", "composed", "half_fused", "tr_mul_mat", "composed_mat")
+        res[label] = {"route": name, "k": X.shape[1],
+                      **{f"{k}_us": w * 1e3 for k, w in zip(keys, warm)},
+                      **{f"{k}_wall_us": w * 1e3 for k, w in zip(keys, wall)}}
+        print(f"[8 timing auto-RCM {label}, {name} route] device / host wall per "
+              f"call: tr_mul(alpha, beta, y) {warm[0] * 1e3:.2f} / "
+              f"{wall[0] * 1e3:.2f} us (1 launch), composed {warm[1] * 1e3:.2f} / "
+              f"{wall[1] * 1e3:.2f} us (5), half-fused {warm[2] * 1e3:.2f} / "
+              f"{wall[2] * 1e3:.2f} us (2); tr_mul_mat k={X.shape[1]} "
+              f"{warm[3] * 1e3:.2f} / {wall[3] * 1e3:.2f} us, composed with "
+              f"index_select {warm[4] * 1e3:.2f} / {wall[4] * 1e3:.2f} us; natural "
+              f"view's own arrays {own_bytes(op.route_tr[1]) / 1e6:.2f} MB",
+              flush=True)
+    print("RELABEL " + json.dumps(res), flush=True)
+    return res
+
+
+def own_bytes(view):
+    """Bytes of a natural view's own array, its rows (``col_out`` is the
+    operator's permutation; the rest it shares with the relabeled pack)."""
+    rows = view.idx if isinstance(view, vt.VBC1DDevice) else view.row
+    return 4 * rows.numel()
 
 
 def chain_loops(fmt, AT, n_iters, alpha):
@@ -1284,40 +1454,66 @@ def phase_timing_slice4(dev, chains, scat, rel):
           f"{wall[1] * 1e3:.2f} us", flush=True)
 
     A3, op3, xt3, yt3, _, routes = scat
-    _, fmt3, _ = op3.route_tr
-    AT3 = csr_of_transpose(operator_matrix(A3, op3), dev)
-    x3 = xt3 if op3.row_perm is None else vt.gather(xt3, op3.perm_t)
+    _, fmt3, _ = op3.route_tr  # the natural view: natural x and y
+    AT3 = csr_of_transpose(A3, dev)
     same_function("scattered SpMV",
-                  lambda: torch.addmv(yt3, AT3, x3, beta=0.25, alpha=0.5),
-                  lambda: vt.tr_spmv_scatter(fmt3, x3, 0.5, 0.25, yt3))
-    warm = paired_ms([lambda: vt.tr_spmv_scatter(fmt3, x3, 0.5, 0.25, yt3),
-                      lambda: vt.tr_spmv_scatter_plain(fmt3, x3, 0.5, 0.25, yt3),
-                      lambda: torch.addmv(yt3, AT3, x3, beta=0.25, alpha=0.5)],
+                  lambda: torch.addmv(yt3, AT3, xt3, beta=0.25, alpha=0.5),
+                  lambda: vt.tr_spmv_scatter(fmt3, xt3, 0.5, 0.25, yt3))
+    warm = paired_ms([lambda: vt.tr_spmv_scatter(fmt3, xt3, 0.5, 0.25, yt3),
+                      lambda: vt.tr_spmv_scatter_plain(fmt3, xt3, 0.5, 0.25, yt3),
+                      lambda: torch.addmv(yt3, AT3, xt3, beta=0.25, alpha=0.5)],
                      dev)
     work = tr_spmv_work(fmt3, nonzeros(A3), True)
     out["tr_spmv_scatter"] = entry(warm, work)
-    cold = flushed_ms(lambda: vt.tr_spmv_scatter(fmt3, x3, 0.5, 0.25, yt3), dev)
-    e2e = paired_ms([lambda: op3.tr_mul(xt3, 0.5, 0.25, yt3)], dev)[0]
-    wall = host_ms(lambda: op3.tr_mul(xt3, 0.5, 0.25, yt3), dev)
+    cold = flushed_ms(lambda: vt.tr_spmv_scatter(fmt3, xt3, 0.5, 0.25, yt3), dev)
     nbytes = work[0]
-    print(f"[8 timing scatter, scattered A, {fmt3.row.numel()} entries] kernel "
-          f"{warm[0] * 1e3:.2f} us/call warm ({nbytes / 1e6:.2f} MB, "
-          f"{nbytes / (warm[0] * 1e6):.1f} GB/s), {cold * 1e3:.2f} us flushed; "
-          f"plain {warm[1] * 1e3:.2f} us, library (torch.addmv, CSR) "
-          f"{warm[2] * 1e3:.2f} us, bound "
-          f"{out['tr_spmv_scatter']['bound_ms'] * 1e3:.2f} us; tr_mul(alpha, beta,"
-          f" y) end to end, device / host wall {e2e * 1e3:.2f} / "
-          f"{wall * 1e3:.2f} us", flush=True)
+    print(f"[8 timing scatter, scattered A, {fmt3.row.numel()} entries, "
+          f"{fmt3.tiles.n_tiles} tiles] kernel {warm[0] * 1e3:.2f} us/call warm "
+          f"({nbytes / 1e6:.2f} MB, {nbytes / (warm[0] * 1e6):.1f} GB/s), "
+          f"{cold * 1e3:.2f} us flushed; plain {warm[1] * 1e3:.2f} us, library "
+          f"(torch.addmv, CSR) {warm[2] * 1e3:.2f} us, bound "
+          f"{out['tr_spmv_scatter']['bound_ms'] * 1e3:.2f} us", flush=True)
+
+    # the flagship's A.T (its mul), bare, and without its two longest columns
+    Af, opf = chains["flagship"][0], chains["flagship"][1]
+    name_f, fmt_f, _ = opf.route_fw
+    check(name_f == "scatter", "the flagship's A.T is not on the scatter route")
+    cut, longest = without_longest_columns(sp.csc_matrix(Af.T), 2)
+    fmt_cut = vt.ScatterDevice.from_host(vt.vbc1d(cut, 8), dev)
+    Acsr = csr_of_transpose(sp.csc_matrix(Af.T), dev)  # A itself, as CSR
+    xf = torch.randn(fmt_f.m, device=dev)
+    zero = torch.zeros(fmt_f.n, device=dev)
+    same_function("flagship A.T SpMV", lambda: torch.addmv(zero, Acsr, xf, beta=0.0),
+                  lambda: vt.tr_spmv_scatter(fmt_f, xf))
+    warm_f = paired_ms([lambda: vt.tr_spmv_scatter(fmt_f, xf),
+                        lambda: vt.tr_spmv_scatter_plain(fmt_f, xf),
+                        lambda: torch.addmv(zero, Acsr, xf, beta=0.0),
+                        lambda: vt.tr_spmv_scatter(fmt_cut, xf)], dev)
+    cold_f = flushed_ms(lambda: vt.tr_spmv_scatter(fmt_f, xf), dev)
+    rec_f = entry(warm_f[:3], tr_spmv_work(fmt_f, nonzeros(Af), False))
+    out["tr_spmv_scatter"].update({f"flagship_at_{k}": v for k, v in rec_f.items()})
+    out["tr_spmv_scatter"]["flagship_at_flushed_ms"] = cold_f
+    cnt = torch.diff(fmt_f.colptr)
+    print(f"[8 timing scatter, flagship A.T, {fmt_f.row.numel()} entries, "
+          f"{fmt_f.tiles.n_tiles} tiles, {fmt_f.tiles.empty.numel()} empty "
+          f"columns, {float(cnt.float().mean()):.2f} entries a column mean / "
+          f"{int(cnt.max())} max] kernel {warm_f[0] * 1e3:.2f} us/call warm, "
+          f"{cold_f * 1e3:.2f} us flushed; plain {warm_f[1] * 1e3:.2f} us, "
+          f"library (torch.addmv, CSR) {warm_f[2] * 1e3:.2f} us, bound "
+          f"{rec_f['bound_ms'] * 1e3:.2f} us ({rec_f['bound_by']}); without its "
+          f"two longest columns ({longest} entries) {warm_f[3] * 1e3:.2f} us",
+          flush=True)
 
     guard = {}
     g = torch.Generator(device=dev).manual_seed(14)
-    for label, o in (("flagship", chains["flagship"][1]), ("FEM", op2),
-                     ("scattered", op3)):
+    for label, o in (("flagship", opf), ("FEM", op2), ("scattered", op3)):
         for direction, host, stripe, route in (
-                ("A", o.host_tr, o.dev_tr, o.route_tr),
-                ("A.T", o.host_fw, o.dev_fw, o.route_fw)):
-            sc = route[1] if route[0] == "scatter" else vt.ScatterDevice.from_host(
-                host, dev)
+                ("A", o.host_tr, o.nat_tr, o.route_tr),
+                ("A.T", o.host_fw, o.nat_fw, o.route_fw)):
+            sc = route[1]
+            if route[0] != "scatter":  # the scatter format in natural order
+                sc = vt.ScatterDevice.from_host(host, dev)
+                sc = sc if o.perm_t is None else sc.natural_view(o.perm_t)
             x = torch.randn(stripe.m, device=dev, generator=g)
             t_sc, t_st = paired_ms([lambda: vt.tr_spmv_scatter(sc, x),
                                     lambda: vt.tr_spmv(stripe, x)], dev)
@@ -1327,7 +1523,7 @@ def phase_timing_slice4(dev, chains, scat, rel):
                           "scatter_us": t_sc * 1e3, "stripe_us": t_st * 1e3}
             print(f"[8 guard {key}] mean stripe width {routes[key][0]:.3f}, "
                   f"entries per column {float(cnt.float().mean()):.2f} mean / "
-                  f"{int(cnt.max())} max, lane group {lanes_per_column(sc)}: "
+                  f"{int(cnt.max())} max, {sc.tiles.n_tiles} tiles: "
                   f"scatter {t_sc * 1e3:.2f} us, stripe {t_st * 1e3:.2f} us, "
                   f"route {route[0]} "
                   f"({'the faster' if (t_sc <= t_st) == (route[0] == 'scatter') else 'the slower'})",
@@ -1469,6 +1665,25 @@ def reset_launches():
         kern.launches = 0
 
 
+@contextlib.contextmanager
+def counting_index_select():
+    """Counts the calls of ``index_select`` inside the block (the row
+    gathers that an auto-RCM operator no longer runs): yields a one-item
+    list."""
+    calls = [0]
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            calls[0] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    with mock.patch.object(torch.Tensor, "index_select",
+                           counting(torch.Tensor.index_select)), \
+            mock.patch.object(torch, "index_select", counting(torch.index_select)):
+        yield calls
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_environment()
@@ -1480,22 +1695,33 @@ def main():
     phase_kernels_slice4(dev, errs)
     phase_chain_repair(dev)
 
+    # four calls: flagship tr_mul (stripe) and mul (scatter), FEM tr_mul and
+    # mul (stripe, natural views): one launch each, no gather
     reset_launches()
-    flag = phase_flagship(dev)
-    fem = phase_fem(dev)
-    launches = {"tr_spmv": vt.tr_spmv.launches, "gather": vt.gather.launches}
-    check(launches["tr_spmv"] > 0 and launches["gather"] > 0,
-          f"tr_mul/mul path skipped a kernel: {launches}")
-    print(f"[4-5 launches] tr_mul/mul path: stripe TrSpMV {launches['tr_spmv']}, "
-          f"scatter TrSpMV {vt.tr_spmv_scatter.launches}, gather "
-          f"{launches['gather']}", flush=True)
+    with counting_index_select() as sel:
+        flag = phase_flagship(dev)
+        fem = phase_fem(dev)
+    launches = {"tr_spmv": vt.tr_spmv.launches,
+                "tr_spmv_scatter": vt.tr_spmv_scatter.launches}
+    check(launches == {"tr_spmv": 3, "tr_spmv_scatter": 1}
+          and vt.gather.launches == 0 and sel[0] == 0,
+          f"tr_mul/mul path: {launches}, gather {vt.gather.launches}, "
+          f"index_select {sel[0]} (want stripe 3, scatter 1, gather 0, "
+          f"index_select 0)")
+    print(f"[4-5 launches] tr_mul/mul path, 4 calls: stripe TrSpMV "
+          f"{launches['tr_spmv']}, scatter TrSpMV {launches['tr_spmv_scatter']}, "
+          f"gather {vt.gather.launches}, index_select {sel[0]}", flush=True)
 
     reset_launches()
-    spmm = phase_spmm(dev, flag, fem)
+    with counting_index_select() as sel:
+        spmm = phase_spmm(dev, flag, fem)
     launches["tr_spmm"] = vt.tr_spmm.launches
-    check(launches["tr_spmm"] > 0, "tr_mul_mat/mul_mat path skipped the SpMM kernel")
-    print(f"[4-6 launches] tr_mul_mat/mul_mat path: SpMM {launches['tr_spmm']}",
-          flush=True)
+    check(launches["tr_spmm"] == 5 and vt.gather.launches == 0 and sel[0] == 0,
+          f"tr_mul_mat/mul_mat path: SpMM {launches['tr_spmm']} (want 5, one a "
+          f"call), gather {vt.gather.launches}, index_select {sel[0]} (want 0)")
+    print(f"[4-6 launches] tr_mul_mat/mul_mat path, 5 calls: SpMM "
+          f"{launches['tr_spmm']}, gather {vt.gather.launches}, index_select "
+          f"{sel[0]}", flush=True)
 
     reset_launches()
     parts = phase_2d(dev)
@@ -1510,6 +1736,7 @@ def main():
     reset_launches()
     chains = phase_chain(flag, fem)
     launches["tr_spmv_chain"] = vt.tr_spmv_chain.launches
+    launches["gather"] = vt.gather.launches  # the gather's one path now
     others = {k.__name__: k.launches for k in KERNELS
               if k not in (vt.tr_spmv_chain, vt.gather)}
     check(launches["tr_spmv_chain"] == 4 and vt.gather.launches == 4
@@ -1520,13 +1747,18 @@ def main():
           f"{launches['tr_spmv_chain']}, gather {vt.gather.launches}", flush=True)
 
     reset_launches()
-    scat = phase_scatter(dev, flag, fem, spmm)
-    launches["tr_spmv_scatter"] = vt.tr_spmv_scatter.launches
-    check(launches["tr_spmv_scatter"] > 0 and vt.tr_spmv.launches == 0,
-          f"scatter path: scatter TrSpMV {launches['tr_spmv_scatter']}, stripe "
-          f"TrSpMV {vt.tr_spmv.launches} launches")
-    print(f"[10 launches] scattered tr_mul/mul path: scatter TrSpMV "
-          f"{launches['tr_spmv_scatter']}, gather {vt.gather.launches}", flush=True)
+    with counting_index_select() as sel:
+        scat = phase_scatter(dev, flag, fem, spmm)
+    n_scat = vt.tr_spmv_scatter.launches
+    check(n_scat == 2 and vt.tr_spmv.launches == 0 and vt.gather.launches == 0
+          and sel[0] == 0,
+          f"scatter path: scatter TrSpMV {n_scat} (want 2, one a call), stripe "
+          f"TrSpMV {vt.tr_spmv.launches}, gather {vt.gather.launches}, "
+          f"index_select {sel[0]}")
+    launches["tr_spmv_scatter"] += n_scat  # beside the flagship's mul
+    print(f"[10 launches] scattered tr_mul/mul path, 2 calls: scatter TrSpMV "
+          f"{n_scat}, gather {vt.gather.launches}, index_select {sel[0]}",
+          flush=True)
 
     reset_launches()
     rel = phase_relayout(dev)
@@ -1544,6 +1776,7 @@ def main():
     ms = phase_timing(dev, flag, fem, spmm)
     ms.update(phase_timing_2d(dev, parts))
     ms.update(phase_timing_slice4(dev, chains, scat, rel))
+    phase_timing_relabeled(dev, fem, scat, spmm)
     p_launches, p_errs, p_ms = phase_probes(
         dev, ms["tr_spmv_chain"]["barrier_floor_ms"])
     launches.update(p_launches)

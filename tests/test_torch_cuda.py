@@ -27,11 +27,13 @@ from vbcs_tpu_torch.ops import _lib
 from vbcs_tpu_torch.ops.chain import chain_grid, chain_plan
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from bench import blocky2d_matrix, blocky_matrix, fem_matrix  # noqa: E402
+from bench import (blocky2d_matrix, blocky_matrix, fem_matrix,  # noqa: E402
+                   scattered_matrix)
 from chip_smoke import (chain_bytes, chain_oracle,  # noqa: E402
-                        chain_residencies, lane_group_packs, launch_chain,
-                        long_stripes, mixed_height_pack, mixed_stripes,
-                        scatter_packs, straddle_pack, zero_height_pack)
+                        chain_residencies, coo_matrix, lane_group_packs,
+                        launch_chain, long_stripes, mixed_height_pack,
+                        mixed_stripes, scatter_packs, straddle_pack,
+                        zero_height_pack)
 
 TOL = 2e-5
 
@@ -514,19 +516,56 @@ def test_tr_spmv_scatter_kernel_matches_plain(case, with_y, cuda_device):
     oracle = B.tr_mul(x.double().cpu().numpy(), *(
         (0.5, 0.25, y.double().cpu().numpy()) if with_y else ()))
     assert rel_err(got, torch.from_numpy(oracle)) <= TOL
+    # no float atomics: a second call gives the same bits
+    assert torch.equal(vt.tr_spmv_scatter(fmt, x, *args), got)
 
 
-@pytest.mark.parametrize("lanes", [4, 8, 16, 32])
-def test_tr_spmv_scatter_every_lane_group(lanes, cuda_device, monkeypatch):
-    """Each lane group on the same pack (long and empty columns)."""
-    from vbcs_tpu_torch.ops import scatter as pst
+def route_scatter_packs():
+    """The three packs of chip_smoke.py on the scatter route."""
+    flag = vt.CSC.from_scipy(blocky_matrix())
+    scat = vt.CSC.from_scipy(scattered_matrix().astype(np.float32))
+    return {"flagship A.T": flag.transpose(), "scattered A": scat,
+            "scattered A.T": scat.transpose()}
 
-    monkeypatch.setattr(pst, "lanes_per_column", lambda fmt: lanes)
-    fmt = vt.ScatterDevice.from_host(SCATTER_PACKS["column_of_90_and_empty"],
-                                     cuda_device)
-    x = torch.randn(fmt.m, device=cuda_device)
-    assert rel_err(vt.tr_spmv_scatter(fmt, x),
-                   vt.tr_spmv_scatter_plain(fmt, x)) <= TOL
+
+@pytest.mark.parametrize("case", ["flagship A.T", "scattered A", "scattered A.T"])
+def test_tr_spmv_scatter_route_packs(case, cuda_device):
+    B = vt.vbc1d(route_scatter_packs()[case], 8)
+    fmt = vt.route_tr_spmv(B, cuda_device)[1]
+    assert isinstance(fmt, vt.ScatterDevice)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(B.m, device=cuda_device, generator=g)
+    y = torch.randn(B.n, device=cuda_device, generator=g)
+    for args in ((), (0.5, 0.25, y)):
+        got = vt.tr_spmv_scatter(fmt, x, *args)
+        assert rel_err(got, vt.tr_spmv_scatter_plain(fmt, x, *args)) <= TOL
+        assert torch.equal(vt.tr_spmv_scatter(fmt, x, *args), got)
+
+
+# entry counts at the tiles' edges (SCATTER_TILE is a power of two): one
+# past, one column, one entry, none
+TILE_EDGE = {
+    "entries_512": (700, 300, 512),
+    "entries_513": (700, 300, 513),
+    "one_column": (900, 1, 450),
+    "one_entry": (5, 4, 1),
+    "no_entry": (6, 5, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TILE_EDGE))
+def test_tr_spmv_scatter_tile_edges(case, cuda_device):
+    m, n, nnz = TILE_EDGE[case]
+    rng = np.random.default_rng(nnz)
+    flat = rng.choice(m * n, nnz, replace=False)
+    A = coo_matrix(m, n, flat // n, flat % n, nnz)
+    fmt = vt.ScatterDevice.from_host(vt.vbc1d(A, 8, vt.EquiChunker(1)), cuda_device)
+    assert fmt.row.numel() == nnz
+    x = torch.randn(m, device=cuda_device)
+    y = torch.randn(n, device=cuda_device)
+    for args in ((), (0.5, 0.25, y)):
+        got = vt.tr_spmv_scatter(fmt, x, *args)
+        assert rel_err(got, vt.tr_spmv_scatter_plain(fmt, x, *args)) <= TOL
 
 
 def test_tr_spmv_scatter_basis_vectors_exact(cuda_device):
@@ -537,6 +576,43 @@ def test_tr_spmv_scatter_basis_vectors_exact(cuda_device):
         e = torch.zeros(256, device=cuda_device)
         e[i] = 1.0
         assert torch.equal(vt.tr_spmv_scatter(fmt, e).cpu(), D[i, :])
+
+
+@pytest.mark.parametrize("case", ["fem", "scattered"])
+def test_operator_natural_views_on_card(case, cuda_device):
+    """The auto-RCM FEM (stripe route) and scattered (scatter route)
+    operators: every call one launch of its kernel through col_out, each
+    kernel against its plain version on the natural views, no gather."""
+    A = (fem_matrix(k=160) if case == "fem" else scattered_matrix()).astype(np.float32)
+    op = vt.VBCOperator.from_csc(A, W=8, reorder="auto", device=cuda_device)
+    assert op.row_perm is not None
+    route = "stripe" if case == "fem" else "scatter"
+    assert op.route_tr[0] == op.route_fw[0] == route
+    kernel = vt.tr_spmv if case == "fem" else vt.tr_spmv_scatter
+    n = A.shape[0]
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(n, device=cuda_device, generator=g)
+    y = torch.randn(n, device=cuda_device, generator=g)
+    X = torch.randn(n, 32, device=cuda_device, generator=g)
+    A64 = A.astype(np.float64)
+    xn, yn, Xn = (t.double().cpu().numpy() for t in (x, y, X))
+    gathers = vt.gather.launches
+    for fn, fmt, want in (("tr_mul", op.route_tr[1], 0.5 * (A64.T @ xn) + 0.25 * yn),
+                          ("mul", op.route_fw[1], 0.5 * (A64 @ xn) + 0.25 * yn)):
+        assert torch.equal(fmt.col_out, op.perm_t)
+        before = kernel.launches
+        got = getattr(op, fn)(x, 0.5, 0.25, y)
+        assert kernel.launches == before + 1
+        assert rel_err(got, torch.from_numpy(want)) <= TOL
+        assert rel_err(got, vt.tr_spmv_plain(fmt, x, 0.5, 0.25, y)) <= TOL
+    for fn, fmt, want in (("tr_mul_mat", op.nat_tr, A64.T @ Xn),
+                          ("mul_mat", op.nat_fw, A64 @ Xn)):
+        before = vt.tr_spmm.launches
+        got = getattr(op, fn)(X)
+        assert vt.tr_spmm.launches == before + 1
+        assert rel_err(got, torch.from_numpy(want)) <= TOL
+        assert rel_err(got, vt.tr_spmm_plain(fmt, X)) <= TOL
+    assert vt.gather.launches == gathers
 
 
 @pytest.mark.parametrize("reorder", ["never", "auto"])

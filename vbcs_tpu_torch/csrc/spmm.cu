@@ -13,7 +13,12 @@
 //   Y[j, c] = sum_{b in stripe s} val[ofs[s] + (b - pos[s]) * w_s
 //                                     + (j - spl[s])] * X[idx[b], c]
 //
-// with s the stripe that owns column j and w_s = spl[s+1] - spl[s].
+// with s the stripe that owns column j and w_s = spl[s+1] - spl[s].  On a
+// natural view of an auto-RCM pack (formats/device.py: natural_view) idx
+// holds natural rows and column j is row col_out[j] of Y, so the two row
+// gathers the operator ran around the kernel (X rows in, Y rows out) fold
+// into it; each Y row is still one coalesced run of k floats, 16-byte
+// aligned whenever Y is and k % 4 == 0.  col_out is null in natural order.
 //
 // Design: a group of G lanes (G a power of two, 32 for k >= 128) owns one
 // (stripe, tile of 4*G RHS columns) pair; each lane owns 4 consecutive
@@ -75,8 +80,8 @@ __global__ void tr_spmm_stripe_kernel(
     int L, int64_t k, int log2_group, int64_t items,
     const int* __restrict__ spl, const int* __restrict__ pos,
     const int* __restrict__ idx, const int* __restrict__ ofs,
-    const float* __restrict__ val, const float* __restrict__ X,
-    float* __restrict__ Y) {
+    const int* __restrict__ col_out, const float* __restrict__ val,
+    const float* __restrict__ X, float* __restrict__ Y) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t item = t >> log2_group;
   if (item >= items) return;
@@ -109,7 +114,11 @@ __global__ void tr_spmm_stripe_kernel(
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      if (i < gw) store_row4<kVec>(Y + (j0 + g0 + i) * k, c0, k, acc[i]);
+      if (i < gw) {
+        const int j = j0 + g0 + i;
+        const int64_t jo = col_out != nullptr ? __ldg(col_out + j) : j;
+        store_row4<kVec>(Y + jo * k, c0, k, acc[i]);
+      }
     }
   }
 }
@@ -120,10 +129,11 @@ extern "C" {
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched), or
 // cudaErrorInvalidValue for a problem the grid cannot cover.  L >= 1
-// stripes, k >= 1 RHS columns; X is [m, k] and Y is [n, k], row-major.
+// stripes, k >= 1 RHS columns; X is [m, k] and Y is [n, k], row-major;
+// col_out null (natural order) or a permutation of [0, n).
 int vbcs_tr_spmm(int L, int64_t k, const void* spl, const void* pos,
-                 const void* idx, const void* ofs, const void* val,
-                 const void* X, void* Y, void* stream) {
+                 const void* idx, const void* ofs, const void* col_out,
+                 const void* val, const void* X, void* Y, void* stream) {
   if (L < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
   // group of G lanes covers 4*G columns: the smallest power of two >= k/4
   int log2_group = 0;
@@ -141,15 +151,16 @@ int vbcs_tr_spmm(int L, int64_t k, const void* spl, const void* pos,
   const auto* pos_ = static_cast<const int*>(pos);
   const auto* idx_ = static_cast<const int*>(idx);
   const auto* ofs_ = static_cast<const int*>(ofs);
+  const auto* out_ = static_cast<const int*>(col_out);
   const auto* val_ = static_cast<const float*>(val);
   const auto* X_ = static_cast<const float*>(X);
   auto* Y_ = static_cast<float*>(Y);
   if (vec) {
     tr_spmm_stripe_kernel<true><<<static_cast<unsigned>(blocks), threads, 0, st>>>(
-        L, k, log2_group, items, spl_, pos_, idx_, ofs_, val_, X_, Y_);
+        L, k, log2_group, items, spl_, pos_, idx_, ofs_, out_, val_, X_, Y_);
   } else {
     tr_spmm_stripe_kernel<false><<<static_cast<unsigned>(blocks), threads, 0, st>>>(
-        L, k, log2_group, items, spl_, pos_, idx_, ofs_, val_, X_, Y_);
+        L, k, log2_group, items, spl_, pos_, idx_, ofs_, out_, val_, X_, Y_);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,7 +9,12 @@
 //                                          + (j - spl[s])] * x[idx[b]]
 //          (+ beta * y_in[j])
 //
-// with s = col_stripe[j] and w_s = spl[s+1] - spl[s].
+// with s = col_stripe[j] and w_s = spl[s+1] - spl[s].  On a natural view
+// of an auto-RCM pack (formats/device.py: natural_view) idx holds natural
+// rows and y lands at col_out[j] (y_in is read there too), so the gathers
+// the JAX operator runs around its kernel for a relabeled matrix
+// (windowed_gather._permute_kernel, on x and on y) fold into this one
+// launch; col_out is null in natural order.
 //
 // Design: one thread per output column j.  Stripes own disjoint columns
 // (the reference's stripe scheduler, multiply_1DVBC.jl:169-177), so no
@@ -37,9 +42,10 @@ namespace {
 __global__ void tr_spmv_stripe_kernel(
     int n, const int* __restrict__ spl, const int* __restrict__ pos,
     const int* __restrict__ idx, const int* __restrict__ ofs,
-    const int* __restrict__ col_stripe, const float* __restrict__ val,
-    const float* __restrict__ x, const float* __restrict__ y_in,
-    float alpha, float beta, float* __restrict__ y_out) {
+    const int* __restrict__ col_stripe, const int* __restrict__ col_out,
+    const float* __restrict__ val, const float* __restrict__ x,
+    const float* __restrict__ y_in, float alpha, float beta,
+    float* __restrict__ y_out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   const int s = col_stripe[j];
@@ -51,9 +57,10 @@ __global__ void tr_spmv_stripe_kernel(
   for (int b = pos[s]; b < b1; ++b, v += w) {
     acc = fmaf(__ldg(v), __ldg(x + __ldg(idx + b)), acc);
   }
+  const int jo = col_out != nullptr ? __ldg(col_out + j) : j;
   float out = alpha * acc;
-  if (y_in != nullptr) out = fmaf(beta, y_in[j], out);
-  y_out[j] = out;
+  if (y_in != nullptr) out = fmaf(beta, y_in[jo], out);
+  y_out[jo] = out;
 }
 
 }  // namespace
@@ -61,18 +68,20 @@ __global__ void tr_spmv_stripe_kernel(
 extern "C" {
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
-// y_in may be null (then beta is unused).  n > 0.
+// y_in may be null (then beta is unused), col_out null (natural order;
+// else a permutation of [0, n)).  n > 0.
 int vbcs_tr_spmv(int n, const void* spl, const void* pos, const void* idx,
-                 const void* ofs, const void* col_stripe, const void* val,
-                 const void* x, const void* y_in, float alpha, float beta,
-                 void* y_out, void* stream) {
+                 const void* ofs, const void* col_stripe, const void* col_out,
+                 const void* val, const void* x, const void* y_in, float alpha,
+                 float beta, void* y_out, void* stream) {
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   tr_spmv_stripe_kernel<<<blocks, threads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       n, static_cast<const int*>(spl), static_cast<const int*>(pos),
       static_cast<const int*>(idx), static_cast<const int*>(ofs),
-      static_cast<const int*>(col_stripe), static_cast<const float*>(val),
+      static_cast<const int*>(col_stripe), static_cast<const int*>(col_out),
+      static_cast<const float*>(val),
       static_cast<const float*>(x), static_cast<const float*>(y_in), alpha,
       beta, static_cast<float*>(y_out));
   return static_cast<int>(cudaGetLastError());

@@ -13,20 +13,48 @@ and for the 2-D format each tile's first row and value offset
 kernel reads a tile's place without the ``idx -> Pi.spl`` chain.
 ``ScatterDevice`` is the port of ``ScatterFormat`` in
 ``vbcs_tpu/ops/pallas_scatter.py``: the same per-column entry lists, as
-a CSC on the device instead of an (8, Np) slot buffer with a router.
+a CSC on the device instead of an (8, Np) slot buffer with a router,
+cut into tiles of whole columns for its kernel (:class:`ScatterTiles`).
+
+A pack of the relabeled ``A[perm][:, perm]`` (auto-RCM) has a *natural
+view* (``natural_view(perm)``): its block rows are ``perm[idx]`` and
+``col_out[j] = perm[j]`` says where output column ``j`` goes, so the
+kernels read natural x and write natural y with no gather around them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-__all__ = ["VBC1DDevice", "VBC2DDevice", "ScatterDevice"]
+__all__ = ["VBC1DDevice", "VBC2DDevice", "ScatterDevice", "ScatterTiles",
+           "SCATTER_LANE_ENTRIES", "SCATTER_TILE"]
 
 _I32_MAX = np.iinfo(np.int32).max
+
+# the scatter kernel's entry tiles (csrc/scatter.cu: E and TILE): each
+# of a warp's 32 lanes takes SCATTER_LANE_ENTRIES consecutive entries
+SCATTER_LANE_ENTRIES = 4
+SCATTER_TILE = 32 * SCATTER_LANE_ENTRIES
+
+
+def _check_perm(perm: torch.Tensor, n: int, device) -> None:
+    """A relabeling the natural views take: int32 ``[n]`` on ``device``.
+    That it is a permutation is the caller's to check (``VBCOperator``
+    checks ``row_perm`` on the host): the kernels write ``y[col_out[j]]``
+    unchecked, and a repeated index would race."""
+    if not isinstance(perm, torch.Tensor) or perm.dtype != torch.int32:
+        raise TypeError("perm must be an int32 tensor")
+    if perm.shape != (n,) or perm.device != device or not perm.is_contiguous():
+        raise ValueError(f"perm must be a contiguous [{n}] tensor on {device}")
+
+
+def _tensor_bytes(*arrays) -> int:
+    return sum(t.numel() * t.element_size() for t in arrays if t is not None)
 
 
 def _i32(a, name: str, device) -> torch.Tensor:
@@ -73,6 +101,7 @@ class VBC1DDevice:
     ofs: torch.Tensor  # [L + 1] int32 value offsets per stripe
     val: torch.Tensor  # [total_vals] f32 block values
     col_stripe: torch.Tensor  # [n] int32 stripe of each column
+    col_out: torch.Tensor | None = None  # [n] int32 output place (natural view)
 
     @property
     def device(self) -> torch.device:
@@ -85,8 +114,19 @@ class VBC1DDevice:
     @property
     def nbytes(self) -> int:
         """Bytes of the format arrays (each read at most once per call)."""
-        return sum(t.numel() * t.element_size() for t in (
-            self.spl, self.pos, self.idx, self.ofs, self.val, self.col_stripe))
+        return _tensor_bytes(self.spl, self.pos, self.idx, self.ofs, self.val,
+                             self.col_stripe, self.col_out)
+
+    def natural_view(self, perm: torch.Tensor) -> "VBC1DDevice":
+        """The natural view of this pack of ``A[perm][:, perm]``: block rows
+        ``perm[idx]`` (computed once, on the device) and ``col_out = perm``,
+        so ``tr_spmv``/``tr_spmm`` read natural x and write natural y.  It
+        shares ``spl``, ``pos``, ``ofs``, ``val`` and ``col_stripe`` with
+        this pack; ``idx`` and ``col_out`` are its own."""
+        _check_perm(perm, self.n, self.device)
+        if self.m != self.n or self.col_out is not None:
+            raise ValueError("a natural view needs a square pack in relabeled order")
+        return dataclasses.replace(self, idx=perm[self.idx.long()], col_out=perm)
 
     @staticmethod
     def from_host(host, device) -> "VBC1DDevice":
@@ -117,7 +157,8 @@ class VBC1DDevice:
     @functools.cached_property
     def value_coords(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(row, col) of every stored value, int64 — the index form the
-        plain PyTorch TrSpMV uses (computed once per format)."""
+        plain PyTorch TrSpMV uses (computed once per format); natural
+        coordinates on a natural view."""
         dev = self.device
         L = self.L
         widths = (self.spl[1:] - self.spl[:-1]).long()
@@ -130,6 +171,8 @@ class VBC1DDevice:
         blk = self.pos[stripe].long() + torch.div(local, w, rounding_mode="floor")
         col = self.spl[stripe].long() + local % w
         row = self.idx[blk].long()
+        if self.col_out is not None:
+            col = self.col_out.long()[col]
         return row, col
 
     @functools.cached_property
@@ -287,10 +330,65 @@ class VBC2DDevice:
             col_stripe=self.col_stripe)
 
 
+class ScatterTiles(NamedTuple):
+    """The scatter kernel's work split (``csrc/scatter.cu``): the entries
+    cut into tiles of whole columns, at most ``SCATTER_TILE`` entries each
+    (a warp a tile, each lane ``SCATTER_LANE_ENTRIES`` consecutive
+    entries); a column longer than a tile fills tiles of its own.
+    Columns are counted by their ordinal ``q`` among the nonempty ones."""
+
+    n_tiles: int
+    tiles: torch.Tensor  # [n_tiles, 4] int32: first entry, q of the first
+    #   entry, the first and last tile of the tile's column when it spans
+    #   several (else the tile itself, twice)
+    lanes: torch.Tensor  # [n_tiles * 32] int64, a lane's word: its first
+    #   entry (bits 0-31), its first entry's q less the tile's (32-39), a
+    #   bit for each of its entries that ends its column (40-47) and its
+    #   entry count (48-51)
+    out: torch.Tensor | None  # [nonempty] int32 output place of column q
+    #   (None: q itself, a natural pack with no empty column)
+    empty: torch.Tensor  # [empty] int32 output places of the empty columns
+    scratch: torch.Tensor  # [2 * n_tiles] int32 zeros: arrival counts and
+    #   the partial sums of the columns that span several tiles
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes the kernel reads besides the entries, x and y."""
+        return _tensor_bytes(self.tiles, self.lanes, self.out, self.empty)
+
+
+def _cut_tiles(bounds: np.ndarray) -> tuple[list, list, list]:
+    """Greedy cut of a CSC's entries into tiles of whole columns of at
+    most ``SCATTER_TILE`` entries; ``bounds`` are the nonempty columns'
+    first entries, then the entry count.  A column longer than a tile
+    gets tiles of its own (``SCATTER_TILE`` entries but the last).
+    Returns each tile's first entry and the first and last tile of its
+    column (the tile itself when it holds whole columns)."""
+    TE = SCATTER_TILE
+    reach = (np.searchsorted(bounds, bounds + TE, side="right") - 1).tolist()
+    b = bounds.tolist()
+    starts, lo, hi = [], [], []
+    i = 0
+    while i < len(b) - 1:
+        t = len(starts)
+        if reach[i] > i:  # whole columns up to the last that fits
+            starts.append(b[i])
+            lo.append(t)
+            hi.append(t)
+            i = reach[i]
+        else:  # one long column, in tiles of its own
+            chunk = list(range(b[i], b[i + 1], TE))
+            starts += chunk
+            lo += [t] * len(chunk)
+            hi += [t + len(chunk) - 1] * len(chunk)
+            i += 1
+    return starts, lo, hi
+
+
 @dataclasses.dataclass(frozen=True)
 class ScatterDevice:
     """A 1D-VBC pack as a CSC on a torch device — each column's (row,
-    value) entries, explicit fill kept — for the column-parallel scatter
+    value) entries, explicit fill kept — for the entry-tiled scatter
     kernel (``ops/scatter.py``)."""
 
     m: int
@@ -298,6 +396,7 @@ class ScatterDevice:
     colptr: torch.Tensor  # [n + 1] int32 entry pointers per column
     row: torch.Tensor  # [nnz_stored] int32 row of each entry
     val: torch.Tensor  # [nnz_stored] f32 value of each entry
+    col_out: torch.Tensor | None = None  # [n] int32 output place (natural view)
 
     @property
     def device(self) -> torch.device:
@@ -305,9 +404,64 @@ class ScatterDevice:
 
     @property
     def nbytes(self) -> int:
-        """Bytes of the format arrays (each read once per call)."""
-        return sum(t.numel() * t.element_size()
-                   for t in (self.colptr, self.row, self.val))
+        """Bytes of the CSC arrays (the kernel reads :attr:`tiles` in
+        place of ``colptr`` and ``col_out``)."""
+        return _tensor_bytes(self.colptr, self.row, self.val, self.col_out)
+
+    def natural_view(self, perm: torch.Tensor) -> "ScatterDevice":
+        """The natural view of this pack of ``A[perm][:, perm]``: rows
+        ``perm[row]`` (computed once, on the device) and ``col_out =
+        perm``.  It shares ``colptr`` and ``val`` with this pack."""
+        _check_perm(perm, self.n, self.device)
+        if self.m != self.n or self.col_out is not None:
+            raise ValueError("a natural view needs a square pack in relabeled order")
+        return dataclasses.replace(self, row=perm[self.row.long()], col_out=perm)
+
+    @functools.cached_property
+    def tiles(self) -> ScatterTiles:
+        """The kernel's entry tiles (:class:`ScatterTiles`), built once on
+        first use: the cut on the host (one step a tile), the lane words
+        with torch ops on the device."""
+        dev = self.device
+        E = SCATTER_LANE_ENTRIES
+        colptr = self.colptr.long()
+        cnt = colptr[1:] - colptr[:-1]
+        nzcol = torch.nonzero(cnt > 0).flatten()
+        empty = torch.nonzero(cnt == 0).flatten()
+        nnz = self.row.numel()
+        bounds = torch.cat([colptr[nzcol], colptr[-1:]]).cpu().numpy()
+        starts, lo, hi = _cut_tiles(bounds)
+        n_tiles = len(starts)
+        start = torch.tensor(starts + [nnz], dtype=torch.int64, device=dev)
+        # q of every entry, and whether it is its column's last
+        key = torch.repeat_interleave(torch.arange(nzcol.numel(), device=dev),
+                                      cnt[nzcol], output_size=nnz)
+        ends = torch.ones(nnz, dtype=torch.int64, device=dev)
+        ends[:-1] = (key[1:] != key[:-1]).long()
+        first = start[:-1, None] + E * torch.arange(32, device=dev)  # [T, 32]
+        pos = first[..., None] + torch.arange(E, device=dev)  # [T, 32, E]
+        last = max(nnz - 1, 0)
+        live = pos < start[1:, None, None]
+        bits = torch.where(live, ends[pos.clamp(max=last)], 0)
+        mask = (bits << torch.arange(E, device=dev)).sum(-1)
+        q_tile = key[start[:-1].clamp(max=last)]
+        dq = torch.where(first < start[1:, None],
+                         key[first.clamp(max=last)] - q_tile[:, None], 0)
+        word = (torch.where(first < start[1:, None], first, 0) | (dq << 32)
+                | (mask << 40) | (live.sum(-1) << 48))
+        place = self.col_out.long() if self.col_out is not None else None
+        if place is None and empty.numel() == 0:
+            out = None
+        else:
+            out = (nzcol if place is None else place[nzcol]).int()
+        tiles = torch.stack([start[:-1], q_tile,
+                             torch.tensor(lo, dtype=torch.int64, device=dev),
+                             torch.tensor(hi, dtype=torch.int64, device=dev)], 1)
+        return ScatterTiles(
+            n_tiles=n_tiles, tiles=tiles.int().reshape(n_tiles, 4),
+            lanes=word.reshape(-1), out=out,
+            empty=(empty if place is None else place[empty]).int(),
+            scratch=torch.zeros(2 * n_tiles, dtype=torch.int32, device=dev))
 
     @staticmethod
     def from_host(host, device) -> "ScatterDevice":
@@ -335,9 +489,12 @@ class ScatterDevice:
     @functools.cached_property
     def value_coords(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(row, col) of every entry, int64 — the index form the plain
-        PyTorch TrSpMV uses (computed once per format)."""
+        PyTorch TrSpMV uses (computed once per format); natural
+        coordinates on a natural view."""
         counts = (self.colptr[1:] - self.colptr[:-1]).long()
         col = torch.repeat_interleave(
             torch.arange(self.n, device=self.device), counts,
             output_size=self.row.numel())
+        if self.col_out is not None:
+            col = self.col_out.long()[col]
         return self.row.long(), col

@@ -16,9 +16,12 @@ decision — then copies the packs to an explicit torch ``device``:
 * ``tr_mul_mat``/``mul_mat``: ``Y = A.T @ X`` and ``Y = A @ X`` for a
   dense RHS ``X [rows, k]``, through the stripe SpMM kernel
   (``ops/spmm.py``) on the same two packs;
-* auto-RCM operators hold ``A[perm][:, perm]`` and gather x in and y
-  out at the boundaries (``ops/gather.py``; ``index_select`` for the
-  rows of X and Y, as the JAX operator leaves those to XLA).
+* auto-RCM operators hold ``A[perm][:, perm]`` and run ``tr_mul``,
+  ``mul``, ``tr_mul_mat`` and ``mul_mat`` on its natural views
+  (``natural_view``: rows ``perm[idx]``, output column ``j`` at
+  ``perm[j]``), one launch a call with no gather; ``tr_mul_chain`` runs
+  the relabeled pack between two gathers (``ops/gather.py``), where its
+  shared-memory x window relies on the RCM's locality.
 
 ``VBC2DOperator.from_csc`` plans and packs the 2-D format (the
 alternating planner and ``pack_vbc2d``) of ``A`` and of ``A.T`` with U
@@ -26,8 +29,8 @@ and W swapped; ``tr_mul``/``mul`` run the tile kernel
 (``ops/trspmv2d.py``) on those packs, ``tr_mul_mat``/``mul_mat`` the
 SpMM kernel on their 1-D views, as the JAX operator does.
 
-Every kernel writes natural order, so nothing follows it on a natural
-operator.  f64, bool and int32 semirings wait (ROADMAP.md).
+Every kernel writes natural order, so nothing follows it.  f64, bool and
+int32 semirings wait (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ from .formats.device import VBC1DDevice, VBC2DDevice
 from .formats.vbc1d import VBC1D, pack_1dvbc
 from .ops.chain import tr_spmv_chain
 from .ops.gather import gather
-from .ops.scatter import pack_scatter, tr_spmv_scatter
-from .ops.spmm import _check_mat, tr_spmm
+from .ops.scatter import pack_scatter, scatter_admits, tr_spmv_scatter
+from .ops.spmm import tr_spmm
 from .ops.trspmv import _check_vec, tr_spmv
 from .ops.trspmv2d import tr_spmv_2d
 from .plan.alternating import pack_stripe
@@ -56,24 +59,31 @@ __all__ = ["VBCOperator", "VBC2DOperator", "route_tr_spmv", "route_tr_spmv_2d"]
 _WAITS = "is not ported yet; see ROADMAP.md, queue 1"
 
 
-def route_tr_spmv(B, device, stripe: VBC1DDevice | None = None):
+def route_tr_spmv(B, device, stripe: VBC1DDevice | None = None,
+                  perm: torch.Tensor | None = None):
     """The per-call TrSpMV kernel :meth:`VBCOperator.tr_mul` runs for a
     packed f32 format ``B`` — ``(name, fmt, call)`` with
     ``call(fmt, x, alpha, beta, y) -> y`` — for harnesses that must time
     the shipped path, and the one place the operator's route is decided.
 
-    ``"scatter"`` (the column-parallel kernel on ``B``'s CSC) when the
+    ``"scatter"`` (the entry-tiled kernel on ``B``'s CSC) when the
     scatter guard admits ``B`` (``ops.scatter.scatter_admits``: mean
     stripe width at most ``MAX_MEAN_WIDTH``), else ``"stripe"``.  The JAX
     package tries its one-shot first and reaches the scatter tier only
     when that pack refuses; the port's stripe kernel refuses nothing, so
     the guard alone decides.  ``stripe`` is ``B`` already on ``device``,
-    reused instead of a second copy."""
+    reused instead of a second copy.  ``perm`` (int32 on ``device``) says
+    that ``B`` packs ``A[perm][:, perm]``: the route's format is then the
+    natural view of its pack (``natural_view``), whose call reads natural
+    x and writes natural y."""
     fmt = pack_scatter(B, device)
     if fmt is not None:
-        return "scatter", fmt, tr_spmv_scatter
+        return ("scatter", fmt if perm is None else fmt.natural_view(perm),
+                tr_spmv_scatter)
     if stripe is None:
         stripe = VBC1DDevice.from_host(B, device)
+    if perm is not None and stripe.col_out is None:
+        stripe = stripe.natural_view(perm)
     return "stripe", stripe, tr_spmv
 
 
@@ -93,15 +103,6 @@ def _check_f32(*hosts) -> None:
             raise NotImplementedError(
                 f"the port runs float32 matrices only, got "
                 f"{np.asarray(h.val).dtype}; other semirings {_WAITS} item 3")
-
-
-def _axpby(out, alpha, beta, y):
-    """alpha*out + beta*y with the defaults (None) doing nothing."""
-    if alpha is not None:
-        out = out * alpha
-    if y is not None and beta is not None:
-        out = out + beta * y
-    return out
 
 
 def _as_csc(A) -> CSC:
@@ -233,32 +234,47 @@ class VBCOperator:
 
     # ---- compute ---------------------------------------------------------
 
+    def _packed(self, which: str) -> VBC1DDevice:
+        fmt = self.dev_tr if which == "tr" else self.dev_fw
+        if fmt is None:
+            name = "transposed" if which == "tr" else "forward"
+            raise ValueError(f"operator packed without the {name} direction")
+        return fmt
+
+    @functools.cached_property
+    def nat_tr(self) -> VBC1DDevice:
+        """The A pack in natural order: ``dev_tr``, or on an auto-RCM
+        operator its natural view (built on first use)."""
+        fmt = self._packed("tr")
+        return fmt if self.perm_t is None else fmt.natural_view(self.perm_t)
+
+    @functools.cached_property
+    def nat_fw(self) -> VBC1DDevice:
+        """The A.T pack in natural order (see :attr:`nat_tr`)."""
+        fmt = self._packed("fw")
+        return fmt if self.perm_t is None else fmt.natural_view(self.perm_t)
+
+    def _route(self, which: str):
+        host = self.host_tr if which == "tr" else self.host_fw
+        self._packed(which)  # raises when that direction was not packed
+        # the stripe format's natural view only where the stripe kernel runs
+        stripe = None if scatter_admits(host) else getattr(self, f"nat_{which}")
+        return route_tr_spmv(host, self.device, stripe, self.perm_t)
+
     @functools.cached_property
     def route_tr(self):
-        """``route_tr_spmv`` of the A pack, ``(name, fmt, call)``; the
-        scatter pack is built on first use."""
-        if self.dev_tr is None:
-            raise ValueError("operator packed without the transposed direction")
-        return route_tr_spmv(self.host_tr, self.device, self.dev_tr)
+        """``route_tr_spmv`` of the A pack, ``(name, fmt, call)``, its
+        format in natural order; the scatter pack is built on first use."""
+        return self._route("tr")
 
     @functools.cached_property
     def route_fw(self):
         """``route_tr_spmv`` of the A.T pack (for ``mul``; lazy)."""
-        if self.dev_fw is None:
-            raise ValueError("operator packed without the forward direction")
-        return route_tr_spmv(self.host_fw, self.device, self.dev_fw)
+        return self._route("fw")
 
     def _apply(self, route, x, alpha, beta, y):
         _, fmt, call = route
-        if self.row_perm is None:
-            return call(fmt, x, alpha, beta, y)  # alpha/beta fused
-        # the gather reads x[perm] unchecked on the card, and y skips the
-        # kernel: check both as the kernel's wrapper would
-        _check_vec("x", x, fmt.m, fmt.device)
-        if y is not None and beta is not None:
-            _check_vec("y", y, fmt.n, fmt.device)
-        out = call(fmt, gather(x, self.perm_t), alpha)  # alpha fused
-        return _axpby(gather(out, self.inv_t), None, beta, y)
+        return call(fmt, x, alpha, beta, y)  # alpha/beta fused, natural order
 
     def tr_mul(self, x, alpha=None, beta=None, y=None):
         """y = alpha * (A.T @ x) + beta * y on the operator's device
@@ -281,8 +297,7 @@ class VBCOperator:
         ``n_iters == 0`` returns a copy of ``x``.  An auto-RCM operator
         gathers x into permuted space once, runs the whole chain there
         and gathers y out once."""
-        if self.dev_tr is None:
-            raise ValueError("operator packed without the transposed direction")
+        fmt = self._packed("tr")
         if self.m != self.n:
             raise ValueError(f"tr_mul_chain needs a square operator, got "
                              f"{self.m}x{self.n}")
@@ -292,30 +307,19 @@ class VBCOperator:
         if n_iters == 0:
             return x.clone()
         if self.row_perm is None:
-            return tr_spmv_chain(self.dev_tr, x, n_iters, alpha)
-        out = tr_spmv_chain(self.dev_tr, gather(x, self.perm_t), n_iters, alpha)
+            return tr_spmv_chain(fmt, x, n_iters, alpha)
+        out = tr_spmv_chain(fmt, gather(x, self.perm_t), n_iters, alpha)
         return gather(out, self.inv_t)
-
-    def _apply_mat(self, fmt, X):
-        if self.row_perm is None:
-            return tr_spmm(fmt, X)
-        _check_mat("X", X, fmt.m, fmt.device)  # before the unchecked gather
-        out = tr_spmm(fmt, X.index_select(0, self.perm_t))
-        return out.index_select(0, self.inv_t)
 
     def tr_mul_mat(self, X):
         """Y = A.T @ X for a dense RHS ``X [m, k]`` on the operator's
         device (SpMM; reference ``mul!(Y, A', X)``)."""
-        if self.dev_tr is None:
-            raise ValueError("operator packed without the transposed direction")
-        return self._apply_mat(self.dev_tr, X)
+        return tr_spmm(self.nat_tr, X)
 
     def mul_mat(self, X):
         """Y = A @ X for a dense RHS ``X [n, k]`` on the operator's device
         (scatter-free: the SpMM kernel on the A.T pack)."""
-        if self.dev_fw is None:
-            raise ValueError("operator packed without the forward direction")
-        return self._apply_mat(self.dev_fw, X)
+        return tr_spmm(self.nat_fw, X)
 
     # ---- host oracles -----------------------------------------------------
 

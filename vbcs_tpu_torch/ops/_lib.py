@@ -100,15 +100,15 @@ def load():
             vp, i32, u32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                                       ctypes.c_uint32, ctypes.c_int64,
                                       ctypes.c_float)
-            lib.vbcs_tr_spmv.argtypes = [i32] + [vp] * 8 + [f32, f32, vp, vp]
+            lib.vbcs_tr_spmv.argtypes = [i32] + [vp] * 9 + [f32, f32, vp, vp]
             lib.vbcs_tr_spmv.restype = i32
             lib.vbcs_tr_spmv_2d.argtypes = [i32, i32] + [vp] * 7 + [f32, f32, vp, vp]
             lib.vbcs_tr_spmv_2d.restype = i32
-            lib.vbcs_tr_spmm.argtypes = [i32, i64] + [vp] * 8
+            lib.vbcs_tr_spmm.argtypes = [i32, i64] + [vp] * 9
             lib.vbcs_tr_spmm.restype = i32
             lib.vbcs_gather.argtypes = [i32, vp, vp, vp, vp, vp]
             lib.vbcs_gather.restype = i32
-            lib.vbcs_tr_spmv_scatter.argtypes = [i32, i32] + [vp] * 5 + [
+            lib.vbcs_tr_spmv_scatter.argtypes = [i32, i32] + [vp] * 9 + [
                 f32, f32, vp, vp]
             lib.vbcs_tr_spmv_scatter.restype = i32
             lib.vbcs_tr_spmv_chain.argtypes = [i32, i32] + [vp] * 8 + [

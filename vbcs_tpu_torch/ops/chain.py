@@ -49,10 +49,13 @@ _grids: dict = {}  # CUDA device index -> the default launch's (blocks, budget)
 
 def _check_chain(fmt, n_iters: int) -> int:
     """``n_iters`` as an int; raises for a non-square ``fmt`` or a count
-    below 1."""
+    below 1 or a natural view (the chain runs a relabeled pack in its
+    own order, between two gathers)."""
     n_iters = operator.index(n_iters)
     if fmt.m != fmt.n:
         raise ValueError(f"the chain needs a square matrix, got {fmt.m}x{fmt.n}")
+    if fmt.col_out is not None:
+        raise ValueError("the chain takes a pack in its own order, not a natural view")
     if n_iters < 1:
         raise ValueError(f"n_iters must be >= 1, got {n_iters}")
     return n_iters

@@ -9,9 +9,10 @@ ran a segmented lane scan and permuted the column totals out, with
 columns past 64 entries spilled to a COO side list: all because Mosaic
 cannot gather.  What it computes is a CSC SpMV, so the port packs a CSC
 (``ScatterDevice``) and has no slot budget, no spill and no router.  On
-a CUDA tensor :func:`tr_spmv_scatter` launches ``csrc/scatter.cu``; on a
-CPU tensor it runs the plain TrSpMV (``tr_spmv_scatter_plain``, the
-stripe kernel's ``tr_spmv_plain``).
+a CUDA tensor :func:`tr_spmv_scatter` launches ``csrc/scatter.cu`` over
+the pack's tiles of whole columns (``ScatterDevice.tiles``); on a CPU
+tensor it runs the plain TrSpMV (``tr_spmv_scatter_plain``, the stripe
+kernel's ``tr_spmv_plain``).
 
 Alpha/beta follow the stripe kernel's wrapper (``ops/trspmv.py``).
 """
@@ -24,9 +25,8 @@ import torch
 from ..formats.device import ScatterDevice
 from .trspmv import _run_tr_spmv, tr_spmv_plain
 
-__all__ = ["MAX_MEAN_WIDTH", "column_entries", "lanes_per_column",
-           "pack_scatter", "scatter_admits", "tr_spmv_scatter",
-           "tr_spmv_scatter_plain"]
+__all__ = ["MAX_MEAN_WIDTH", "column_entries", "pack_scatter", "scatter_admits",
+           "tr_spmv_scatter", "tr_spmv_scatter_plain"]
 
 # The route's one threshold: packs whose mean stripe width is above it
 # stay on the stripe kernel.  The JAX package's is 2.0; on an H100 the
@@ -92,27 +92,28 @@ def pack_scatter(B, device) -> ScatterDevice | None:
 tr_spmv_scatter_plain = tr_spmv_plain
 
 
-def lanes_per_column(fmt: ScatterDevice) -> int:
-    """The kernel's lane group G (4, 8, 16 or 32): the power of two
-    nearest (on a log scale) the pack's mean entries per column."""
-    mean = fmt.row.numel() / max(fmt.n, 1)
-    g = 4
-    while g < 32 and mean > g * 2 ** 0.5:
-        g *= 2
-    return g
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def tr_spmv_scatter(fmt: ScatterDevice, x: torch.Tensor, alpha=None,
                     beta=None, y=None) -> torch.Tensor:
     """``alpha * A.T @ x (+ beta * y)`` in natural order, shape ``[n]``.
 
-    CUDA tensors run the column-parallel kernel (or raise); CPU tensors
-    run :func:`tr_spmv_plain`."""
-    return _run_tr_spmv(
-        tr_spmv_scatter, tr_spmv_plain, fmt, x, alpha, beta, y,
-        lambda lib, *rest: lib.vbcs_tr_spmv_scatter(
-            fmt.n, lanes_per_column(fmt), fmt.colptr.data_ptr(),
-            fmt.row.data_ptr(), fmt.val.data_ptr(), x.data_ptr(), *rest))
+    CUDA tensors run the entry-tiled kernel (or raise); CPU tensors run
+    :func:`tr_spmv_plain`.  The kernel's arrival counts live in the
+    format (``fmt.tiles.scratch``): calls on one format run in stream
+    order, not on two streams at once."""
+
+    def launch(lib, *rest):
+        t = fmt.tiles
+        return lib.vbcs_tr_spmv_scatter(
+            t.n_tiles, t.empty.numel(), t.tiles.data_ptr(), t.lanes.data_ptr(),
+            fmt.row.data_ptr(), fmt.val.data_ptr(), _ptr(t.out), _ptr(t.empty),
+            t.scratch.data_ptr(), x.data_ptr(), *rest)
+
+    return _run_tr_spmv(tr_spmv_scatter, tr_spmv_plain, fmt, x, alpha, beta, y,
+                        launch)
 
 
 tr_spmv_scatter.launches = 0

@@ -37,7 +37,8 @@ def tr_spmm_plain(fmt: VBC1DDevice, X: torch.Tensor) -> torch.Tensor:
 
 def tr_spmm(fmt: VBC1DDevice, X: torch.Tensor) -> torch.Tensor:
     """``A.T @ X`` in natural order, shape ``[n, k]``, for a contiguous
-    f32 ``X`` of shape ``[m, k]`` (any ``k >= 0``).
+    f32 ``X`` of shape ``[m, k]`` (any ``k >= 0``); on a natural view,
+    column ``j`` of the pack is row ``col_out[j]`` of Y.
 
     CUDA tensors run the stripe SpMM kernel (or raise); CPU tensors run
     :func:`tr_spmm_plain`."""
@@ -56,8 +57,9 @@ def tr_spmm(fmt: VBC1DDevice, X: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vbcs_tr_spmm(
             fmt.L, k, fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(),
-            fmt.ofs.data_ptr(), fmt.val.data_ptr(), X.data_ptr(), Y.data_ptr(),
-            stream)
+            fmt.ofs.data_ptr(),
+            None if fmt.col_out is None else fmt.col_out.data_ptr(),
+            fmt.val.data_ptr(), X.data_ptr(), Y.data_ptr(), stream)
     _lib.check(lib, rc, "tr_spmm")
     tr_spmm.launches += 1
     return Y

@@ -88,7 +88,8 @@ def _run_tr_spmv(kernel, plain, fmt, x, alpha, beta, y, launch) -> torch.Tensor:
 
 def tr_spmv(fmt: VBC1DDevice, x: torch.Tensor, alpha=None, beta=None,
             y=None) -> torch.Tensor:
-    """``alpha * A.T @ x (+ beta * y)`` in natural order, shape ``[n]``.
+    """``alpha * A.T @ x (+ beta * y)`` in natural order, shape ``[n]``
+    (on a natural view, output column ``j`` lands at ``col_out[j]``).
 
     CUDA tensors run the stripe kernel (or raise); CPU tensors run
     :func:`tr_spmv_plain`."""
@@ -96,8 +97,9 @@ def tr_spmv(fmt: VBC1DDevice, x: torch.Tensor, alpha=None, beta=None,
         tr_spmv, tr_spmv_plain, fmt, x, alpha, beta, y,
         lambda lib, *rest: lib.vbcs_tr_spmv(
             fmt.n, fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(),
-            fmt.ofs.data_ptr(), fmt.col_stripe.data_ptr(), fmt.val.data_ptr(),
-            x.data_ptr(), *rest))
+            fmt.ofs.data_ptr(), fmt.col_stripe.data_ptr(),
+            None if fmt.col_out is None else fmt.col_out.data_ptr(),
+            fmt.val.data_ptr(), x.data_ptr(), *rest))
 
 
 tr_spmv.launches = 0
