@@ -77,7 +77,30 @@ Phases (one line each; any failure raises and exits non-zero):
     iteration, beside the chain's barrier floor of phase 8) and the SpMM
     load-path probe (the FMA kernel beside ``torch.einsum``, the row
     gather); then every variant of the four probe kernels against its
-    plain version at full size.
+    plain version at full size; the relayout's time beside the launch
+    probe's floor;
+13. the semiring routes (``ops/semiring.py``): the flagship and the
+    auto-RCM FEM as f64 operators at full size (``tr_mul`` with
+    alpha/beta/y, ``mul``, ``tr_mul_mat``/``mul_mat`` at k=32,
+    ``tr_mul_chain`` x5) against scipy's f64 products (``SEMI_TOL``),
+    ``Pajek/GD99_c`` as int32 and bool operators (1-D and 2-D) exact, and
+    the f64 flagship ``tr_mul`` timed beside the f32 kernel, the f64
+    library call, an int32 call and the CSC baseline (``ops/csr.py``) in
+    f32 and f64 (a ``SEMIRING {...}`` line);
+14. the autotuner (``models/autotune.py``) on the card at cut sizes: the
+    1-D fit at W=8 and the 2-D fit at U=W=4 into a fresh cache under
+    ``build/``, the tables, the fit's residual with and without the E
+    column and with a per-call constant, one sample warm and L2-flushed,
+    and p/m (predicted over measured) of the min-memory and min-time
+    plans on the flagship and the RCM'd FEM (an ``AUTOTUNE {...}`` line);
+15. the method table (``vbcs_tpu_torch.tools.method_table``) on the
+    flagship with phase 14's models (a ``TABLE [...]`` line).
+
+Phase 8's ``GUARD {...}`` line also holds the guards' extra packs: 1-D
+packs of uniform stripe width 2, 3 and 4 at the flagship's size (scatter
+against stripe, about ``MAX_MEAN_WIDTH``) and 2-D packs of uniform tile
+height 1, 2, 4 and 8 beside phase 7's two plans (the tile kernel against
+the stripe kernel on the 1-D view, about ``TILE2D_MIN_HEIGHT``).
 
 Phase 3 also holds the chain (n_iters 1, 2, 5; alpha None and 0.5; the
 square corpus, a multi-class DP plan, long stripes) against its plain
@@ -94,16 +117,20 @@ counter starts 5 rounds short of 2^32, and a chain split across launches
 at a cap of 3 iterations a launch.
 
 Each path is driven between a reset and a read of the launch counts:
-``tr_mul``/``mul`` of phases 4-5 (stripe and scatter TrSpMV, one launch
-a call; no gather and no ``index_select``), the SpMM calls of phases
-4-6 (SpMM kernel, one a call; no gather, no ``index_select``), the 2-D
-calls of phase 7
-(tile TrSpMV, and the SpMM kernel on the 1-D views), the four
+``tr_mul``/``mul`` of phases 4-5 (each call one launch of its route's
+kernel, stripe or scatter TrSpMV; no gather and no ``index_select``),
+the SpMM calls of phases 4-6 (SpMM kernel, one a call; no gather, no
+``index_select``), the 2-D calls of phase 7 (the tile TrSpMV or the
+stripe TrSpMV on the view, as each pack's route says, and the SpMM
+kernel on the 1-D views), the four
 ``tr_mul_chain`` calls of phase 9 (one chain launch each, two gathers on
 the FEM: the gather's only path), the scattered ``tr_mul``/``mul`` of
 phase 10 (scatter TrSpMV, one a call, no gather),
-the relayout of phase 11 and the five probes of phase 12 (the launch,
-chunk, chain-probe and FMA kernels).  Then each kernel is held against its
+the relayout of phase 11, the five probes of phase 12 (the launch,
+chunk, chain-probe and FMA kernels), the autotuner of phase 14 and the
+method table of phase 15 (the routed kernels).  No f32 call of phases
+4-10 enters ``ops/semiring.py`` (a spy counts), and phase 13's calls do.
+Then each kernel is held against its
 plain version at the shapes those paths gave it: the stripe kernel on
 both packs of both operators (the FEM's natural views), the gather on
 the FEM operator's
@@ -122,6 +149,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -133,15 +161,18 @@ import torch
 
 import vbcs_tpu_torch as vt
 from vbcs_tpu_torch import native
-from vbcs_tpu_torch.ops import _lib
+from vbcs_tpu_torch.models import autotune
+from vbcs_tpu_torch.ops import _lib, semiring
 from vbcs_tpu_torch.ops import chain as chain_op
 from vbcs_tpu_torch.ops.chain import chain_grid, chain_plan
-from vbcs_tpu_torch.ops.scatter import MAX_MEAN_WIDTH
+from vbcs_tpu_torch.ops.scatter import MAX_MEAN_WIDTH, scatter_admits
+from vbcs_tpu_torch.operator import TILE2D_MIN_HEIGHT
 from vbcs_tpu_torch.ops.trspmv2d import lanes_per_stripe
 from vbcs_tpu_torch.probes import chunk as probe_chunk
 from vbcs_tpu_torch.probes import (probe_chain, probe_kernel, probe_kernel2,
                                    probe_launch, probe_spmm4)
 from vbcs_tpu_torch.probes._common import marginal_ms
+from vbcs_tpu_torch.tools import method_table
 from vbcs_tpu_torch.utils.timing import flushed_ms, host_ms, paired_ms
 
 from bench import blocky2d_matrix, blocky_matrix, fem_matrix, scattered_matrix
@@ -396,11 +427,11 @@ def natural_cases(dev, rng):
                                           dev).natural_view(perm_t))
 
 
-def csr_of_transpose(A, dev):
+def csr_of_transpose(A, dev, dtype=np.float32):
     """``A.T`` as a CSR tensor on ``dev``: the CSC arrays of ``A`` read as
-    CSR.  The library yardstick (cuSPARSE through ``torch.sparse``),
-    timed beside the kernels; the port never calls it."""
-    A = sp.csc_matrix(A, dtype=np.float32)
+    CSR, values as ``dtype``.  The library yardstick (cuSPARSE through
+    ``torch.sparse``), timed beside the kernels; the port never calls it."""
+    A = sp.csc_matrix(A, dtype=dtype)
     A.sort_indices()
     return torch.sparse_csr_tensor(
         torch.from_numpy(A.indptr.astype(np.int32)),
@@ -881,7 +912,7 @@ def phase_2d(dev):
         t0 = time.perf_counter()
         vt.pack_vbc2d(C, Pi, Phi, U, W)
         t_pack = time.perf_counter() - t0
-        launched = vt.tr_spmv_2d.launches
+        launched = (vt.tr_spmv_2d.launches, vt.tr_spmv.launches)
         t0 = time.perf_counter()
         op = vt.VBC2DOperator.from_csc(A, U, W, method, method_fw, device=dev)
         torch.cuda.synchronize()
@@ -902,8 +933,12 @@ def phase_2d(dev):
                "tr_mul_mat": op.tr_mul_mat(Xt), "mul_mat": op.mul_mat(Xft)}
         torch.cuda.synchronize()
         got = {k: t.cpu().numpy() for k, t in got.items()}
-        tiles = vt.tr_spmv_2d.launches - launched
-        check(tiles > 0, f"2-D part ({part}) did not launch the tile kernel")
+        tiles = vt.tr_spmv_2d.launches - launched[0]
+        views = vt.tr_spmv.launches - launched[1]
+        routes = (op.route_tr[0], op.route_fw[0])
+        check(tiles == routes.count("tile2d") and views == routes.count("view"),
+              f"2-D part ({part}): routes {routes}, but {tiles} tile and {views} "
+              f"stripe launches")
         A64 = A.astype(np.float64)
         want = {
             "tr_mul": (0.5 * (A64.T @ x) + 0.25 * y.astype(np.float64),
@@ -927,7 +962,11 @@ def phase_2d(dev):
               f"{B.Pi.widths().max()}), L={B.L} stripes, {B.num_blocks} tiles, "
               f"{B.val.size} stored values, {mixed} mixed-height stripes; plan "
               f"{t_plan:.3f} s, pack {t_pack:.3f} s, from_csc (both directions, "
-              f"to device) {t_op:.3f} s; tile launches {tiles}; |Δ|/max vs f64 "
+              f"to device) {t_op:.3f} s; mean tile height "
+              f"{vt.mean_tile_height(B):.3f} (A), "
+              f"{vt.mean_tile_height(op.host_fw):.3f} (A.T): routes tr_mul "
+              f"{routes[0]}, mul {routes[1]}, tile launches {tiles}, stripe "
+              f"launches {views}; |Δ|/max vs f64 "
               f"oracle and scipy: tr_mul(alpha, beta, y) {errs['tr_mul']:.3e}, "
               f"mul {errs['mul']:.3e}, tr_mul_mat k=128 "
               f"{errs['tr_mul_mat']:.3e}, mul_mat k=32 {errs['mul_mat']:.3e}",
@@ -1072,11 +1111,16 @@ def phase_path_shapes(flag, fem, spmm, errs):
 
 def phase_path_shapes_2d(parts, errs):
     """The tile kernel on the four 2-D packs of phase 7 (both directions of
-    both parts), with and without alpha/beta/y, and the SpMM kernel on
-    their 1-D views with the phase's RHS, each against its plain version."""
-    worst = worst_mm = 0.0
+    both parts), the stripe kernel on the 1-D view of every pack whose
+    route is ``"view"``, each with and without alpha/beta/y, and the SpMM
+    kernel on their 1-D views with the phase's RHS, each against its plain
+    version."""
+    worst = worst_mm = worst_view = 0.0
+    views = []
     for part, (_, op, xt, yt, xft, Xt, Xft) in parts.items():
-        for fmt, x, y in ((op.dev_tr, xt, yt), (op.dev_fw, xft, xt)):
+        for direction, fmt, route, x, y in (
+                ("A", op.dev_tr, op.route_tr, xt, yt),
+                ("A.T", op.dev_fw, op.route_fw, xft, xt)):
             for args in ((None, None, None), (0.5, 0.25, y)):
                 got = vt.tr_spmv_2d(fmt, x, *args)
                 plain = vt.tr_spmv_2d_plain(fmt, x, *args)
@@ -1086,6 +1130,18 @@ def phase_path_shapes_2d(parts, errs):
                 worst = max(worst, e)
                 errs["tr_spmv_2d"] = max(errs["tr_spmv_2d"],
                                          float((got - plain).abs().max()))
+                if route[0] != "view":
+                    continue
+                got = vt.tr_spmv(route[1], x, *args)
+                plain = vt.tr_spmv_plain(route[1], x, *args)
+                e = rel_err(got.cpu().numpy(), plain.cpu().numpy())
+                check(e <= TOL, f"2-D ({part}) {direction} view route: stripe "
+                                f"kernel off its plain version by {e:.2e}")
+                worst_view = max(worst_view, e)
+                errs["tr_spmv"] = max(errs["tr_spmv"],
+                                      float((got - plain).abs().max()))
+            if route[0] == "view":
+                views.append(f"({part}) {direction}")
         for view, X in ((op.view_tr, Xt), (op.view_fw, Xft)):
             got, plain = vt.tr_spmm(view, X), vt.tr_spmm_plain(view, X)
             e = rel_err(got.cpu().numpy(), plain.cpu().numpy())
@@ -1093,10 +1149,13 @@ def phase_path_shapes_2d(parts, errs):
                             f"version by {e:.2e}")
             worst_mm = max(worst_mm, e)
             errs["tr_spmm"] = max(errs["tr_spmm"], float((got - plain).abs().max()))
+    check(views, "no 2-D pack of phase 7 is on the view route")
     print(f"[7 kernels at the path's shapes] tile TrSpMV on the four 2-D packs, "
           f"with and without alpha/beta/y: worst |Δ|/max|y| {worst:.3e} vs plain; "
-          f"SpMM on their 1-D views: {worst_mm:.3e} vs plain (tol {TOL})",
-          flush=True)
+          f"stripe TrSpMV on the view-route packs' 1-D views "
+          f"({', '.join(views)}), with and without alpha/beta/y: "
+          f"{worst_view:.3e} vs plain; SpMM on their 1-D views: {worst_mm:.3e} "
+          f"vs plain (tol {TOL})", flush=True)
 
 
 def phase_path_shapes_slice4(chains, scat_routes, rel, errs):
@@ -1157,8 +1216,10 @@ def phase_timing_2d(dev, parts):
     """Part (a): the tile kernel, its plain version, the library SpMV and
     the stripe kernel on the same matrix's 1-D view, warm and L2-flushed;
     end to end ``tr_mul`` and ``tr_mul_mat``.  Part (b): tile against
-    stripe on the 1-D view, warm and flushed (the mixed-height plan)."""
-    out = {}
+    stripe on the 1-D view, warm and flushed (the mixed-height plan).
+    Returns the kernels' records and, per part, the tile/view pair (the
+    2-D guard's data)."""
+    out, pairs = {}, {}
     for part, (A, op, xt, yt, _, Xt, _) in parts.items():
         fmt, view = op.dev_tr, op.view_tr
         calls = [lambda: vt.tr_spmv_2d(fmt, xt, 0.5, 0.25, yt),
@@ -1192,6 +1253,10 @@ def phase_timing_2d(dev, parts):
                 f"{(view.nbytes + io) / (warm[1] * 1e6):.1f} GB/s warm; "
                 f"{stored / (warm[1] * 1e6):.2f} Gstored/s, "
                 f"{nnz / (warm[1] * 1e6):.2f} Gnnz/s warm)")
+        pairs[f"2-D ({part})"] = {
+            "mean_tile_height": vt.mean_tile_height(op.host_tr),
+            "route": op.route_tr[0], "tile2d_us": warm[0] * 1e3,
+            "view_us": warm[1] * 1e3, "stored": int(stored)}
         if part == "a":
             out["tr_spmv_2d"] = entry([warm[0], warm[2], warm[3]],
                                       tr_spmv_work(fmt, nonzeros(A), True))
@@ -1207,7 +1272,7 @@ def phase_timing_2d(dev, parts):
                      f"beta, y) {e2e * 1e3:.2f} / {wall * 1e3:.2f} us, tr_mul_mat "
                      f"k=128 {e2e_mat * 1e3:.2f} / {wall_mat * 1e3:.2f} us")
         print(line, flush=True)
-    return out
+    return out, pairs
 
 
 def without_longest_columns(A, k):
@@ -1379,7 +1444,7 @@ def chain_loops(fmt, AT, n_iters, alpha):
     return launches, library
 
 
-def phase_timing_slice4(dev, chains, scat, rel):
+def phase_timing_slice4(dev, chains, scat, rel, pairs_2d):
     """The chain kernel at ``CHAIN_ITERS`` beside its plain version, the
     stripe-kernel launch loop and the library loop; the operators' chain
     end to end; the scatter kernel on the scattered matrix beside its plain
@@ -1528,7 +1593,25 @@ def phase_timing_slice4(dev, chains, scat, rel):
                   f"route {route[0]} "
                   f"({'the faster' if (t_sc <= t_st) == (route[0] == 'scatter') else 'the slower'})",
                   flush=True)
-    print("GUARD " + json.dumps(guard), flush=True)
+    one, two = guard_packs(dev)
+    for key, r in one.items():
+        faster = "scatter" if r["scatter_us"] <= r["stripe_us"] else "stripe"
+        print(f"[8 guard {key}] mean stripe width {r['mean_width']:.3f}: scatter "
+              f"{r['scatter_us']:.2f} us, stripe {r['stripe_us']:.2f} us, route "
+              f"{r['route']} (the {'faster' if faster == r['route'] else 'slower'})",
+              flush=True)
+    pairs_2d = {**pairs_2d, **two}
+    for key, r in pairs_2d.items():
+        faster = "tile2d" if r["tile2d_us"] <= r["view_us"] else "view"
+        print(f"[8 guard {key}] mean tile height {r['mean_tile_height']:.3f}, "
+              f"{r['stored']} stored values: tile kernel {r['tile2d_us']:.2f} us, "
+              f"stripe kernel on the 1-D view {r['view_us']:.2f} us, route "
+              f"{r['route']} (the {'faster' if faster == r['route'] else 'slower'})",
+              flush=True)
+    print("GUARD " + json.dumps({
+        "max_mean_width": MAX_MEAN_WIDTH, "packs": {**guard, **one},
+        "tile2d_min_height": TILE2D_MIN_HEIGHT, "packs_2d": pairs_2d}),
+        flush=True)
 
     x, R = rel
     xpad = torch.zeros(R * 1024, device=dev)
@@ -1660,6 +1743,374 @@ def phase_probes(dev, floor_ms):
     return launches, errs, ms
 
 
+# ---- slice 8: the semirings, the autotuner, the guards' packs, the table
+
+SEMI_TOL = 1e-10  # f64 semiring route against scipy's f64 product
+# the phase's fits, at the JAX package's default working set (its sizing
+# counts the TPU's padded stream: the port's calls move less, see the
+# AUTOTUNE line's "bytes a call")
+AUTOTUNE_1D = dict(W=8, target_bytes=64 << 20)
+AUTOTUNE_2D = dict(U=4, W=4, target_bytes=64 << 20, rank=3)
+L2_BYTES = 50 << 20  # the H100's L2
+ABOVE_L2 = 8  # the 1-D sample's stripes times this: a call's bytes above the L2
+GUARD_WIDTHS = (2, 3, 4)  # 1-D packs of uniform stripe width, at the flagship's size
+GUARD_HEIGHTS = (1, 2, 4, 8)  # 2-D packs of uniform tile height, w = 8,
+# each of the flagship's ~2.56M stored values
+
+
+@contextlib.contextmanager
+def counting_semiring():
+    """Counts the calls of ``ops/semiring.py``'s functions that the
+    operators make inside the block: yields a one-item list."""
+    calls = [0]
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            calls[0] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    with mock.patch.object(semiring, "tr_spmv", counting(semiring.tr_spmv)), \
+            mock.patch.object(semiring, "tr_spmm", counting(semiring.tr_spmm)):
+        yield calls
+
+
+def f32_alpha(A) -> float:
+    """1 / ||A||_1 rounded to f32: the chain's alpha, exact in both the
+    semiring loop (which rounds alpha to f32, as the JAX loop does) and
+    the f64 oracle."""
+    return float(np.float32(1.0 / abs(sp.csc_matrix(A)).sum(axis=0).max()))
+
+
+def semiring_f64_run(label, A32, dev, rng, relabeled):
+    """An f64 operator of ``A32`` at full size: ``tr_mul(alpha, beta, y)``,
+    ``mul``, ``tr_mul_mat``/``mul_mat`` at k=32 and ``tr_mul_chain`` x5
+    against scipy's f64 products (``SEMI_TOL``); returns the matrix, the
+    operator and its f64 x and y on the card."""
+    A = sp.csc_matrix(A32, dtype=np.float64)
+    t0 = time.perf_counter()
+    op = vt.VBCOperator.from_csc(A, W=8, device=dev)
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t0
+    check(op.dev_tr is None and op.dev_fw is None,
+          f"{label}: an f64 operator copied the kernels' f32 formats")
+    check((op.row_perm is not None) == relabeled,
+          f"{label}: auto-RCM {'did not relabel' if relabeled else 'relabeled'} "
+          f"the f64 matrix")
+    m, n = A.shape
+    x, y, xf = rng.standard_normal(m), rng.standard_normal(n), rng.standard_normal(n)
+    X, Xf = rng.standard_normal((m, 32)), rng.standard_normal((n, 32))
+    alpha = f32_alpha(A)
+    xt, yt, xft, Xt, Xft = (torch.from_numpy(a).to(dev) for a in (x, y, xf, X, Xf))
+    got = {"tr_mul": op.tr_mul(xt, 0.5, 0.25, yt), "mul": op.mul(xft),
+           "tr_mul_mat": op.tr_mul_mat(Xt), "mul_mat": op.mul_mat(Xft),
+           "tr_mul_chain": op.tr_mul_chain(xt, 5, alpha)}
+    torch.cuda.synchronize()
+    want = {"tr_mul": 0.5 * (A.T @ x) + 0.25 * y, "mul": A @ xf,
+            "tr_mul_mat": A.T @ X, "mul_mat": A @ Xf,
+            "tr_mul_chain": chain_oracle(A, x, 5, alpha)}
+    errs = {}
+    for k, t in got.items():
+        check(t.dtype == torch.float64 and tuple(t.shape) == want[k].shape
+              and bool(torch.isfinite(t).all()),
+              f"{label} f64 {k}: wrong dtype, shape or non-finite values")
+        errs[k] = rel_err(t.cpu().numpy(), want[k])
+        check(errs[k] <= SEMI_TOL, f"{label} f64 {k} off scipy's f64 product by "
+                                   f"{errs[k]:.2e}")
+    order = "relabeled by RCM" if op.row_perm is not None else "natural order"
+    print(f"[13 semiring f64 {label}] {m}x{n}, {A.nnz} nnz, {order}, "
+          f"{op.semi_tr.val.numel()} stored values; from_csc {t_op:.3f} s; "
+          f"|Δ|/max vs scipy f64: "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f" (tol {SEMI_TOL}; SpMM k=32, chain x5 at alpha {alpha:.6g})",
+          flush=True)
+    return A, op, xt, yt
+
+
+def semiring_exact(dev, rng):
+    """``Pajek/GD99_c`` as an int32 matrix (values in [-5, 5]) and as a
+    bool matrix, through both operators: every call exact against the
+    int64 product (int32 x and X; alpha and beta integers), the bool
+    matrix also with an f32 x; a bool x raises ``TypeError``."""
+    A_bool = sp.csc_matrix(dict(corpus())["Pajek/GD99_c"] != 0)
+    A_int = A_bool.astype(np.int32)
+    A_int.data = rng.integers(-5, 6, A_int.nnz).astype(np.int32)
+    m, n = A_bool.shape
+    x = rng.integers(-5, 6, m).astype(np.int32)
+    y = rng.integers(-5, 6, n).astype(np.int32)
+    xf = rng.integers(-5, 6, n).astype(np.int32)
+    X = rng.integers(-5, 6, (m, 7)).astype(np.int32)
+    Xf = rng.integers(-5, 6, (n, 7)).astype(np.int32)
+    xt, yt, xft, Xt, Xft = (torch.from_numpy(a).to(dev) for a in (x, y, xf, X, Xf))
+    n_checks = 0
+    for kind, A in (("int32", A_int), ("bool", A_bool)):
+        Ai = A.astype(np.int64)
+        want = {"tr_mul": 2 * (Ai.T @ x) + 3 * y.astype(np.int64),
+                "mul": Ai @ xf, "tr_mul_mat": Ai.T @ X, "mul_mat": Ai @ Xf,
+                "tr_mul f32 x": Ai.T @ x}
+        for shape, op in (("1-D", vt.VBCOperator.from_csc(A, W=8, device=dev)),
+                          ("2-D", vt.VBC2DOperator.from_csc(A, 4, 4, device=dev))):
+            got = {"tr_mul": op.tr_mul(xt, 2, 3, yt), "mul": op.mul(xft),
+                   "tr_mul_mat": op.tr_mul_mat(Xt), "mul_mat": op.mul_mat(Xft),
+                   "tr_mul f32 x": op.tr_mul(xt.float())}
+            for k, t in got.items():
+                dtype = torch.float32 if "f32" in k else torch.int32
+                check(t.dtype == dtype and np.array_equal(
+                    t.cpu().numpy().astype(np.int64), want[k]),
+                    f"GD99_c {kind} {shape} {k}: not exact")
+                n_checks += 1
+            try:
+                op.tr_mul(xt.bool())
+            except TypeError:
+                n_checks += 1
+            else:
+                raise RuntimeError(f"GD99_c {kind} {shape}: a bool x did not raise")
+    print(f"[13 semiring exact] Pajek/GD99_c {m}x{n}, int32 (values in [-5, 5]) "
+          f"and bool matrices, VBCOperator and VBC2DOperator: {n_checks} checks "
+          f"exact (int32 x, X and y; alpha 2, beta 3; the bool matrix also with "
+          f"an f32 x) or raising TypeError (a bool x)", flush=True)
+
+
+def phase_semiring(dev, flag):
+    """13: the non-f32 routes (``ops/semiring.py``) at full size — the
+    flagship and the auto-RCM FEM as f64 operators, GD99_c as int32 and
+    bool — and their times beside the f32 kernel, the library call and
+    the CSC baseline (``ops/csr.py``).  Returns the SEMIRING record."""
+    rng = np.random.default_rng(16)
+    with counting_semiring() as calls:
+        A64, op64, x64, y64 = semiring_f64_run("flagship", flag[0], dev, rng, False)
+        semiring_f64_run("FEM", fem_matrix(k=320), dev, rng, True)
+        semiring_exact(dev, rng)
+    check(calls[0] > 0, "the non-f32 calls did not reach ops/semiring.py")
+
+    A32, op32, xt, yt = flag
+    AT64 = csr_of_transpose(A64, dev, np.float64)
+    AT32 = csr_of_transpose(A32, dev)
+    op_int = vt.VBCOperator.from_host(dataclasses.replace(
+        op64.host_tr, val=op64.host_tr.val.astype(np.int32)), None, None, dev)
+    xi = torch.from_numpy(rng.integers(-5, 6, op_int.m).astype(np.int32)).to(dev)
+    C = vt.CSC.from_scipy(A32)
+    csc32 = vt.CSCDevice.from_host(C, dtype=np.float32, device=dev)
+    csc64 = vt.CSCDevice.from_host(C, dtype=np.float64, device=dev)
+    same_function("f64 flagship SpMV",
+                  lambda: torch.addmv(y64, AT64, x64, beta=0.25, alpha=0.5),
+                  lambda: op64.tr_mul(x64, 0.5, 0.25, y64), tol=SEMI_TOL)
+    same_function("CSC baseline f32", lambda: torch.mv(AT32, xt),
+                  lambda: vt.csc_tr_spmv(csc32, xt))
+    same_function("CSC baseline f64", lambda: torch.mv(AT64, x64),
+                  lambda: vt.csc_tr_spmv(csc64, x64), tol=SEMI_TOL)
+    calls = {
+        "f64 tr_mul(alpha, beta, y)": lambda: op64.tr_mul(x64, 0.5, 0.25, y64),
+        "f32 tr_mul(alpha, beta, y)": lambda: op32.tr_mul(xt, 0.5, 0.25, yt),
+        "f64 library (torch.addmv, CSR)": lambda: torch.addmv(
+            y64, AT64, x64, beta=0.25, alpha=0.5),
+        "int32 tr_mul": lambda: op_int.tr_mul(xi),
+        "CSC baseline f32": lambda: vt.csc_tr_spmv(csc32, xt),
+        "f32 library (torch.mv, CSR)": lambda: torch.mv(AT32, xt),
+        "CSC baseline f64": lambda: vt.csc_tr_spmv(csc64, x64),
+        "f64 library (torch.mv, CSR)": lambda: torch.mv(AT64, x64),
+    }
+    warm = dict(zip(calls, paired_ms(list(calls.values()), dev)))
+    wall = {k: host_ms(calls[k], dev) for k in list(calls)[:2]}
+    rec = {"flagship_us": {k: v * 1e3 for k, v in warm.items()},
+           "flagship_wall_us": {k: v * 1e3 for k, v in wall.items()},
+           "stored_values_f64": int(op64.semi_tr.val.numel()), "nnz": int(A32.nnz)}
+    print(f"[13 semiring timing, flagship] device us/call (host wall): "
+          + ", ".join(f"{k} {v * 1e3:.2f}" + (f" ({wall[k] * 1e3:.2f})" if k in wall
+                                                 else "")
+                      for k, v in warm.items()), flush=True)
+    print("SEMIRING " + json.dumps(rec), flush=True)
+    return rec
+
+
+def phase_autotune(dev, flag):
+    """14: the autotuned time models on the card at cut sizes (1-D at
+    W=8, 2-D at U=W=4) into a fresh cache under ``build/``; the tables,
+    the fit's relative residual with and without the excess-group column
+    E and with a per-call constant, one sample warm against L2-flushed,
+    and p/m (predicted over measured) of the min-memory and min-time
+    plans on the flagship and the RCM'd FEM.  Returns the two models and
+    the AUTOTUNE record."""
+    t_phase = time.perf_counter()
+    cache = os.path.join(ROOT, "build", "autotune_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    os.environ["VBCS_CACHE"] = cache
+    t0 = time.perf_counter()
+    alpha, beta, gamma = autotune.autotune_1dvbc_trspmv(**AUTOTUNE_1D, device=dev)
+    t_1d = time.perf_counter() - t0
+    with open(autotune.cache_path_1d(**AUTOTUNE_1D, device=dev)) as fh:
+        data = json.load(fh)["data"]
+    fits = {}
+    for name, (with_E, with_const) in (("L, q, E", (True, False)),
+                                       ("L, q", (False, False)),
+                                       ("L, q, E, const", (True, True)),
+                                       ("L, q, const", (False, True))):
+        _, _, _, const, resid = autotune.fit_1d(data, 8, with_E, with_const)
+        fits[name] = {"resid": resid, "const_us": const / 1e3}
+    t0 = time.perf_counter()
+    tables2 = autotune.autotune_vbc_trspmv(**AUTOTUNE_2D, device=dev)
+    t_2d = time.perf_counter() - t0
+    with open(autotune.cache_path_2d(AUTOTUNE_2D["U"], AUTOTUNE_2D["W"],
+                                     target_bytes=AUTOTUNE_2D["target_bytes"],
+                                     device=dev)) as fh:
+        data2 = json.load(fh)["data"]
+    beta2 = sum(np.outer(r, c) for r, c in zip(tables2[2], tables2[3]))
+    mdl = autotune.model_1dvbc_trspmv_time(**AUTOTUNE_1D, require_cache=True,
+                                           device=dev)
+    mdl2 = autotune.model_vbc_trspmv_time(**AUTOTUNE_2D, device=dev)
+
+    # samples warm (as the fit times them) and L2-flushed: the 1-D fit's
+    # first (w = 8 at full L), the same family at ABOVE_L2 times its
+    # stripes (a call's bytes above the L2), with the model's prediction,
+    # and the 2-D fit's largest (u = w = 4 at full L)
+    W, tb = AUTOTUNE_1D["W"], AUTOTUNE_1D["target_bytes"]
+    L0 = max(2048, int(tb / (8 * (8 * W * 4 + 36) + 2 * W * 4)))
+    samples = {}
+    for label, L in (("1-D w=8, the fit's", L0), (f"1-D w=8, x{ABOVE_L2}",
+                                                   L0 * ABOVE_L2)):
+        C = vt.CSC.from_scipy(autotune._synth(L, W, 8, 400, seed=W * 7 + 2))
+        Phi = vt.pack_stripe(C, vt.EquiChunker(W))
+        samples[label] = (vt.route_tr_spmv(vt.pack_1dvbc(C, Phi, W), dev),
+                          vt.total_value(C, Phi, mdl) / 1e3)
+    u, w, K, L, d, seed = next(autotune._synth2d_specs(
+        AUTOTUNE_2D["U"], AUTOTUNE_2D["W"], 8, AUTOTUNE_2D["target_bytes"], True))
+    C2 = vt.CSC.from_scipy(autotune._synth2d(K, u, L, w, d, 400, seed))
+    B2 = vt.pack_vbc2d(C2, vt.SplitPartition.equi(C2.m, u),
+                       vt.SplitPartition.equi(C2.n, w),
+                       AUTOTUNE_2D["U"], AUTOTUNE_2D["W"])
+    samples["2-D u=w=4, the fit's"] = (
+        vt.route_tr_spmv_2d(B2, dev),
+        (vt.total_value(C2, B2.Phi, mdl2, Pi=B2.Pi)
+         + vt.row_component_value(B2.Pi, mdl2)) / 1e3)
+    sample = {}
+    for label, ((kname, fmt, call), pred) in samples.items():
+        x = torch.randn(fmt.m, device=dev)
+        y = torch.zeros(fmt.n, device=dev)
+        nbytes = autotune._call_bytes(fmt)
+        warm = autotune._chain_s(call, fmt, dev, nbytes)
+        check(warm is not None, f"autotune sample {label}: no plausible reading")
+        cold = flushed_ms(lambda: call(fmt, x, 1.0, 0.5, y), dev) * 1e-3
+        sample[label] = {"route": kname, "stored": int(fmt.val.numel()),
+                         "bytes": nbytes, "above_l2": nbytes > L2_BYTES,
+                         "warm_us": warm * 1e6, "flushed_us": cold * 1e6,
+                         "pred_us": pred, "p_over_m_warm": pred / (warm * 1e6),
+                         "p_over_m_flushed": pred / (cold * 1e6)}
+    del samples
+
+    # p/m of the min-memory and min-time plans
+    fem = vt.CSC.from_scipy(fem_matrix(k=320).astype(np.float32))
+    pm = {}
+    for label, C in (("flagship", vt.CSC.from_scipy(flag[0])),
+                     ("FEM RCM'd", vt.rcm_symmetric(fem)[0])):
+        for plan, planner in (("min memory", vt.default_1d_partitioner(8, 4)),
+                              ("min time", vt.DynamicTotalChunker(mdl, 8))):
+            Phi = vt.pack_stripe(C, planner)
+            Bp = vt.pack_1dvbc(C, Phi, 8)
+            kname, fmt, call = vt.route_tr_spmv(Bp, dev)
+            t = autotune._chain_s(call, fmt, dev, autotune._call_bytes(fmt))
+            pred = vt.total_value(C, Phi, mdl) / 1e3
+            pm[f"{label} {plan}"] = {
+                "route": kname, "L": Bp.L, "blocks": Bp.num_blocks,
+                "mean_width": float(np.diff(Phi.spl).mean()),
+                "measured_us": t * 1e6, "pred_us": pred, "p_over_m": pred / (t * 1e6)}
+    rec = {"target_bytes_1d": tb, "target_bytes_2d": AUTOTUNE_2D["target_bytes"],
+           "seconds_1d": t_1d, "seconds_2d": t_2d,
+           "seconds": time.perf_counter() - t_phase,
+           "samples_1d": len(data["ts"]), "samples_2d": len(data2["ts"]),
+           "routes_1d": {k: data["kernels"].count(k) for k in set(data["kernels"])},
+           "routes_2d": {k: data2["kernels"].count(k) for k in set(data2["kernels"])},
+           "alpha_ns": alpha.tolist(), "beta_ns": beta.tolist(),
+           "gamma_ns": gamma.tolist(), "fits": fits,
+           "alpha_row_ns": tables2[0].tolist(), "alpha_col_ns": tables2[1].tolist(),
+           "beta_2d_ns": beta2.tolist(), "sample": sample, "p_over_m": pm}
+    print(f"[14 autotune] 1-D W=8 at target_bytes {tb} ({tb >> 20} MB): "
+          f"{rec['samples_1d']} samples {rec['routes_1d']} in {t_1d:.1f} s; alpha ns "
+          f"{np.round(alpha, 1).tolist()}, beta ns {np.round(beta, 2).tolist()}, "
+          f"gamma ns {np.round(gamma, 2).tolist()}; relative residual (rms): "
+          + ", ".join(f"[{k}] {v['resid']:.4f}" for k, v in fits.items())
+          + f", per-call constant {fits['L, q, const']['const_us']:.2f} us "
+          f"(without E)", flush=True)
+    print(f"[14 autotune] 2-D U=W=4 at target_bytes {AUTOTUNE_2D['target_bytes']} "
+          f"({AUTOTUNE_2D['target_bytes'] >> 20} MB): {rec['samples_2d']} samples "
+          f"{rec['routes_2d']} in {t_2d:.1f} s; alpha_row ns "
+          f"{np.round(tables2[0], 1).tolist()}, alpha_col ns "
+          f"{np.round(tables2[1], 1).tolist()}, beta[u, w] ns (rank 3) "
+          f"{np.round(beta2, 2).tolist()}", flush=True)
+    print("[14 autotune] samples warm / L2-flushed (L2 "
+          f"{L2_BYTES >> 20} MB): "
+          + "; ".join(f"{k} [{v['route']}, {v['stored']} stored values, "
+                      f"{v['bytes'] / 1e6:.2f} MB a call, "
+                      f"{'above' if v['above_l2'] else 'inside'} the L2] warm "
+                      f"{v['warm_us']:.2f} us, flushed {v['flushed_us']:.2f} us, "
+                      f"predicted {v['pred_us']:.2f} us, p/m "
+                      f"{v['p_over_m_warm']:.3f} / {v['p_over_m_flushed']:.3f}"
+                      for k, v in sample.items()), flush=True)
+    print("[14 autotune] p/m: "
+          + "; ".join(f"{k} [{v['route']}, mean width {v['mean_width']:.3f}] "
+                      f"measured {v['measured_us']:.2f} us, predicted "
+                      f"{v['pred_us']:.2f} us, p/m {v['p_over_m']:.3f}"
+                      for k, v in pm.items())
+          + f"; phase 14 in {rec['seconds']:.1f} s", flush=True)
+    print("AUTOTUNE " + json.dumps(rec), flush=True)
+    return mdl, mdl2, rec
+
+
+def guard_packs(dev):
+    """The guards' extra packs, timed on both candidate kernels: 1-D packs
+    of uniform stripe width ``GUARD_WIDTHS`` at the flagship's size
+    (``autotune._synth``: scatter against stripe), and 2-D packs of
+    uniform tile height ``GUARD_HEIGHTS`` at w = 8 and the flagship's
+    number of stored values (``autotune._synth2d`` with 40,000 / u
+    stripes: the tile kernel against the stripe kernel on the 1-D view).
+    Returns (1-D records, 2-D records)."""
+    one, two = {}, {}
+    for w in GUARD_WIDTHS:
+        B = vt.vbc1d(autotune._synth(320_000 // w, w, 8, 400, seed=40 + w), 8,
+                     vt.EquiChunker(w))
+        sc = vt.ScatterDevice.from_host(B, dev)
+        st = vt.VBC1DDevice.from_host(B, dev)
+        x = torch.randn(st.m, device=dev)
+        t_sc, t_st = paired_ms([lambda: vt.tr_spmv_scatter(sc, x),
+                                lambda: vt.tr_spmv(st, x)], dev)
+        one[f"uniform w={w}"] = {
+            "mean_width": float(w),
+            "route": "scatter" if scatter_admits(B) else "stripe",
+            "scatter_us": t_sc * 1e3, "stripe_us": t_st * 1e3}
+    for u in GUARD_HEIGHTS:
+        L, w = 40_000 // u, 8
+        A = autotune._synth2d(L * w // u, u, L, w, 8, 400, seed=50 + u)
+        C = vt.CSC.from_scipy(A)
+        B2 = vt.pack_vbc2d(C, vt.SplitPartition.equi(C.m, u),
+                           vt.SplitPartition.equi(C.n, w), 8, 8)
+        fmt = vt.VBC2DDevice.from_host(B2, dev)
+        view = fmt.view_1d()
+        x = torch.randn(fmt.m, device=dev)
+        y = torch.randn(fmt.n, device=dev)
+        t_tile, t_view = paired_ms([lambda: vt.tr_spmv_2d(fmt, x, 0.5, 0.25, y),
+                                    lambda: vt.tr_spmv(view, x, 0.5, 0.25, y)], dev)
+        two[f"uniform u={u}"] = {
+            "mean_tile_height": vt.mean_tile_height(B2),
+            "route": vt.route_tr_spmv_2d(B2, dev, fmt)[0],
+            "tile2d_us": t_tile * 1e3, "view_us": t_view * 1e3,
+            "stored": int(fmt.val.numel())}
+    return one, two
+
+
+def phase_table(dev, flag, mdl, mdl2):
+    """15: the method table (``vbcs_tpu_torch.tools.method_table``) on the
+    flagship with the AUTOTUNE phase's models, each row's y checked
+    against the f64 product.  Returns the TABLE record."""
+    rows = method_table.build_table(
+        flag[0], 8, device=dev, mdl_time=mdl, mdl_time2=mdl2,
+        log=lambda line: print(f"[15 table] {line}", flush=True))
+    check(len(rows) == 10, f"the table has {len(rows)} rows, not 10")
+    rec = [{k: (None if isinstance(v, float) and not np.isfinite(v) else v)
+            for k, v in dict(dataclasses.asdict(r), p_over_m=r.p_over_m).items()}
+           for r in rows]
+    print("TABLE " + json.dumps(rec), flush=True)
+    return rec
+
+
 def reset_launches():
     for kern in KERNELS:
         kern.launches = 0
@@ -1695,18 +2146,25 @@ def main():
     phase_kernels_slice4(dev, errs)
     phase_chain_repair(dev)
 
-    # four calls: flagship tr_mul (stripe) and mul (scatter), FEM tr_mul and
-    # mul (stripe, natural views): one launch each, no gather
+    # the f32 calls of phases 4-10 never enter ops/semiring.py
+    f32_path = contextlib.ExitStack()
+    semi = f32_path.enter_context(counting_semiring())
+
+    # four calls: flagship tr_mul and mul, FEM tr_mul and mul (natural
+    # views), each one launch of its route's kernel, no gather
     reset_launches()
     with counting_index_select() as sel:
         flag = phase_flagship(dev)
         fem = phase_fem(dev)
     launches = {"tr_spmv": vt.tr_spmv.launches,
                 "tr_spmv_scatter": vt.tr_spmv_scatter.launches}
-    check(launches == {"tr_spmv": 3, "tr_spmv_scatter": 1}
-          and vt.gather.launches == 0 and sel[0] == 0,
+    names = [o.route_tr[0] for o in (flag[1], fem[1])] + [
+        o.route_fw[0] for o in (flag[1], fem[1])]
+    want = {"tr_spmv": names.count("stripe"),
+            "tr_spmv_scatter": names.count("scatter")}
+    check(launches == want and vt.gather.launches == 0 and sel[0] == 0,
           f"tr_mul/mul path: {launches}, gather {vt.gather.launches}, "
-          f"index_select {sel[0]} (want stripe 3, scatter 1, gather 0, "
+          f"index_select {sel[0]} (want {want} by the routes, gather 0, "
           f"index_select 0)")
     print(f"[4-5 launches] tr_mul/mul path, 4 calls: stripe TrSpMV "
           f"{launches['tr_spmv']}, scatter TrSpMV {launches['tr_spmv_scatter']}, "
@@ -1727,11 +2185,13 @@ def main():
     parts = phase_2d(dev)
     launches["tr_spmv_2d"] = vt.tr_spmv_2d.launches
     spmm_2d = vt.tr_spmm.launches
-    check(launches["tr_spmv_2d"] > 0 and spmm_2d > 0 and vt.tr_spmv.launches == 0,
-          f"2-D path: tile TrSpMV {launches['tr_spmv_2d']}, SpMM {spmm_2d}, "
-          f"stripe TrSpMV {vt.tr_spmv.launches} launches")
-    print(f"[7 launches] 2-D path: tile TrSpMV {launches['tr_spmv_2d']}, "
-          f"SpMM on the 1-D views {spmm_2d}", flush=True)
+    check(launches["tr_spmv_2d"] > 0 and spmm_2d == 4,
+          f"2-D path: tile TrSpMV {launches['tr_spmv_2d']}, SpMM {spmm_2d} "
+          f"(want 4), stripe TrSpMV {vt.tr_spmv.launches} launches")
+    launches["tr_spmv"] += vt.tr_spmv.launches  # the view route's
+    print(f"[7 launches] 2-D path: tile TrSpMV {launches['tr_spmv_2d']}, stripe "
+          f"TrSpMV on the view route {vt.tr_spmv.launches}, SpMM on the 1-D "
+          f"views {spmm_2d}", flush=True)
 
     reset_launches()
     chains = phase_chain(flag, fem)
@@ -1756,6 +2216,8 @@ def main():
           f"TrSpMV {vt.tr_spmv.launches}, gather {vt.gather.launches}, "
           f"index_select {sel[0]}")
     launches["tr_spmv_scatter"] += n_scat  # beside the flagship's mul
+    f32_path.close()
+    check(semi[0] == 0, f"an f32 call entered ops/semiring.py {semi[0]} times")
     print(f"[10 launches] scattered tr_mul/mul path, 2 calls: scatter TrSpMV "
           f"{n_scat}, gather {vt.gather.launches}, index_select {sel[0]}",
           flush=True)
@@ -1774,14 +2236,35 @@ def main():
                    if route[0] == "scatter"}
     phase_path_shapes_slice4(chains, scat_routes, rel, errs)
     ms = phase_timing(dev, flag, fem, spmm)
-    ms.update(phase_timing_2d(dev, parts))
-    ms.update(phase_timing_slice4(dev, chains, scat, rel))
+    ms_2d, pairs_2d = phase_timing_2d(dev, parts)
+    ms.update(ms_2d)
+    ms.update(phase_timing_slice4(dev, chains, scat, rel, pairs_2d))
     phase_timing_relabeled(dev, fem, scat, spmm)
     p_launches, p_errs, p_ms = phase_probes(
         dev, ms["tr_spmv_chain"]["barrier_floor_ms"])
     launches.update(p_launches)
     errs.update(p_errs)
     ms.update(p_ms)
+    print(f"[8, 12 relayout] tile_relayout at R={rel[1]} "
+          f"{ms['tile_relayout']['ms'] * 1e3:.2f} us warm (bound "
+          f"{ms['tile_relayout']['bound_ms'] * 1e3:.2f} us) beside the launch "
+          f"probe's floor, one add_one launch, {ms['add_one']['ms'] * 1e3:.2f} us",
+          flush=True)
+
+    phase_semiring(dev, flag)
+    reset_launches()
+    mdl, mdl2, _ = phase_autotune(dev, flag)
+    tuned = {k.__name__: k.launches for k in KERNELS if k.launches}
+    check(tuned.get("tr_spmv", 0) + tuned.get("tr_spmv_scatter", 0) > 0
+          and tuned.get("tr_spmv_2d", 0) + tuned.get("tr_spmv", 0) > 0,
+          f"the autotuner did not time the routed kernels: {tuned}")
+    reset_launches()
+    phase_table(dev, flag, mdl, mdl2)
+    tabled = {k.__name__: k.launches for k in KERNELS if k.launches}
+    check(tabled.get("tr_spmv", 0) + tabled.get("tr_spmv_scatter", 0)
+          + tabled.get("tr_spmv_2d", 0) > 0,
+          f"the method table did not run the routed kernels: {tabled}")
+    print(f"[14-15 launches] autotune {tuned}; method table {tabled}", flush=True)
     check("jax" not in sys.modules, "the port loaded JAX")
     meta = [
         ("tr_spmv_stripe", "tr_spmv", "trspmv.cu",

@@ -336,9 +336,11 @@ def test_operator_2d_on_card(plan, cuda_device):
     X = rng.standard_normal((A.shape[1], 32)).astype(np.float32)
     xt, yt, Xt = (torch.from_numpy(a).to(cuda_device) for a in (x, y, X))
     A64 = A.astype(np.float64)
-    before = vt.tr_spmv_2d.launches
+    kernel = vt.tr_spmv_2d if op.route_tr[0] == "tile2d" else vt.tr_spmv
+    assert op.route_tr[0] == ("tile2d" if vt.tile2d_worthwhile(op.host_tr) else "view")
+    before = kernel.launches
     got = op.tr_mul(xt, 0.5, 0.25, yt)
-    assert vt.tr_spmv_2d.launches == before + 1
+    assert kernel.launches == before + 1
     assert rel_err(got, torch.from_numpy(0.5 * (A64.T @ x) + 0.25 * y)) <= TOL
     assert rel_err(op.mul(yt), torch.from_numpy(A64 @ y)) <= TOL
     assert rel_err(op.tr_mul_mat(Xt[: A.shape[0]].contiguous()),
@@ -580,15 +582,15 @@ def test_tr_spmv_scatter_basis_vectors_exact(cuda_device):
 
 @pytest.mark.parametrize("case", ["fem", "scattered"])
 def test_operator_natural_views_on_card(case, cuda_device):
-    """The auto-RCM FEM (stripe route) and scattered (scatter route)
-    operators: every call one launch of its kernel through col_out, each
-    kernel against its plain version on the natural views, no gather."""
+    """The auto-RCM FEM (mean stripe width 1.99) and scattered operators,
+    both on the scatter route: every call one launch of its kernel through
+    col_out, each kernel against its plain version on the natural views,
+    no gather."""
     A = (fem_matrix(k=160) if case == "fem" else scattered_matrix()).astype(np.float32)
     op = vt.VBCOperator.from_csc(A, W=8, reorder="auto", device=cuda_device)
     assert op.row_perm is not None
-    route = "stripe" if case == "fem" else "scatter"
-    assert op.route_tr[0] == op.route_fw[0] == route
-    kernel = vt.tr_spmv if case == "fem" else vt.tr_spmv_scatter
+    assert op.route_tr[0] == op.route_fw[0] == "scatter"
+    kernel = vt.tr_spmv_scatter
     n = A.shape[0]
     g = torch.Generator(device=cuda_device).manual_seed(5)
     x = torch.randn(n, device=cuda_device, generator=g)
@@ -638,9 +640,16 @@ def test_operator_scatter_route_on_card(reorder, cuda_device):
     assert rel_err(got, torch.from_numpy(want)) <= TOL
 
 
-@pytest.mark.parametrize("R, m", [(1, 1000), (3, 3000), (8, 8192), (313, 320_000)])
-def test_tile_relayout_kernel_bitwise(R, m, cuda_device):
-    x = torch.randn(m, device=cuda_device)
+@pytest.mark.parametrize("R, m", [(1, 1000), (3, 3000), (8, 8192), (313, 320_000),
+                                  (313, 313 * 1024 - 3), (5, 4099)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_tile_relayout_kernel_bitwise(R, m, aligned, cuda_device):
+    """Every size against the plain version, bitwise: m % 4 != 0 ends x
+    inside a 16-byte vector (the scalar tail), and an x 4 bytes past a
+    16-byte boundary takes the scalar path throughout."""
+    x = torch.randn(m + 1, device=cuda_device)
+    x = x[:m] if aligned else x[1:]
+    assert (x.data_ptr() % 16 == 0) == aligned
     before = vt.tile_relayout.launches
     got = vt.tile_relayout(x, R)
     assert vt.tile_relayout.launches == before + 1
@@ -770,3 +779,71 @@ def test_probe_spmm4_fma_kernel_matches_plain(cuda_device):
     assert got.shape == (157 * 2048, 128) and torch.isfinite(got).all()
     assert rel_err(got, want) <= TOL
     assert rel_err(probe_spmm4.fma_library(inp.Xg, inp.Vl), want) <= TOL
+
+
+# ---- the non-f32 routes, the CSC baseline and the autotuner on the card
+
+@pytest.mark.parametrize("shape", ["1d", "2d"])
+@pytest.mark.parametrize("dtype", ["float64", "int32", "bool"])
+def test_semiring_routes_on_card(dtype, shape, cuda_device):
+    """A non-f32 matrix runs ``ops/semiring.py`` on CUDA tensors (no
+    kernel launch): f64 within 1e-12 of scipy's f64 product, int32 and
+    bool matrices exact with an int32 x."""
+    A = blocky_matrix(L=512).astype(np.float64)
+    if dtype != "float64":
+        A = (A != 0) if dtype == "bool" else A.astype(np.int32)
+        A.data = np.ones_like(A.data) if dtype == "bool" else (
+            np.random.default_rng(3).integers(-4, 5, A.nnz).astype(np.int32))
+    A = sp.csc_matrix(A)
+    op = (vt.VBCOperator.from_csc(A, W=8, device=cuda_device) if shape == "1d"
+          else vt.VBC2DOperator.from_csc(A, 4, 8, device=cuda_device))
+    rng = np.random.default_rng(4)
+    m, n = A.shape
+    if dtype == "float64":
+        x, X = rng.standard_normal(m), rng.standard_normal((m, 5))
+    else:
+        x = rng.integers(-4, 5, m).astype(np.int32)
+        X = rng.integers(-4, 5, (m, 5)).astype(np.int32)
+    launched = vt.tr_spmv.launches + vt.tr_spmv_2d.launches + vt.tr_spmm.launches
+    y = op.tr_mul(torch.from_numpy(x).to(cuda_device))
+    Y = op.tr_mul_mat(torch.from_numpy(X).to(cuda_device))
+    assert vt.tr_spmv.launches + vt.tr_spmv_2d.launches + vt.tr_spmm.launches == launched
+    Ai = A.astype(np.float64 if dtype == "float64" else np.int64)
+    for got, want in ((y, Ai.T @ x), (Y, Ai.T @ X)):
+        assert got.device.type == "cuda" and got.dtype == torch.from_numpy(x).dtype
+        if dtype == "float64":
+            np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-12,
+                                       atol=1e-12 * np.abs(want).max())
+        else:
+            np.testing.assert_array_equal(got.cpu().numpy().astype(np.int64), want)
+
+
+def test_csc_baseline_on_card(cuda_device):
+    A = blocky_matrix(L=512)
+    C = vt.CSC.from_scipy(A)
+    x = np.random.default_rng(5).standard_normal(A.shape[0])
+    for dtype in (np.float32, np.float64):
+        cdev = vt.CSCDevice.from_host(C, dtype=dtype, device=cuda_device)
+        xt = torch.from_numpy(x.astype(dtype)).to(cuda_device)
+        for got, want in ((vt.csc_tr_spmv(cdev, xt), A.T.astype(np.float64) @ x),
+                          (vt.csc_spmv(cdev, xt[: A.shape[1]]),
+                           A.astype(np.float64) @ x[: A.shape[1]])):
+            assert got.dtype == xt.dtype
+            tol = 2e-5 if dtype == np.float32 else 1e-12
+            assert rel_err(got, torch.from_numpy(want)) <= tol
+
+
+def test_autotune_sample_on_card(cuda_device):
+    """One timed sample of each autotuner, through the routes ``tr_mul``
+    takes: a plausible positive time (at least the card's bound)."""
+    from vbcs_tpu_torch.models import autotune as at
+
+    B = vt.vbc1d(at._synth(2048, 4, 8, 400, seed=1), 8, vt.EquiChunker(4))
+    t, name = at._measure_shipped(B, cuda_device)
+    assert name == vt.route_tr_spmv(B, cuda_device)[0] and t is not None and t > 0
+    A2 = at._synth2d(2048, 4, 1024, 8, 8, 400, seed=2)
+    B2 = vt.vbc2d(A2, 8, 8, (vt.SplitPartition.equi(A2.shape[0], 4),
+                              vt.SplitPartition.equi(A2.shape[1], 8)))
+    t2, name2 = at._measure_shipped_2d(B2, cuda_device)
+    assert name2 == "tile2d" and t2 is not None and t2 > 0
+

@@ -137,9 +137,9 @@ def test_reorder_always_small_grid():
 def test_route_and_from_host():
     A = matrix("HB/can_292")
     x = np.random.default_rng(2).standard_normal(A.shape[0]).astype(np.float32)
-    # the default plan (mean stripe width 1.97, past the guard), 8-wide
-    # stripes, and an unblocked (width-1) plan of the same matrix
-    for method, want in ((None, "stripe"), (v.EquiChunker(8), "stripe"),
+    # the default plan (mean stripe width 1.97, within the guard's 2.0),
+    # 8-wide stripes, and an unblocked (width-1) plan of the same matrix
+    for method, want in ((None, "scatter"), (v.EquiChunker(8), "stripe"),
                          (v.EquiChunker(1), "scatter")):
         Bm = v.vbc1d(A, 8, method)
         width = float(np.diff(Bm.Phi.spl).mean())
@@ -157,8 +157,14 @@ def test_route_and_from_host():
 
 def test_refusals():
     A = matrix("HB/can_292")
-    with pytest.raises(NotImplementedError):
-        vt.VBCOperator.from_csc(A.astype(np.float64), device="cpu")
+    # an f64 matrix takes the semiring route (no f32 kernel formats); a
+    # bool x is refused there, as JAX's segment_sum refuses it
+    op64 = vt.VBCOperator.from_csc(A.astype(np.float64), device="cpu")
+    assert op64.dev_tr is None and op64.dev_fw is None
+    with pytest.raises(TypeError):
+        op64.tr_mul(torch.zeros(A.shape[0], dtype=torch.bool))
+    with pytest.raises(TypeError):
+        op64.route_tr  # the kernels' route is for f32 matrices
     with pytest.raises(TypeError):
         vt.VBCOperator.from_csc(A)  # no implicit device
     op = vt.VBCOperator.from_csc(A[:, :200].tocsc(), device="cpu")

@@ -198,11 +198,14 @@ def test_refusals():
             vt.VBC2DOperator.from_csc(A, U, W, device="cpu")
     with pytest.raises(ValueError):
         vt.VBC2DOperator.from_csc(A, 4, 4, directions="sideways", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vt.VBC2DOperator.from_csc(A.astype(np.float64), 4, 4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        vt.VBC2DOperator.from_host(v.vbc2d(A.astype(np.float64), 4, 4), None,
-                                   "cpu")
+    # f64 packs take the semiring route: no f32 kernel formats, and a
+    # bool x is refused there
+    for op64 in (vt.VBC2DOperator.from_csc(A.astype(np.float64), 4, 4, device="cpu"),
+                 vt.VBC2DOperator.from_host(v.vbc2d(A.astype(np.float64), 4, 4),
+                                            None, "cpu")):
+        assert op64.dev_tr is None and op64.dev_fw is None
+        with pytest.raises(TypeError):
+            op64.tr_mul(torch.zeros(30, dtype=torch.bool))
     with pytest.raises(TypeError):
         vt.VBC2DOperator.from_csc(A, 4, 4)  # no implicit device
     with pytest.raises(ValueError):
@@ -222,5 +225,6 @@ def test_refusals():
     assert op.mul(torch.zeros(20)).shape == (30,)
     with pytest.raises(ValueError):
         op.mul(torch.zeros(21))
-    with pytest.raises(TypeError):
-        op.mul(torch.zeros(20, dtype=torch.float64))
+    assert op.mul(torch.zeros(20, dtype=torch.float64)).dtype == torch.float64
+    with pytest.raises(TypeError):  # the semiring route refuses a bool x
+        op.mul(torch.zeros(20, dtype=torch.bool))

@@ -138,6 +138,6 @@ def test_refusals():
     for bad in (torch.zeros(op.m + 1, 2), torch.zeros(op.m)):
         with pytest.raises(ValueError):
             op.tr_mul_mat(bad)
-    with pytest.raises(TypeError):
-        op.mul_mat(torch.zeros(op.n, 2, dtype=torch.float64))
+    with pytest.raises(TypeError):  # the semiring route refuses a bool X
+        op.mul_mat(torch.zeros(op.n, 2, dtype=torch.bool))
     assert op.tr_mul_mat(torch.zeros(op.m, 0)).shape == (op.n, 0)

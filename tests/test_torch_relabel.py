@@ -145,16 +145,24 @@ def test_relabeled_call(case, fn):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_routes_take_natural_views(case):
+    """Both routes' formats are natural views (``col_out = perm``): the
+    FEM's stripes of ~1.98 take the scatter route; the SpMM's stripe
+    views (``nat_tr``/``nat_fw``) share all but ``idx`` and ``col_out``
+    with the relabeled packs."""
     _, opt, _, _ = operators(case)
-    for route, nat, pack in ((opt.route_tr, opt.nat_tr, opt.dev_tr),
-                             (opt.route_fw, opt.nat_fw, opt.dev_fw)):
+    for route, nat, pack, host in ((opt.route_tr, opt.nat_tr, opt.dev_tr, opt.host_tr),
+                                   (opt.route_fw, opt.nat_fw, opt.dev_fw, opt.host_fw)):
         name, fmt, _ = route
-        assert name == "stripe" and fmt is nat
-        assert torch.equal(fmt.col_out, opt.perm_t) and pack.col_out is None
-        # only idx and col_out are the view's own
+        assert name == "scatter" and isinstance(fmt, vt.ScatterDevice)
+        relabeled = vt.ScatterDevice.from_host(host, "cpu")
+        assert torch.equal(fmt.col_out, opt.perm_t) and relabeled.col_out is None
+        assert torch.equal(fmt.row, opt.perm_t.long()[relabeled.row.long()].int())
+        assert torch.equal(fmt.colptr, relabeled.colptr)
+        assert torch.equal(nat.col_out, opt.perm_t) and pack.col_out is None
+        # only idx and col_out are the stripe view's own
         for f in ("spl", "pos", "ofs", "val", "col_stripe"):
-            assert getattr(fmt, f) is getattr(pack, f)
-        assert fmt.nbytes - pack.nbytes == 4 * fmt.n
+            assert getattr(nat, f) is getattr(pack, f)
+        assert nat.nbytes - pack.nbytes == 4 * nat.n
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -177,17 +177,19 @@ def test_operator_routes_scatter_as_jax():
 
 
 def test_route_keeps_blocked_packs_on_the_stripe_kernel():
-    """Width 8, and the relabeled FEM's stripes of ~2: the stripe kernel
-    (the faster of the two on an H100 at both)."""
-    B = pack(blocky(), method=v.EquiChunker(8))
-    name, fmt, call = vt.route_tr_spmv(B, "cpu")
-    assert name == "stripe" and call is vt.tr_spmv
-    assert isinstance(fmt, vt.VBC1DDevice)
+    """Widths 8 and 3 stay on the stripe kernel; the relabeled FEM's
+    stripes of ~1.98 are within the guard's 2.0 and take the scatter
+    kernel (the faster of the two on an H100 at 1.99, PERF.md)."""
+    for w in (8, 3):
+        B = pack(blocky(), method=v.EquiChunker(w))
+        name, fmt, call = vt.route_tr_spmv(B, "cpu")
+        assert name == "stripe" and call is vt.tr_spmv
+        assert isinstance(fmt, vt.VBC1DDevice)
     op = vt.VBCOperator.from_csc(fem_matrix(k=80).astype(np.float32), W=8,
                                  device="cpu")
     assert op.row_perm is not None
-    assert np.diff(op.host_tr.Phi.spl).mean() > pst.MAX_MEAN_WIDTH
-    assert op.route_tr[0] == op.route_fw[0] == "stripe"
+    assert 1.5 < np.diff(op.host_tr.Phi.spl).mean() < pst.MAX_MEAN_WIDTH
+    assert op.route_tr[0] == op.route_fw[0] == "scatter"
 
 
 @pytest.mark.parametrize("reorder", ["never", "auto"])

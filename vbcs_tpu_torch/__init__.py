@@ -6,19 +6,24 @@ there:
 
 * ``formats``  — CSC ingest, the host ``VBC1D``/``VBC2D`` (exact NumPy
   oracles), and ``VBC1DDevice``/``VBC2DDevice``/``ScatterDevice``, their
-  arrays on a torch device;
+  arrays on a torch device, with ``SemiringDevice``, a pack's stored
+  values flat in any dtype;
 * ``plan``     — chunkers, the ``DynamicTotalChunker`` optimal DP, the
   ``AlternatingPacker`` 2-D planner, symmetric RCM and its locality
   estimate;
-* ``models``   — the 1-D and 2-D cost models;
+* ``models``   — the 1-D and 2-D cost models and the autotuned time
+  models, fit on the card;
 * ``ops``      — the hand-written CUDA kernels (``csrc/``) with their
-  plain PyTorch versions;
+  plain PyTorch versions, the semiring SpMV/SpMM in any dtype and the
+  CSC baseline;
 * ``native``   — ctypes bindings to the C++ host paths (the port's own
   copy of the JAX package's source);
 * ``operator`` — ``VBCOperator`` (``tr_mul``/``mul``, ``tr_mul_chain``,
   ``tr_mul_mat``/``mul_mat``) and ``VBC2DOperator``;
 * ``probes``   — micro-probes of the kernels on the card (ports of
   ``bench_tools/probe_*.py``, each on a kernel of its own);
+* ``tools``    — the method table (``python -m
+  vbcs_tpu_torch.tools.method_table``);
 * ``utils``    — CUDA-event timing and the roofline and trace helpers.
 
 Importing this package loads no JAX.  Devices are never picked
@@ -27,7 +32,7 @@ implicitly: every constructor that places tensors takes ``device``.
 
 from .api import default_1d_partitioner, default_2d_partitioner, vbc1d, vbc2d
 from .formats.csc import CSC
-from .formats.device import ScatterDevice, VBC1DDevice, VBC2DDevice
+from .formats.device import ScatterDevice, SemiringDevice, VBC1DDevice, VBC2DDevice
 from .formats.partition import MapPartition, SplitPartition
 from .formats.vbc1d import VBC1D, pack_1dvbc
 from .formats.vbc2d import VBC2D, pack_vbc2d
@@ -46,7 +51,21 @@ from .models.cost import (
     row_component_value,
     total_value,
 )
-from .operator import VBC2DOperator, VBCOperator, route_tr_spmv, route_tr_spmv_2d
+from .models.autotune import (
+    autotune_1dvbc_trspmv,
+    autotune_vbc_trspmv,
+    model_1dvbc_trspmv_time,
+    model_vbc_trspmv_time,
+)
+from .operator import (
+    VBC2DOperator,
+    VBCOperator,
+    mean_tile_height,
+    route_tr_spmv,
+    route_tr_spmv_2d,
+    tile2d_worthwhile,
+)
+from .ops.csr import CSCDevice, csc_spmv, csc_tr_spmv
 from .ops.chain import tr_spmv_chain, tr_spmv_chain_plain
 from .ops.gather import gather, gather_plain
 from .ops.relayout import tile_relayout, tile_relayout_plain

@@ -33,7 +33,12 @@ __all__ = [
 def default_1d_partitioner(W: int, val_itemsize: int = 8, idx_itemsize: int = 8):
     """Min-memory DP (reference ``default_partitioner`` at
     ``src/constructors_1DVBC.jl:1-2``, which also defaults to its MEMORY
-    model)."""
+    model; the autotuned min-time model is a harness-level choice there,
+    ``bin/test_table.jl:50-52``, and here:
+    ``DynamicTotalChunker(model_1dvbc_trspmv_time(W, device="cuda"), W)``,
+    loadable cache-only with ``require_cache=True``; the method table,
+    ``python -m vbcs_tpu_torch.tools.method_table``, sets the two plans
+    side by side on the card)."""
     return DynamicTotalChunker(model_1dvbc_memory(val_itemsize, idx_itemsize), W)
 
 

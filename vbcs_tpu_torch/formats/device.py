@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 __all__ = ["VBC1DDevice", "VBC2DDevice", "ScatterDevice", "ScatterTiles",
-           "SCATTER_LANE_ENTRIES", "SCATTER_TILE"]
+           "SemiringDevice", "SCATTER_LANE_ENTRIES", "SCATTER_TILE"]
 
 _I32_MAX = np.iinfo(np.int32).max
 
@@ -90,6 +90,22 @@ def _vbc1d_arrays(host):
     return m, n, spl, pos, idx, ofs, val
 
 
+def _coords_1d(spl, pos, idx, ofs, nvals: int):
+    """(row, col) of every stored value of a 1D-VBC, int64, from its
+    ``spl``/``pos``/``idx``/``ofs`` as tensors on one device."""
+    dev = spl.device
+    L = spl.numel() - 1
+    widths = (spl[1:] - spl[:-1]).long()
+    nblk = (pos[1:] - pos[:-1]).long()
+    stripe = torch.repeat_interleave(
+        torch.arange(L, device=dev), nblk * widths, output_size=nvals)
+    local = torch.arange(nvals, device=dev) - ofs[stripe].long()
+    w = widths[stripe]
+    blk = pos[stripe].long() + torch.div(local, w, rounding_mode="floor")
+    col = spl[stripe].long() + local % w
+    return idx[blk].long(), col
+
+
 @dataclasses.dataclass(frozen=True)
 class VBC1DDevice:
     m: int
@@ -130,12 +146,12 @@ class VBC1DDevice:
 
     @staticmethod
     def from_host(host, device) -> "VBC1DDevice":
-        """Copy a host 1D-VBC to ``device``.
+        """Copy a host 1D-VBC to ``device``, its values as f32.
 
         ``host`` is any object with ``m, n, W, Phi.spl, pos, idx, ofs,
         val`` as NumPy arrays: this port's ``VBC1D`` or the JAX
-        package's, so both packages can run the same pack.  Values are
-        stored as f32.  Raises ``ValueError`` on an inconsistent pack or
+        package's, so both packages can run the same pack.  Raises
+        ``ValueError`` on an inconsistent pack or
         on an index that does not fit in int32 (the kernel does no bounds
         checks of its own)."""
         m, n, spl, pos, idx, ofs, val = _vbc1d_arrays(host)
@@ -149,8 +165,7 @@ class VBC1DDevice:
             pos=_i32(pos, "pos", device),
             idx=_i32(idx, "idx", device),
             ofs=_i32(ofs, "ofs", device),
-            val=torch.from_numpy(
-                np.ascontiguousarray(val, dtype=np.float32)).to(device),
+            val=torch.from_numpy(np.ascontiguousarray(val, dtype=np.float32)).to(device),
             col_stripe=_i32(col_stripe, "col_stripe", device),
         )
 
@@ -159,18 +174,8 @@ class VBC1DDevice:
         """(row, col) of every stored value, int64 — the index form the
         plain PyTorch TrSpMV uses (computed once per format); natural
         coordinates on a natural view."""
-        dev = self.device
-        L = self.L
-        widths = (self.spl[1:] - self.spl[:-1]).long()
-        nblk = (self.pos[1:] - self.pos[:-1]).long()
-        stripe = torch.repeat_interleave(
-            torch.arange(L, device=dev), nblk * widths,
-            output_size=self.val.numel())
-        local = torch.arange(self.val.numel(), device=dev) - self.ofs[stripe].long()
-        w = widths[stripe]
-        blk = self.pos[stripe].long() + torch.div(local, w, rounding_mode="floor")
-        col = self.spl[stripe].long() + local % w
-        row = self.idx[blk].long()
+        row, col = _coords_1d(self.spl, self.pos, self.idx, self.ofs,
+                              self.val.numel())
         if self.col_out is not None:
             col = self.col_out.long()[col]
         return row, col
@@ -180,6 +185,70 @@ class VBC1DDevice:
         """The chain kernel's partitions of this pack, by (blocks, budget)
         (filled by ``ops.chain.chain_plan``)."""
         return {}
+
+
+def _vbc2d_arrays(host):
+    """``(m, n, rspl, spl, pos, idx, ofs, val)`` of a host 2-D VBC, the
+    index arrays as int64; raises ``ValueError`` on an inconsistent pack
+    (``diff(ofs)`` must be each stripe's sum of ``u_k * w_l`` over its
+    tiles), a row block out of range or dimensions beyond int32."""
+    rspl = np.asarray(host.Pi.spl, dtype=np.int64)
+    spl = np.asarray(host.Phi.spl, dtype=np.int64)
+    pos = np.asarray(host.pos, dtype=np.int64)
+    idx = np.asarray(host.idx, dtype=np.int64)
+    ofs = np.asarray(host.ofs, dtype=np.int64)
+    val = np.asarray(host.val)
+    K, L = rspl.size - 1, spl.size - 1
+    m, n = int(host.m), int(host.n)
+    heights, widths, ntile = np.diff(rspl), np.diff(spl), np.diff(pos)
+    if not (pos.size == ofs.size == L + 1 and spl[0] == 0 and spl[-1] == n
+            and rspl[0] == 0 and rspl[-1] == m and pos[0] == 0
+            and pos[-1] == idx.size and ofs[0] == 0
+            and ofs[-1] == val.size and np.all(widths >= 0)
+            and np.all(heights >= 0) and np.all(ntile >= 0)):
+        raise ValueError("inconsistent 2-D VBC pack")
+    if idx.size and (int(idx.min()) < 0 or int(idx.max()) >= K):
+        raise ValueError("row-block index out of range")
+    tile_vals = heights[idx] * np.repeat(widths, ntile)
+    cum = np.concatenate([[0], np.cumsum(tile_vals)])
+    if not np.array_equal(np.diff(ofs), cum[pos[1:]] - cum[pos[:-1]]):
+        raise ValueError("inconsistent 2-D VBC pack: stripe value counts "
+                         "are not the sums of their tiles' u * w")
+    if max(m, n) > _I32_MAX:
+        raise ValueError("matrix dimensions do not fit in int32")
+    return m, n, rspl, spl, pos, idx, ofs, val
+
+
+def _tile_places(rspl, spl, pos, idx):
+    """``(tile_row, tile_ofs)`` of a 2-D VBC's tiles, int64, from its
+    ``rspl``/``spl``/``pos``/``idx`` as tensors on one device: each tile's
+    first row and its value offset (``tile_ofs`` has one more entry, the
+    value count)."""
+    k = idx.long()
+    w_tile = torch.repeat_interleave(
+        (spl[1:] - spl[:-1]).long(), (pos[1:] - pos[:-1]).long(),
+        output_size=idx.numel())
+    tile_ofs = torch.zeros(idx.numel() + 1, dtype=torch.int64, device=idx.device)
+    torch.cumsum((rspl[k + 1] - rspl[k]).long() * w_tile, 0, out=tile_ofs[1:])
+    return rspl[k].long(), tile_ofs
+
+
+def _coords_2d(spl, pos, tile_row, tile_ofs, nvals: int):
+    """(row, col) of every stored value of a 2-D VBC, int64, from its
+    ``spl``/``pos`` and :func:`_tile_places` as tensors on one device."""
+    dev = spl.device
+    stripe = torch.repeat_interleave(
+        torch.arange(spl.numel() - 1, device=dev), (pos[1:] - pos[:-1]).long(),
+        output_size=tile_row.numel())
+    start = tile_ofs.long()
+    tile = torch.repeat_interleave(
+        torch.arange(tile_row.numel(), device=dev), start[1:] - start[:-1],
+        output_size=nvals)
+    local = torch.arange(nvals, device=dev) - start[tile]
+    wt = (spl[1:] - spl[:-1]).long()[stripe][tile]
+    row = tile_row.long()[tile] + torch.div(local, wt, rounding_mode="floor")
+    col = spl[stripe].long()[tile] + local % wt
+    return row, col
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,50 +288,21 @@ class VBC2DDevice:
 
     @staticmethod
     def from_host(host, device) -> "VBC2DDevice":
-        """Copy a host 2-D VBC to ``device``.
+        """Copy a host 2-D VBC to ``device``, its values as f32.
 
         ``host`` is any object with ``m, n, U, W, Pi.spl, Phi.spl, pos,
         idx, ofs, val`` as NumPy arrays: this port's ``VBC2D`` or the JAX
-        package's, so both packages can run the same pack.  Values are
-        stored as f32.  Raises ``ValueError`` on an inconsistent pack
-        (``diff(ofs)`` must be each stripe's sum of ``u_k * w_l`` over its
-        tiles) or on an index that does not fit in int32 (the kernel does
-        no bounds checks of its own)."""
-        rspl = np.asarray(host.Pi.spl, dtype=np.int64)
-        spl = np.asarray(host.Phi.spl, dtype=np.int64)
-        pos = np.asarray(host.pos, dtype=np.int64)
-        idx = np.asarray(host.idx, dtype=np.int64)
-        ofs = np.asarray(host.ofs, dtype=np.int64)
-        val = np.asarray(host.val)
-        K, L = rspl.size - 1, spl.size - 1
-        m, n = int(host.m), int(host.n)
-        heights, widths, ntile = np.diff(rspl), np.diff(spl), np.diff(pos)
-        if not (pos.size == ofs.size == L + 1 and spl[0] == 0 and spl[-1] == n
-                and rspl[0] == 0 and rspl[-1] == m and pos[0] == 0
-                and pos[-1] == idx.size and ofs[0] == 0
-                and ofs[-1] == val.size and np.all(widths >= 0)
-                and np.all(heights >= 0) and np.all(ntile >= 0)):
-            raise ValueError("inconsistent 2-D VBC pack")
-        if idx.size and (int(idx.min()) < 0 or int(idx.max()) >= K):
-            raise ValueError("row-block index out of range")
-        tile_vals = heights[idx] * np.repeat(widths, ntile)
-        cum = np.concatenate([[0], np.cumsum(tile_vals)])
-        if not np.array_equal(np.diff(ofs), cum[pos[1:]] - cum[pos[:-1]]):
-            raise ValueError("inconsistent 2-D VBC pack: stripe value counts "
-                             "are not the sums of their tiles' u * w")
-        if max(m, n) > _I32_MAX:
-            raise ValueError("matrix dimensions do not fit in int32")
+        package's, so both packages can run the same pack.  Raises
+        ``ValueError`` on an inconsistent pack (``diff(ofs)`` must be each
+        stripe's sum of ``u_k * w_l`` over its tiles) or on an index that
+        does not fit in int32 (the kernel does no bounds checks of its
+        own)."""
+        m, n, rspl, spl, pos, idx, ofs, val = _vbc2d_arrays(host)
         d_rspl = _i32(rspl, "Pi.spl", device)
         d_spl = _i32(spl, "Phi.spl", device)
         d_pos = _i32(pos, "pos", device)
         d_idx = _i32(idx, "idx", device)
-        k = d_idx.long()
-        w_tile = torch.repeat_interleave(
-            (d_spl[1:] - d_spl[:-1]).long(), (d_pos[1:] - d_pos[:-1]).long(),
-            output_size=idx.size)
-        tile_ofs = torch.zeros(idx.size + 1, dtype=torch.int64, device=device)
-        torch.cumsum((d_rspl[k + 1] - d_rspl[k]).long() * w_tile, 0,
-                     out=tile_ofs[1:])
+        tile_row, tile_ofs = _tile_places(d_rspl, d_spl, d_pos, d_idx)
         return VBC2DDevice(
             m=m,
             n=n,
@@ -273,11 +313,10 @@ class VBC2DDevice:
             pos=d_pos,
             idx=d_idx,
             ofs=_i32(ofs, "ofs", device),
-            val=torch.from_numpy(
-                np.ascontiguousarray(val, dtype=np.float32)).to(device),
-            col_stripe=_i32(np.repeat(np.arange(L), widths), "col_stripe",
-                            device),
-            tile_row=d_rspl[k],
+            val=torch.from_numpy(np.ascontiguousarray(val, dtype=np.float32)).to(device),
+            col_stripe=_i32(np.repeat(np.arange(spl.size - 1), np.diff(spl)),
+                            "col_stripe", device),
+            tile_row=tile_row.int(),
             tile_ofs=tile_ofs.int(),  # ends at ofs[-1] = val.size: fits int32
         )
 
@@ -294,23 +333,19 @@ class VBC2DDevice:
     def value_coords(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(row, col) of every stored value, int64 — the index form the
         plain PyTorch TrSpMV uses (computed once per format)."""
-        dev = self.device
-        stripe, _ = self._tiles()
-        start = self.tile_ofs.long()
-        tile = torch.repeat_interleave(
-            torch.arange(self.idx.numel(), device=dev), start[1:] - start[:-1],
-            output_size=self.val.numel())
-        local = torch.arange(self.val.numel(), device=dev) - start[tile]
-        wt = (self.spl[1:] - self.spl[:-1]).long()[stripe][tile]
-        row = (self.tile_row.long()[tile]
-               + torch.div(local, wt, rounding_mode="floor"))
-        col = self.spl[stripe].long()[tile] + local % wt
-        return row, col
+        return _coords_2d(self.spl, self.pos, self.tile_row, self.tile_ofs,
+                          self.val.numel())
 
     def view_1d(self) -> VBC1DDevice:
         """The 1-D view (``VBC2D.to_1d_view``) on the device: each u x w
         tile as u one-row blocks.  It shares ``val``, ``ofs``, ``spl`` and
-        ``col_stripe`` with this format; only ``pos`` and ``idx`` are new."""
+        ``col_stripe`` with this format; only ``pos`` and ``idx`` are new,
+        built once on first use (the view route of ``tr_mul`` and the
+        SpMM share them)."""
+        return self._view_1d
+
+    @functools.cached_property
+    def _view_1d(self) -> VBC1DDevice:
         dev = self.device
         stripe, u = self._tiles()
         rows = torch.zeros(self.L, dtype=torch.int64, device=dev)
@@ -498,3 +533,64 @@ class ScatterDevice:
         if self.col_out is not None:
             col = self.col_out.long()[col]
         return self.row.long(), col
+
+
+@dataclasses.dataclass(frozen=True)
+class SemiringDevice:
+    """Every stored value of a 1-D or 2-D VBC pack, the block fill
+    included, with its natural (row, column), flat on a torch device, in
+    the matrix's dtype or a given one: what ``ops/semiring.py`` reads for
+    any matrix or vector that is not f32 (f64, int32 and bool semirings).
+
+    Port of the JAX package's ``bin_vbc1d``/``bin_vbc2d`` formats, which
+    bin and pad the stripes into width classes only so that XLA sees
+    static shapes; PyTorch needs no binning.  The coordinates are the
+    f32 formats' :attr:`VBC1DDevice.value_coords` (or the 2-D ones), so a
+    value sits where the kernels' plain versions put it."""
+
+    m: int
+    n: int
+    row: torch.Tensor  # [stored] int64 row of each stored value
+    col: torch.Tensor  # [stored] int64 column of each stored value
+    val: torch.Tensor  # [stored] values, the matrix's dtype or the one given
+
+    @property
+    def device(self) -> torch.device:
+        return self.val.device
+
+    @property
+    def nbytes(self) -> int:
+        return _tensor_bytes(self.row, self.col, self.val)
+
+    @staticmethod
+    def from_host(host, dtype=None, *, device,
+                  perm: torch.Tensor | None = None) -> "SemiringDevice":
+        """Flatten a host ``VBC1D`` or ``VBC2D`` (this port's or the JAX
+        package's) onto ``device``, its values as ``dtype`` (default: the
+        pack's own).  ``perm`` (int32 on ``device``, 1-D packs only) says
+        that the pack holds ``A[perm][:, perm]``: the coordinates are then
+        those of ``A`` (its natural view's), so calls read natural x and
+        write natural y.  Raises ``ValueError`` on a pack the f32 formats
+        refuse."""
+        def dev(a):
+            return torch.from_numpy(a).to(device)
+
+        if hasattr(host, "Pi"):
+            if perm is not None:
+                raise ValueError("a relabeling applies to 1-D packs only")
+            m, n, rspl, spl, pos, idx, _, val = _vbc2d_arrays(host)
+            spl, pos = dev(spl), dev(pos)
+            row, col = _coords_2d(spl, pos, *_tile_places(dev(rspl), spl, pos,
+                                                          dev(idx)), val.size)
+        else:
+            m, n, spl, pos, idx, ofs, val = _vbc1d_arrays(host)
+            row, col = _coords_1d(dev(spl), dev(pos), dev(idx), dev(ofs), val.size)
+            if perm is not None:
+                _check_perm(perm, n, row.device)
+                if m != n:
+                    raise ValueError("a natural view needs a square pack in "
+                                     "relabeled order")
+                perm = perm.long()
+                row, col = perm[row], perm[col]
+        val = np.ascontiguousarray(val, dtype=np.dtype(dtype or val.dtype))
+        return SemiringDevice(m=m, n=n, row=row, col=col, val=dev(val))

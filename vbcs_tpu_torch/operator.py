@@ -1,6 +1,6 @@
 """VBCOperator and VBC2DOperator — the user-facing sparse operators.
 
-Port of ``vbcs_tpu/operator.py`` (f32).  ``from_csc``
+Port of ``vbcs_tpu/operator.py``.  ``from_csc``
 plans and packs ``A`` (and ``A.T``) on the host exactly as the JAX
 operator does — the min-memory DP, ``pack_1dvbc`` and the auto-RCM
 decision — then copies the packs to an explicit torch ``device``:
@@ -25,12 +25,21 @@ decision — then copies the packs to an explicit torch ``device``:
 
 ``VBC2DOperator.from_csc`` plans and packs the 2-D format (the
 alternating planner and ``pack_vbc2d``) of ``A`` and of ``A.T`` with U
-and W swapped; ``tr_mul``/``mul`` run the tile kernel
-(``ops/trspmv2d.py``) on those packs, ``tr_mul_mat``/``mul_mat`` the
-SpMM kernel on their 1-D views, as the JAX operator does.
+and W swapped; ``tr_mul``/``mul`` run the kernel
+:func:`route_tr_spmv_2d` picks for each pack — the tile kernel
+(``ops/trspmv2d.py``), or the stripe kernel on the pack's 1-D view where
+its tiles are mostly one row high (:func:`tile2d_worthwhile`) —
+``tr_mul_mat``/``mul_mat`` the SpMM kernel on the 1-D views, as the JAX
+operator does.
 
-Every kernel writes natural order, so nothing follows it.  f64, bool and
-int32 semirings wait (ROADMAP.md).
+Every kernel writes natural order, so nothing follows it.
+
+The kernels are the f32 path: an f32 matrix with an f32 ``x`` (the JAX
+operators' ``_pallas_ok``).  Every other pair — an f64, int32 or bool
+matrix, or an x of another dtype — runs ``ops/semiring.py`` in x's
+dtype on the pack's flat :class:`SemiringDevice` (natural coordinates
+on an auto-RCM operator), with alpha/beta/y applied after it as the JAX
+operators' ``_axpby`` does, on CPU and CUDA tensors alike.
 """
 
 from __future__ import annotations
@@ -43,8 +52,9 @@ import torch
 
 from .api import default_1d_partitioner, vbc2d
 from .formats.csc import CSC
-from .formats.device import VBC1DDevice, VBC2DDevice
+from .formats.device import SemiringDevice, VBC1DDevice, VBC2DDevice
 from .formats.vbc1d import VBC1D, pack_1dvbc
+from .ops import semiring
 from .ops.chain import tr_spmv_chain
 from .ops.gather import gather
 from .ops.scatter import pack_scatter, scatter_admits, tr_spmv_scatter
@@ -54,9 +64,13 @@ from .ops.trspmv2d import tr_spmv_2d
 from .plan.alternating import pack_stripe
 from .plan.reorder import rcm_symmetric, window_badness
 
-__all__ = ["VBCOperator", "VBC2DOperator", "route_tr_spmv", "route_tr_spmv_2d"]
+__all__ = ["VBCOperator", "VBC2DOperator", "route_tr_spmv", "route_tr_spmv_2d",
+           "mean_tile_height", "tile2d_worthwhile", "TILE2D_MIN_HEIGHT"]
 
-_WAITS = "is not ported yet; see ROADMAP.md, queue 1"
+# The 2-D route's one threshold: a pack whose stored values sit in tiles
+# at least this tall on average runs the tile kernel, a flatter one the
+# stripe kernel on its 1-D view (GUARD 2-D data on an H100, PERF.md).
+TILE2D_MIN_HEIGHT = 2.0
 
 
 def route_tr_spmv(B, device, stripe: VBC1DDevice | None = None,
@@ -87,22 +101,64 @@ def route_tr_spmv(B, device, stripe: VBC1DDevice | None = None,
     return "stripe", stripe, tr_spmv
 
 
-def route_tr_spmv_2d(B2, device):
+def mean_tile_height(B2) -> float:
+    """The mean, over a 2-D pack's stored values, of the height of the
+    tile that holds each: ``sum(u^2 w) / sum(u w)`` over its tiles (0 for
+    a pack with no stored value)."""
+    u = np.diff(np.asarray(B2.Pi.spl, dtype=np.int64))[np.asarray(B2.idx)]
+    w = np.repeat(np.diff(np.asarray(B2.Phi.spl, dtype=np.int64)),
+                  np.diff(np.asarray(B2.pos, dtype=np.int64)))
+    stored = int((u * w).sum())
+    return float((u * u * w).sum()) / stored if stored else 0.0
+
+
+def tile2d_worthwhile(B2) -> bool:
+    """The single source of truth for the 2-D route, which both
+    :func:`route_tr_spmv_2d` and :class:`VBC2DOperator` ask (so the
+    autotuner times the kernel ``tr_mul`` runs): the tile kernel when the
+    pack's :func:`mean_tile_height` is at least :data:`TILE2D_MIN_HEIGHT`,
+    else the stripe kernel on the 1-D view, which reads 4 bytes a block
+    row where the tile format reads 8 a one-row tile.  The JAX package's
+    guard (``_v3_view_worthwhile``) compares Mosaic exit plans the port
+    does not have; this one is a statistic of the pack."""
+    return mean_tile_height(B2) >= TILE2D_MIN_HEIGHT
+
+
+def route_tr_spmv_2d(B2, device, fmt: VBC2DDevice | None = None):
     """The per-call TrSpMV kernel :meth:`VBC2DOperator.tr_mul` runs for a
-    packed f32 2-D format ``B2`` — ``(name, fmt, call)``.  The port has
-    one route: the tile kernel reads each tile's height, so it takes
-    uniform and mixed-height stripes alike.  The JAX package's guard
-    between its 1-D view and its 2-D kernel (``_v3_view_worthwhile``)
-    compares Mosaic exit plans the port does not have."""
-    return "tile2d", VBC2DDevice.from_host(B2, device), tr_spmv_2d
+    packed f32 2-D format ``B2`` — ``(name, fmt, call)`` with
+    ``call(fmt, x, alpha, beta, y) -> y``: ``"tile2d"`` (the tile kernel)
+    when :func:`tile2d_worthwhile`, else ``"view"`` (the stripe kernel on
+    the pack's 1-D view, alpha/beta/y fused).  ``fmt`` is ``B2`` already
+    on ``device``, reused instead of a second copy."""
+    if fmt is None:
+        fmt = VBC2DDevice.from_host(B2, device)
+    if tile2d_worthwhile(B2):
+        return "tile2d", fmt, tr_spmv_2d
+    return "view", fmt.view_1d(), tr_spmv
 
 
-def _check_f32(*hosts) -> None:
-    for h in hosts:
-        if h is not None and np.asarray(h.val).dtype != np.float32:
-            raise NotImplementedError(
-                f"the port runs float32 matrices only, got "
-                f"{np.asarray(h.val).dtype}; other semirings {_WAITS} item 3")
+def _times(t: torch.Tensor, s):
+    """``t * s`` as JAX promotes it with 64-bit types on: an integer
+    tensor times a Python float is f64."""
+    if isinstance(s, float) and not t.is_floating_point():
+        t = t.double()
+    return t * s
+
+
+def _axpby(out, alpha, beta, y):
+    """alpha*out + beta*y on the semiring route, as the JAX operators'
+    ``_axpby`` applies it after their XLA kernels."""
+    if alpha is not None:
+        out = _times(out, alpha)
+    if y is not None and beta is not None:
+        semiring.check_operand("y", y, out.shape[0], out.device, 1)
+        out = out + _times(y, beta)
+    return out
+
+
+def _is_f32(host) -> bool:
+    return np.asarray(host.val).dtype == np.float32
 
 
 def _as_csc(A) -> CSC:
@@ -111,11 +167,10 @@ def _as_csc(A) -> CSC:
 
 def _shape_of(host_tr, host_fw) -> tuple[int, int]:
     """(m, n) of the operator over the packs of A and of A.T (either may
-    be None); refuses non-f32 packs and a pair that do not transpose."""
+    be None); refuses a pair that do not transpose."""
     host = host_tr if host_tr is not None else host_fw
     if host is None:
         raise ValueError("need at least one of host_tr and host_fw")
-    _check_f32(host_tr, host_fw)
     m, n = (host.m, host.n) if host is host_tr else (host.n, host.m)
     if host_tr is not None and host_fw is not None and (
             host_fw.m, host_fw.n) != (n, m):
@@ -123,8 +178,62 @@ def _shape_of(host_tr, host_fw) -> tuple[int, int]:
     return int(m), int(n)
 
 
+class _Directions:
+    """What both operators share: a pack of each direction on the host,
+    the kernels' f32 formats of those packs (None for a non-f32 matrix)
+    and, built on first use, their flat semiring formats."""
+
+    def _host(self, which: str):
+        host = self.host_tr if which == "tr" else self.host_fw
+        if host is None:
+            name = "transposed" if which == "tr" else "forward"
+            raise ValueError(f"operator packed without the {name} direction")
+        return host
+
+    def _packed(self, which: str):
+        """The kernels' format of one direction: ``ValueError`` when that
+        direction was not packed, ``TypeError`` for a non-f32 matrix
+        (whose calls take the semiring route)."""
+        host = self._host(which)
+        fmt = self.dev_tr if which == "tr" else self.dev_fw
+        if fmt is None:
+            raise TypeError(f"the kernels run float32 matrices, this one is "
+                            f"{np.asarray(host.val).dtype}")
+        return fmt
+
+    def _kernels_take(self, x) -> bool:
+        """The JAX operators' ``_pallas_ok``: the kernels take an f32
+        matrix with an f32 ``x``; every other pair runs the semiring
+        route in x's dtype."""
+        host = self.host_tr if self.host_tr is not None else self.host_fw
+        return (_is_f32(host) and isinstance(x, torch.Tensor)
+                and x.dtype == torch.float32)
+
+    @functools.cached_property
+    def semi_tr(self) -> SemiringDevice:
+        """The A pack flat for ``ops/semiring.py``, in the matrix's dtype
+        and natural coordinates (built on first use)."""
+        return SemiringDevice.from_host(self._host("tr"), device=self.device,
+                                        perm=getattr(self, "perm_t", None))
+
+    @functools.cached_property
+    def semi_fw(self) -> SemiringDevice:
+        """The A.T pack flat for ``ops/semiring.py`` (see :attr:`semi_tr`)."""
+        return SemiringDevice.from_host(self._host("fw"), device=self.device,
+                                        perm=getattr(self, "perm_t", None))
+
+    def _apply(self, which, x, alpha, beta, y):
+        """``tr_mul``/``mul`` of one direction: the routed kernel with
+        alpha/beta fused, or the semiring route and ``_axpby``."""
+        if not self._kernels_take(x):
+            out = semiring.tr_spmv(getattr(self, f"semi_{which}"), x)
+            return _axpby(out, alpha, beta, y)
+        _, fmt, call = getattr(self, f"route_{which}")
+        return call(fmt, x, alpha, beta, y)
+
+
 @dataclasses.dataclass(frozen=True)
-class VBCOperator:
+class VBCOperator(_Directions):
     """Sparse matrix operator in 1D-VBC form on one torch device."""
 
     m: int
@@ -167,7 +276,6 @@ class VBCOperator:
         if reorder not in ("auto", "always", "never"):
             raise ValueError(f"unknown reorder {reorder!r}")
         A = _as_csc(A)
-        _check_f32(A)
         method = method or default_1d_partitioner(W, A.val.dtype.itemsize)
         method_forward = method_forward or method
 
@@ -199,7 +307,8 @@ class VBCOperator:
         """Operator over existing packs (this port's or the JAX package's
         ``VBC1D``): ``host_tr`` packs A, ``host_fw`` packs A.T, either may
         be None; ``row_perm`` is the symmetric relabeling the packs were
-        built under, or None."""
+        built under, or None.  The kernels' formats are copied for an f32
+        matrix only."""
         device = torch.device(device)
         m, n = _shape_of(host_tr, host_fw)
         perm_t = inv_t = None
@@ -212,11 +321,14 @@ class VBCOperator:
             inv[row_perm] = np.arange(m)
             perm_t = torch.from_numpy(row_perm.astype(np.int32)).to(device)
             inv_t = torch.from_numpy(inv.astype(np.int32)).to(device)
+
+        def copy(host):
+            return (VBC1DDevice.from_host(host, device)
+                    if host is not None and _is_f32(host) else None)
+
         return VBCOperator(
-            m=m, n=n, host_tr=host_tr, host_fw=host_fw,
-            device=device,
-            dev_tr=None if host_tr is None else VBC1DDevice.from_host(host_tr, device),
-            dev_fw=None if host_fw is None else VBC1DDevice.from_host(host_fw, device),
+            m=m, n=n, host_tr=host_tr, host_fw=host_fw, device=device,
+            dev_tr=copy(host_tr), dev_fw=copy(host_fw),
             row_perm=row_perm, perm_t=perm_t, inv_t=inv_t,
         )
 
@@ -234,13 +346,6 @@ class VBCOperator:
 
     # ---- compute ---------------------------------------------------------
 
-    def _packed(self, which: str) -> VBC1DDevice:
-        fmt = self.dev_tr if which == "tr" else self.dev_fw
-        if fmt is None:
-            name = "transposed" if which == "tr" else "forward"
-            raise ValueError(f"operator packed without the {name} direction")
-        return fmt
-
     @functools.cached_property
     def nat_tr(self) -> VBC1DDevice:
         """The A pack in natural order: ``dev_tr``, or on an auto-RCM
@@ -255,8 +360,8 @@ class VBCOperator:
         return fmt if self.perm_t is None else fmt.natural_view(self.perm_t)
 
     def _route(self, which: str):
-        host = self.host_tr if which == "tr" else self.host_fw
-        self._packed(which)  # raises when that direction was not packed
+        host = self._host(which)
+        self._packed(which)  # raises for a non-f32 matrix
         # the stripe format's natural view only where the stripe kernel runs
         stripe = None if scatter_admits(host) else getattr(self, f"nat_{which}")
         return route_tr_spmv(host, self.device, stripe, self.perm_t)
@@ -272,20 +377,17 @@ class VBCOperator:
         """``route_tr_spmv`` of the A.T pack (for ``mul``; lazy)."""
         return self._route("fw")
 
-    def _apply(self, route, x, alpha, beta, y):
-        _, fmt, call = route
-        return call(fmt, x, alpha, beta, y)  # alpha/beta fused, natural order
-
     def tr_mul(self, x, alpha=None, beta=None, y=None):
         """y = alpha * (A.T @ x) + beta * y on the operator's device
         (reference ``mul!(y, A', x, alpha, beta)``, with ``alpha``
-        applied), through the kernel :func:`route_tr_spmv` picks."""
-        return self._apply(self.route_tr, x, alpha, beta, y)
+        applied), through the kernel :func:`route_tr_spmv` picks; the
+        semiring route for a non-f32 matrix or x."""
+        return self._apply("tr", x, alpha, beta, y)
 
     def mul(self, x, alpha=None, beta=None, y=None):
         """y = alpha * (A @ x) + beta * y on the operator's device
         (scatter-free: the routed kernel on the A.T pack)."""
-        return self._apply(self.route_fw, x, alpha, beta, y)
+        return self._apply("fw", x, alpha, beta, y)
 
     def tr_mul_chain(self, x, n_iters: int, alpha=None):
         """y = (alpha * A.T)^n_iters @ x — iterative TrSpMV in one launch
@@ -296,13 +398,18 @@ class VBCOperator:
         The operator must be square (``ValueError`` otherwise).
         ``n_iters == 0`` returns a copy of ``x``.  An auto-RCM operator
         gathers x into permuted space once, runs the whole chain there
-        and gathers y out once."""
-        fmt = self._packed("tr")
+        and gathers y out once.  A non-f32 matrix or x runs the JAX
+        operators' loop instead (``tr_mul``, then alpha rounded to f32,
+        each iteration)."""
+        self._host("tr")  # raises when that direction was not packed
         if self.m != self.n:
             raise ValueError(f"tr_mul_chain needs a square operator, got "
                              f"{self.m}x{self.n}")
         if n_iters < 0:
             raise ValueError(f"n_iters must be >= 0, got {n_iters}")
+        if not self._kernels_take(x):
+            return self._semiring_chain(x, n_iters, alpha)
+        fmt = self._packed("tr")
         _check_vec("x", x, self.m, self.device)
         if n_iters == 0:
             return x.clone()
@@ -311,15 +418,37 @@ class VBCOperator:
         out = tr_spmv_chain(fmt, gather(x, self.perm_t), n_iters, alpha)
         return gather(out, self.inv_t)
 
+    def _semiring_chain(self, x, n_iters: int, alpha):
+        """The JAX operators' ``fori_loop`` of ``tr_mul`` and ``* alpha``
+        (alpha as an f32 scalar), which raises ``TypeError`` when alpha
+        would turn an integer x into a float carry."""
+        fmt = self.semi_tr
+        semiring.check_operand("x", x, self.m, self.device, 1)
+        if alpha is not None and not x.is_floating_point():
+            raise TypeError(f"alpha turns the {x.dtype} iterate into a float "
+                            f"one (the JAX loop refuses the change of type)")
+        a = None if alpha is None else float(np.float32(alpha))
+        out = x.clone()
+        for _ in range(n_iters):
+            out = semiring.tr_spmv(fmt, out)
+            if a is not None:
+                out = out * a
+        return out
+
+    def _apply_mat(self, which, X):
+        if not self._kernels_take(X):
+            return semiring.tr_spmm(getattr(self, f"semi_{which}"), X)
+        return tr_spmm(getattr(self, f"nat_{which}"), X)
+
     def tr_mul_mat(self, X):
         """Y = A.T @ X for a dense RHS ``X [m, k]`` on the operator's
         device (SpMM; reference ``mul!(Y, A', X)``)."""
-        return tr_spmm(self.nat_tr, X)
+        return self._apply_mat("tr", X)
 
     def mul_mat(self, X):
         """Y = A @ X for a dense RHS ``X [n, k]`` on the operator's device
         (scatter-free: the SpMM kernel on the A.T pack)."""
-        return tr_spmm(self.nat_fw, X)
+        return self._apply_mat("fw", X)
 
     # ---- host oracles -----------------------------------------------------
 
@@ -333,16 +462,18 @@ class VBCOperator:
 
 
 @dataclasses.dataclass(frozen=True)
-class VBC2DOperator:
+class VBC2DOperator(_Directions):
     """Sparse matrix operator in 2-D VBC form (u x w dense tiles) on one
     torch device (reference ``SparseMatrixVBC{U,W}``,
     ``src/SparseMatrixVBCs.jl:57-84`` + ``src/multiply_VBC.jl``).
 
-    ``tr_mul`` runs the tile kernel on the pack of A; ``mul`` is
-    scatter-free like the 1-D operator: ``A.T`` is packed 2-D with U and
-    W swapped and runs the same kernel.  ``tr_mul_mat``/``mul_mat`` run
-    the SpMM kernel on the 1-D view of the same packs, built on the
-    device on first use and sharing the 2-D format's values."""
+    ``tr_mul`` runs the kernel :func:`route_tr_spmv_2d` picks for the
+    pack of A (the tile kernel, or the stripe kernel on its 1-D view);
+    ``mul`` is scatter-free like the 1-D operator: ``A.T`` is packed 2-D
+    with U and W swapped and takes its own route.  ``tr_mul_mat``/
+    ``mul_mat`` run the SpMM kernel on the 1-D view of the same packs,
+    built on the device on first use and sharing the 2-D format's
+    values.  A non-f32 matrix or x takes the semiring route."""
 
     m: int
     n: int
@@ -379,7 +510,6 @@ class VBC2DOperator:
         if U < 1 or W < 1:
             raise ValueError(f"U and W must be >= 1, got U={U}, W={W}")
         A = _as_csc(A)
-        _check_f32(A)
         host_tr = host_fw = None
         if directions in ("both", "transposed"):
             host_tr = vbc2d(A, U, W, method)
@@ -394,11 +524,14 @@ class VBC2DOperator:
         be None."""
         device = torch.device(device)
         m, n = _shape_of(host_tr, host_fw)
-        return VBC2DOperator(
-            m=m, n=n, host_tr=host_tr, host_fw=host_fw, device=device,
-            dev_tr=None if host_tr is None else VBC2DDevice.from_host(host_tr, device),
-            dev_fw=None if host_fw is None else VBC2DDevice.from_host(host_fw, device),
-        )
+
+        def copy(host):
+            return (VBC2DDevice.from_host(host, device)
+                    if host is not None and _is_f32(host) else None)
+
+        return VBC2DOperator(m=m, n=n, host_tr=host_tr, host_fw=host_fw,
+                             device=device, dev_tr=copy(host_tr),
+                             dev_fw=copy(host_fw))
 
     @property
     def shape(self):
@@ -418,35 +551,45 @@ class VBC2DOperator:
         """The 1-D view of the A.T pack on the device (SpMM; lazy)."""
         return self._packed("fw").view_1d()
 
-    def _packed(self, which: str) -> VBC2DDevice:
-        fmt = self.dev_tr if which == "tr" else self.dev_fw
-        if fmt is None:
-            name = "transposed" if which == "tr" else "forward"
-            raise ValueError(f"operator packed without the {name} direction")
-        return fmt
+    @functools.cached_property
+    def route_tr(self):
+        """``route_tr_spmv_2d`` of the A pack, ``(name, fmt, call)`` (lazy;
+        the view route shares :attr:`view_tr`)."""
+        return route_tr_spmv_2d(self._host("tr"), self.device, self._packed("tr"))
+
+    @functools.cached_property
+    def route_fw(self):
+        """``route_tr_spmv_2d`` of the A.T pack (for ``mul``; lazy)."""
+        return route_tr_spmv_2d(self._host("fw"), self.device, self._packed("fw"))
 
     # ---- compute ---------------------------------------------------------
 
     def tr_mul(self, x, alpha=None, beta=None, y=None):
         """y = alpha * (A.T @ x) + beta * y on the operator's device
         (reference ``mul!(y, B', x, alpha, beta)`` 2-D,
-        ``src/multiply_VBC.jl:104-189``, with ``alpha`` applied)."""
-        return tr_spmv_2d(self._packed("tr"), x, alpha, beta, y)
+        ``src/multiply_VBC.jl:104-189``, with ``alpha`` applied), through
+        the kernel :func:`route_tr_spmv_2d` picks."""
+        return self._apply("tr", x, alpha, beta, y)
 
     def mul(self, x, alpha=None, beta=None, y=None):
         """y = alpha * (A @ x) + beta * y on the operator's device
-        (scatter-free: the tile kernel on the 2-D pack of A.T)."""
-        return tr_spmv_2d(self._packed("fw"), x, alpha, beta, y)
+        (scatter-free: the routed kernel on the 2-D pack of A.T)."""
+        return self._apply("fw", x, alpha, beta, y)
+
+    def _apply_mat(self, which, X):
+        if not self._kernels_take(X):
+            return semiring.tr_spmm(getattr(self, f"semi_{which}"), X)
+        return tr_spmm(getattr(self, f"view_{which}"), X)
 
     def tr_mul_mat(self, X):
         """Y = A.T @ X for a dense RHS ``X [m, k]`` (the SpMM kernel on
         the 1-D view)."""
-        return tr_spmm(self.view_tr, X)
+        return self._apply_mat("tr", X)
 
     def mul_mat(self, X):
         """Y = A @ X for a dense RHS ``X [n, k]`` (the SpMM kernel on the
         1-D view of the A.T pack)."""
-        return tr_spmm(self.view_fw, X)
+        return self._apply_mat("fw", X)
 
     # ---- host oracles -----------------------------------------------------
 

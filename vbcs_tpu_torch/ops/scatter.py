@@ -28,11 +28,12 @@ from .trspmv import _run_tr_spmv, tr_spmv_plain
 __all__ = ["MAX_MEAN_WIDTH", "column_entries", "pack_scatter", "scatter_admits",
            "tr_spmv_scatter", "tr_spmv_scatter_plain"]
 
-# The route's one threshold: packs whose mean stripe width is above it
-# stay on the stripe kernel.  The JAX package's is 2.0; on an H100 the
-# scatter kernel is the faster of the two on packs of mean width 1.02 and
-# 1.17 and the slower at 1.99 (PERF.md), so the port's lies between.
-MAX_MEAN_WIDTH = 1.5
+# The route's one threshold: packs whose mean stripe width is below it
+# take the scatter kernel, the rest the stripe kernel.  The JAX package's
+# 2.0, exclusive here: on an H100 the scatter kernel is the faster of the
+# two on packs of mean width 1.02, 1.17 and 1.994 and the slower (by
+# 2-5%) on a pack of uniform width 2 and beyond (GUARD data, PERF.md).
+MAX_MEAN_WIDTH = 2.0
 
 
 def column_entries(B):
@@ -74,9 +75,9 @@ def column_entries(B):
 
 def scatter_admits(B) -> bool:
     """The scatter route's guard: a pack with stripes whose mean width is
-    at most :data:`MAX_MEAN_WIDTH` (blocking found little to merge)."""
+    below :data:`MAX_MEAN_WIDTH` (blocking found little to merge)."""
     widths = np.diff(np.asarray(B.Phi.spl, dtype=np.int64))
-    return widths.size > 0 and float(widths.mean()) <= MAX_MEAN_WIDTH
+    return widths.size > 0 and float(widths.mean()) < MAX_MEAN_WIDTH
 
 
 def pack_scatter(B, device) -> ScatterDevice | None:
