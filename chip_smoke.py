@@ -94,7 +94,21 @@ Phases (one line each; any failure raises and exits non-zero):
     and p/m (predicted over measured) of the min-memory and min-time
     plans on the flagship and the RCM'd FEM (an ``AUTOTUNE {...}`` line);
 15. the method table (``vbcs_tpu_torch.tools.method_table``) on the
-    flagship with phase 14's models (a ``TABLE [...]`` line).
+    flagship with phase 14's models (a ``TABLE [...]`` line);
+16. the distributed paths (``vbcs_tpu_torch.parallel``) at full width in
+    two worlds, four gloo ranks sharing the card and one NCCL rank: the
+    flagship sharded by stripes through ``parallel/spmv.py``'s four calls
+    (SpMM at k=128), the replicated, halo and overlapped-halo stream
+    paths and the column-stripe path; ``blocky2d_matrix()`` (equi U=4,
+    W=8) and a pack whose tiles straddle two ranks' x through the 2-D
+    replicated and halo paths; each result against the f64 product and
+    the single-device result on the card, each kernel a path runs (the
+    gather of the halo paths included) against its plain version on
+    that path's inputs on every rank, each rank's shard (columns, stored
+    values, halo tiles against its own, local stripes) and the time of
+    each of its kernels (CUDA events), each path's host wall; then
+    ``entry()`` and
+    ``dryrun_multichip(4, backend="gloo")`` (a ``DIST {...}`` line).
 
 Phase 8's ``GUARD {...}`` line also holds the guards' extra packs: 1-D
 packs of uniform stripe width 2, 3 and 4 at the flagship's size (scatter
@@ -128,7 +142,10 @@ the FEM: the gather's only path), the scattered ``tr_mul``/``mul`` of
 phase 10 (scatter TrSpMV, one a call, no gather),
 the relayout of phase 11, the five probes of phase 12 (the launch,
 chunk, chain-probe and FMA kernels), the autotuner of phase 14 and the
-method table of phase 15 (the routed kernels).  No f32 call of phases
+method table of phase 15 (the routed kernels), and each distributed
+path of phase 16 on every rank (counted in the ranks, summed over them:
+the stripe, scatter, SpMM and tile TrSpMV kernels, and the gather on the
+halo paths).  No f32 call of phases
 4-10 enters ``ops/semiring.py`` (a spy counts), and phase 13's calls do.
 Then each kernel is held against its
 plain version at the shapes those paths gave it: the stripe kernel on
@@ -138,8 +155,9 @@ permutation and its inverse (bitwise), the SpMM kernel on both packs of
 all five operators with their RHS, the tile kernel on the four 2-D
 packs, the chain on the flagship and FEM packs (resident, partly
 resident and streamed), the scatter kernel on
-every scatter-route pack, the relayout at R = 313 (bitwise), and the
-probe kernels on their probes' inputs.
+every scatter-route pack, the relayout at R = 313 (bitwise), the
+probe kernels on their probes' inputs, and (phase 16) every kernel of a
+distributed path on the inputs that path gave it on each rank.
 The next-to-last line is the kernels' JSON record; the last line is the
 run's JSON result.  It imports no JAX: the JAX package is the reference,
 not a dependency.
@@ -160,6 +178,7 @@ import scipy.sparse as sp
 import torch
 
 import vbcs_tpu_torch as vt
+from vbcs_tpu_torch import entry as vt_entry
 from vbcs_tpu_torch import native
 from vbcs_tpu_torch.models import autotune
 from vbcs_tpu_torch.ops import _lib, semiring
@@ -168,6 +187,7 @@ from vbcs_tpu_torch.ops.chain import chain_grid, chain_plan
 from vbcs_tpu_torch.ops.scatter import MAX_MEAN_WIDTH, scatter_admits
 from vbcs_tpu_torch.operator import TILE2D_MIN_HEIGHT
 from vbcs_tpu_torch.ops.trspmv2d import lanes_per_stripe
+from vbcs_tpu_torch.parallel import comm
 from vbcs_tpu_torch.probes import chunk as probe_chunk
 from vbcs_tpu_torch.probes import (probe_chain, probe_kernel, probe_kernel2,
                                    probe_launch, probe_spmm4)
@@ -2111,6 +2131,185 @@ def phase_table(dev, flag, mdl, mdl2):
     return rec
 
 
+DIST_RANKS = 4  # gloo ranks sharing the card (NCCL refuses two on one card)
+DIST_REPS = 20  # timed calls of each vector path on each rank (host wall)
+DIST_MAT_REPS = 3  # of each k = 128 SpMM path (gloo moves ~41 MB a rank a call)
+DIST_K = 128
+# the kernels each distributed path launches on every rank with columns:
+# one of each set (spmv and spmm: none, the semiring route); the halo
+# paths' gathers are the tiles sent, the pool and (overlap) y's order
+DIST_KERNELS = {"tr_spmv": [{"tr_spmv", "tr_spmv_scatter"}], "tr_spmm": [{"tr_spmm"}],
+                "spmv": [], "spmm": [], "replicated": [{"tr_spmv"}],
+                "halo": [{"tr_spmv"}, {"gather"}], "overlap": [{"tr_spmv"}, {"gather"}],
+                "stripes": [{"tr_spmv"}], "2d": [{"tr_spmv_2d"}],
+                "2d_halo": [{"tr_spmv_2d"}, {"gather"}]}
+
+
+def straddle_ranks_pack():
+    """A 4,096 x 16 matrix of four 4 x 4 tiles, one a stripe, under a row
+    partition offset by 2: each tile crosses an aligned 1,024-row boundary,
+    which at 4 ranks (one x tile each) is a boundary between two ranks'
+    x; stripes 0, 2 and 3 read both halves from other ranks."""
+    dense = np.zeros((4096, 16), np.float32)
+    rng = np.random.default_rng(6)
+    for s, r0 in enumerate((3070, 2046, 1022, 1022)):
+        dense[r0:r0 + 4, 4 * s:4 * s + 4] = rng.standard_normal((4, 4))
+    Pi = vt.SplitPartition(np.concatenate([[0], np.arange(2, 4096, 4), [4096]]))
+    return vt.pack_vbc2d(vt.CSC.from_scipy(sp.csc_matrix(dense)), Pi,
+                         vt.SplitPartition(np.arange(0, 17, 4)), 4, 4)
+
+
+def dist_jobs(dev, flag, parts):
+    """The DIST phase's jobs (``vbcs_tpu_torch.entry.rank_paths``), each
+    with its f64 product and the single-device result on the card:
+    ``[(label, job, want, single)]``."""
+    A, op = flag[0], flag[1]
+    A2, op2 = parts["a"][0], parts["a"][1]
+    S = straddle_ranks_pack()
+    sdev = vt.VBC2DDevice.from_host(S, dev)
+    m, n = op.m, op.n
+    vec = {"reps": DIST_REPS}
+    mat = {"reps": DIST_MAT_REPS}
+    specs = [("flagship", "tr_spmv", op.host_tr, 11, (m,), vec, A.T, op.tr_mul),
+             ("flagship", "spmv", op.host_tr, 12, (n,), vec, A, op.mul),
+             ("flagship", "tr_spmm", op.host_tr, 13, (m, DIST_K), mat, A.T,
+              op.tr_mul_mat),
+             ("flagship", "spmm", op.host_tr, 14, (n, DIST_K), mat, A, op.mul_mat)]
+    specs += [("flagship", p, op.host_tr, 11, (m,), vec, A.T, op.tr_mul)
+              for p in ("replicated", "halo", "overlap", "stripes")]
+    specs += [("blocky2d", p, op2.host_tr, 15, (op2.m,), vec, A2.T, op2.tr_mul)
+              for p in ("2d", "2d_halo")]
+    specs += [("straddle", p, S, 16, (S.m,), vec, sp.csc_matrix(S.to_dense()).T,
+               lambda x: vt.tr_spmv_2d(sdev, x)) for p in ("2d", "2d_halo")]
+    out = []
+    for label, path, B, seed, shape, extra, AT, single in specs:
+        job = {"path": path, "name": f"{label} {path}", "B": B, "seed": seed,
+               "shape": shape, **extra}
+        x = vt_entry.operand(job, dev)
+        y1 = single(x)
+        torch.cuda.synchronize()
+        out.append((job["name"], job, AT.astype(np.float64) @ x.cpu().numpy()
+                    .astype(np.float64), y1.cpu().numpy()))
+    return out
+
+
+def dist_world(backend, world, device, jobs, errs):
+    """One world's run of the jobs, checked: each rank 0 ``y`` within TOL
+    of its f64 product and of the single-device result (bitwise noted),
+    each path's kernels on every rank within TOL of their plain versions
+    on the same inputs (the largest |Δ| folded into ``errs``), each path's
+    launches of the kernels it runs on every rank, every flagship rank
+    with local stripes and fewer halo tiles than its own.  Returns
+    (record, launches summed over ranks and paths)."""
+    t0 = time.perf_counter()
+    ranks = comm.run_ranks(vt_entry.rank_paths, world, backend, device,
+                           [job for _, job, _, _ in jobs])
+    seconds = time.perf_counter() - t0
+    launches = {}
+    paths = {}
+    for i, (name, job, want, single) in enumerate(jobs):
+        recs = [r[i] for r in ranks]
+        y = recs[0]["y"]
+        check(y.shape == want.shape and np.isfinite(y).all(),
+              f"DIST {backend} {name}: wrong shape or non-finite values")
+        err, vs = rel_err(y, want), rel_err(y, single)
+        check(err <= TOL and vs <= TOL,
+              f"DIST {backend} {name}: |Δ|/max {err:.2e} against f64, {vs:.2e} "
+              f"against the single-device result (tolerance {TOL})")
+        groups = DIST_KERNELS[job["path"]]
+        allowed = set().union(*groups)
+        names = {k for r in recs for k in r["launches"]}
+        check(names <= allowed and all(
+            r["stats"]["columns"] == 0 or all(g & set(r["launches"]) for g in groups)
+            for r in recs),
+              f"DIST {backend} {name}: launches {[r['launches'] for r in recs]}, "
+              f"want one of each of {groups or 'none'} on every rank with columns")
+        check({k for r in recs for k in r["plain"]} == names,
+              f"DIST {backend} {name}: kernels held against their plain "
+              f"versions {[sorted(r['plain']) for r in recs]}, launched {names}")
+        plain = {}
+        for r in recs:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            for k, (diff, rel) in r["plain"].items():
+                check(rel <= TOL, f"DIST {backend} {name}: {k} {rel:.2e} off its "
+                      f"plain version on the same inputs (tolerance {TOL})")
+                errs[k] = max(errs[k], diff)
+                plain[k] = max(plain.get(k, 0.0), rel)
+        paths[name] = {
+            "wall_ms": max(r["wall_ms"] for r in recs),
+            "kernel_ms": [r["kernel_ms"] for r in recs],
+            "err_f64": err, "err_single": vs, "err_plain": plain,
+            "bitwise_single": bool(np.array_equal(y, single)),
+            "launches": [r["launches"] for r in recs]}
+    by_path = {job["name"]: [r[i]["stats"] for r in ranks]
+               for i, (_, job, _, _) in enumerate(jobs)}
+    flag = by_path["flagship overlap"]
+    check(all(s["local"] > 0 for s in flag),
+          f"DIST {backend}: a flagship rank has no local stripe: {flag}")
+    check(all(s["received"] < s["tiles_per_dev"] for s in flag),
+          f"DIST {backend}: a flagship rank's halo is not below its own tiles: {flag}")
+    rank_rows = [dict(s, kernel_ms={job["path"]: paths[name]["kernel_ms"][d]
+                                     for name, job, _, _ in jobs
+                                     if job["name"].startswith("flagship")})
+                 for d, s in enumerate(flag)]
+    return {"world": world, "device": str(device), "seconds": seconds,
+            "host_copies": list(comm.HOST_COPIES[backend]),
+            "flagship_ranks": rank_rows, "paths": paths}, launches
+
+
+def phase_dist(dev, flag, parts, smi, errs):
+    """16: the distributed paths (``vbcs_tpu_torch.parallel``) at full
+    width: the flagship through ``parallel/spmv.py``'s four calls (SpMM at
+    k = 128), the replicated, halo and overlapped-halo stream paths and the
+    column-stripe path; ``blocky2d_matrix()`` (equi U=4, W=8) and a pack
+    whose tiles straddle two ranks' x through the 2-D replicated and halo
+    paths; in a world of ``DIST_RANKS`` gloo ranks sharing the card and a
+    world of one NCCL rank.  Each result against its f64 product and the
+    single-device result, each kernel against its plain version on the
+    path's inputs; then ``entry()`` and ``dryrun_multichip(4,
+    backend="gloo")``.  Prints a ``DIST {...}`` line; returns the
+    launches of the kernels, summed over the worlds' ranks."""
+    t_phase = time.perf_counter()
+    jobs = dist_jobs(dev, flag, parts)
+    rec = {"card": smi,
+           "note": f"gloo: {DIST_RANKS} ranks sharing one H100 over gloo (no "
+                   f"interconnect figure; host_copies: the collectives whose "
+                   f"CUDA tensors the backend copies through host memory, "
+                   f"comm.py stages none itself); nccl: a world of one rank"}
+    launches = {}
+    for backend, world, device in (("gloo", DIST_RANKS, "cuda:0"),
+                                   ("nccl", 1, "cuda")):
+        rec[backend], got = dist_world(backend, world, device, jobs, errs)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        for name, p in rec[backend]["paths"].items():
+            us = [None if t is None else {k: round(v * 1e3, 2) for k, v in t.items()}
+                  for t in p["kernel_ms"]]
+            plain = {k: f"{v:.1e}" for k, v in p["err_plain"].items()}
+            print(f"[16 dist {backend} x{world}] {name}: host wall "
+                  f"{p['wall_ms'] * 1e3:.1f} us, kernels {us} us a rank, "
+                  f"|Δ|/max {p['err_f64']:.2e} (f64), {p['err_single']:.2e} (one "
+                  f"device, bitwise {p['bitwise_single']}), against plain {plain}",
+                  flush=True)
+    fn, args = vt_entry.entry(dev)
+    A, _ = vt_entry._flagship()
+    y = fn(*args)
+    torch.cuda.synchronize()
+    e_entry = rel_err(y.cpu().numpy(), A.T.astype(np.float64)
+                      @ args[1].cpu().numpy().astype(np.float64))
+    check(e_entry <= TOL, f"entry(): |Δ|/max {e_entry:.2e}")
+    t0 = time.perf_counter()
+    dry = vt_entry.dryrun_multichip(DIST_RANKS, backend="gloo")
+    rec["dryrun"] = {"seconds": time.perf_counter() - t0,
+                     "local": [s["local"] for s in dry["overlap"]["stats"]],
+                     "err": {k: v["err"] for k, v in dry.items()}}
+    rec["entry_err"] = e_entry
+    rec["seconds"] = time.perf_counter() - t_phase
+    print("DIST " + json.dumps(rec), flush=True)
+    return launches
+
+
 def reset_launches():
     for kern in KERNELS:
         kern.launches = 0
@@ -2265,6 +2464,12 @@ def main():
           + tabled.get("tr_spmv_2d", 0) > 0,
           f"the method table did not run the routed kernels: {tabled}")
     print(f"[14-15 launches] autotune {tuned}; method table {tabled}", flush=True)
+    reset_launches()
+    d_launches = phase_dist(dev, flag, parts, smi, errs)
+    for k, v in d_launches.items():
+        launches[k] += v
+    print(f"[16 launches] the distributed paths, summed over ranks and worlds: "
+          f"{d_launches}", flush=True)
     check("jax" not in sys.modules, "the port loaded JAX")
     meta = [
         ("tr_spmv_stripe", "tr_spmv", "trspmv.cu",
