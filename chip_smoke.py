@@ -22,19 +22,19 @@ Phases (one line each; any failure raises and exits non-zero):
    height-0 tile and an empty stripe, stripes wider than a warp (w = 33,
    40, 64), tiles taller than 32 / w rows and one tile per stripe; the
    gather on a masked random permutation (bitwise);
-4. the main path at flagship scale: ``bench.blocky_matrix()`` (320,000
+4. the main path at flagship scale: ``blocky_matrix()`` (320,000
    columns, ~2.55M nonzeros) through ``VBCOperator.from_csc(A, W=8,
    device="cuda")``, ``tr_mul`` with alpha/beta/y and ``mul``, then
    ``tr_mul_mat`` at k=128 and ``mul_mat`` at k=32, checked against the
    host oracle and the f64 scipy product;
-5. the auto-RCM path: the scrambled FEM ``bench.fem_matrix(k=320)``
+5. the auto-RCM path: the scrambled FEM ``fem_matrix(k=320)``
    through ``from_csc(..., reorder="auto")``, the same calls (SpMM at
    k=32) on the packs' natural views (``col_out``), one launch a call;
-6. the scattered matrix ``bench.scattered_matrix()`` (82,654 columns,
+6. the scattered matrix ``scattered_matrix()`` (82,654 columns,
    574k nonzeros: the regime that sends the JAX SpMM to its v1
    fallback; auto-RCM relabels it), ``tr_mul_mat`` at k=32;
 7. the 2-D operator at full width, ``VBC2DOperator.from_csc``: (a)
-   ``bench.blocky2d_matrix()`` (40,000 x 80,000) under the JAX bench's
+   ``blocky2d_matrix()`` (40,000 x 80,000) under the JAX bench's
    equi plan (U=4, W=8), (b) the flagship under the default five-pass
    planner at U=W=8 (mixed tile heights); ``tr_mul`` with alpha/beta/y
    and ``mul`` against the f64 oracle and the scipy product,
@@ -108,7 +108,27 @@ Phases (one line each; any failure raises and exits non-zero):
     values, halo tiles against its own, local stripes) and the time of
     each of its kernels (CUDA events), each path's host wall; then
     ``entry()`` and
-    ``dryrun_multichip(4, backend="gloo")`` (a ``DIST {...}`` line).
+    ``dryrun_multichip(4, backend="gloo")`` (a ``DIST {...}`` line);
+17. the split-point DP on the card (``dp_partition_device``,
+    ``dp_partition_device_2d``; ``csrc/dp.cu``): the flagship and the
+    scrambled FEM at W=8 (1-D), ``blocky2d_matrix()`` under
+    ``SplitPartition.equi(m, 4)`` and the flagship under ``equi(m, 8)``
+    (2-D), with the memory models and again with phase 14's fitted time
+    models (the 2-D one at U=W=4); every plan's split points against the
+    host C++ DP's, both kernels (the stripe-cost table and the recurrence)
+    bitwise against their plain versions on each matrix's first 4,096
+    columns, each pass's device time beside the plan's host wall and the
+    host DP's, the recurrence beside its n-step dependent floor, and the
+    flagship's recurrence again at W = 16, past its register ring (a
+    ``PLAN {...}`` line); then ``probes/probe_pack.py`` (every host stage
+    of plan and pack, a ``PACK {...}`` line) and
+    ``tools/weak_scaling.py`` at ``WEAK_L0`` stripes a rank (N = 1 on one
+    NCCL rank, N = 2 in gloo ranks sharing the card; a ``WEAK {...}``
+    line).
+
+The four matrices are the JAX bench's generators (``bench.py``), copied
+into ``vbcs_tpu_torch/tools/matrices.py``: the script reads no file of
+the JAX side.
 
 Phase 8's ``GUARD {...}`` line also holds the guards' extra packs: 1-D
 packs of uniform stripe width 2, 3 and 4 at the flagship's size (scatter
@@ -145,7 +165,8 @@ chunk, chain-probe and FMA kernels), the autotuner of phase 14 and the
 method table of phase 15 (the routed kernels), and each distributed
 path of phase 16 on every rank (counted in the ranks, summed over them:
 the stripe, scatter, SpMM and tile TrSpMV kernels, and the gather on the
-halo paths).  No f32 call of phases
+halo paths), and the plans of phase 17 (the DP's table and recurrence, once a
+plan).  No f32 call of phases
 4-10 enters ``ops/semiring.py`` (a spy counts), and phase 13's calls do.
 Then each kernel is held against its
 plain version at the shapes those paths gave it: the stripe kernel on
@@ -192,10 +213,15 @@ from vbcs_tpu_torch.probes import chunk as probe_chunk
 from vbcs_tpu_torch.probes import (probe_chain, probe_kernel, probe_kernel2,
                                    probe_launch, probe_spmm4)
 from vbcs_tpu_torch.probes._common import marginal_ms
-from vbcs_tpu_torch.tools import method_table
+from vbcs_tpu_torch.probes import probe_pack
+from vbcs_tpu_torch.ops import dp as dp_ops
+from vbcs_tpu_torch.plan.device_dp import dp_inputs
+from vbcs_tpu_torch.plan.dynamic import dp_partition
+from vbcs_tpu_torch.tools import method_table, weak_scaling
 from vbcs_tpu_torch.utils.timing import flushed_ms, host_ms, paired_ms
 
-from bench import blocky2d_matrix, blocky_matrix, fem_matrix, scattered_matrix
+from vbcs_tpu_torch.tools.matrices import (blocky2d_matrix, blocky_matrix,
+                                           fem_matrix, scattered_matrix)
 
 # |kernel - reference| / max|reference|: f32 sums in another order than
 # the plain version (atomics) and the f64 oracle
@@ -1025,7 +1051,7 @@ def phase_chain(flag, fem):
 
 
 def phase_scatter(dev, flag, fem, spmm):
-    """``tr_mul``/``mul`` on ``bench.scattered_matrix()`` (its operator from
+    """``tr_mul``/``mul`` on ``scattered_matrix()`` (its operator from
     phase 6) against the f64 scipy product, and the route each of the six
     packs of phases 4-6 takes."""
     A = scattered_matrix().astype(np.float32)
@@ -2310,6 +2336,250 @@ def phase_dist(dev, flag, parts, smi, errs):
     return launches
 
 
+# ---- slice 10: the split-point DP on the card, the pack stages, weak scaling
+
+DP_CUT = 4096  # the first columns of each matrix, where the kernels are held bitwise
+DP_KERNELS = (dp_ops.dp_table, dp_ops.dp_recurrence)
+# H100 SXM data sheet: f64 outside the tensor cores (the DP's type)
+F64_FLOP_PER_S = 34e12
+WEAK_L0 = 1000  # stripes a rank in the weak-scaling rows
+WEAK_REPS = 3
+# N = 1 and 2: each N is a world of its own, and a world's start-up, not
+# its rows, is the cost (phase 16 runs the 4-rank gloo world)
+WEAK_WORLD = 2
+DP_WIDE = 16  # past the recurrence's register ring (W <= 8): its plain loop
+
+
+def dp_cases(flag, fem, mdl, mdl2):
+    """Phase 17's plans, ``(label, CSC, model, W, Pi)``: the memory models
+    (integer tables) and phase 14's fitted time models (fractional), 1-D
+    on the flagship and the scrambled FEM, 2-D on ``blocky2d_matrix()`` and
+    the flagship (the 2-D time model was fit at U = W = 4: W = 4 and
+    tiles of 4 rows)."""
+    F, Fe = vt.CSC.from_scipy(flag[0]), vt.CSC.from_scipy(fem[0])
+    B2 = vt.CSC.from_scipy(blocky2d_matrix())
+    mem1, mem2 = vt.model_1dvbc_memory(4, 8), vt.model_vbc_memory(4, 8)
+    equi = vt.SplitPartition.equi
+    return [("flagship 1-D memory", F, mem1, 8, None),
+            ("FEM 1-D memory", Fe, mem1, 8, None),
+            ("blocky2d 2-D memory", B2, mem2, 8, equi(B2.m, 4)),
+            ("flagship 2-D memory", F, mem2, 8, equi(F.m, 8)),
+            ("flagship 1-D time", F, mdl, 8, None),
+            ("FEM 1-D time", Fe, mdl, 8, None),
+            ("blocky2d 2-D time", B2, mdl2, 4, equi(B2.m, 4)),
+            ("flagship 2-D time", F, mdl2, 4, equi(F.m, 4))]
+
+
+def device_plan(C, model, W, Pi, dev):
+    """The entry point a user calls for the case: ``dp_partition_device``
+    (1-D) or ``dp_partition_device_2d``."""
+    if Pi is None:
+        return vt.dp_partition_device(C, model, W, device=dev)
+    return vt.dp_partition_device_2d(C, model, W, Pi, device=dev)
+
+
+def csc_cut(C, k):
+    """The first ``k`` columns of ``C``."""
+    k = min(k, C.n)
+    q = int(C.pos[k])
+    return vt.CSC(C.m, k, C.pos[:k + 1], C.idx[:q], C.val[:q])
+
+
+def dp_work(pos, wts, W):
+    """((bytes, f64 operations) of the table, of the recurrence) on these
+    inputs: each input read once and S, opt and prev written once; the
+    table's counter updates (each nonzero, once for every window holding
+    its column), suffix sums and stripe costs, the recurrence's add and
+    compare per candidate."""
+    p = pos.cpu().numpy()
+    n, nnz = p.size - 1, int(p[-1])
+    R = 1 if wts is None else wts.shape[0]
+    jp = np.arange(1, n + 1)
+    window_nnz = int((p[jp] - p[np.maximum(jp - W, 0)]).sum())
+    table_bytes = 8 * (n + 1) + 8 * nnz + 8 * W * (1 + R) + 8 * n * W
+    if wts is not None:
+        table_bytes += 8 * nnz + 8 * wts.numel()
+    table_ops = R * (2 * window_nnz + 3 * n * W)
+    return (table_bytes, table_ops), (8 * n * W + 16 * (n + 1), 2 * n * W)
+
+
+def bound64(nbytes, ops):
+    """(bound_ms, bound_by) of f64 work: bytes over the memory rate, f64
+    operations over the data sheet's f64 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F64_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dp_passes_ms(inputs, W, dev):
+    """Device ms of each pass of ``dp_prev`` on ``inputs`` (CUDA events,
+    the second of two runs)."""
+    pos, grp, wts, alpha, beta = inputs
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        prevcol = dp_ops.prev_occurrence(pos, grp)
+        ev[1].record()
+        S = dp_ops.dp_table(pos, grp, prevcol, wts, alpha, beta, W)
+        ev[2].record()
+        dp_ops.dp_recurrence(S)
+        ev[3].record()
+        torch.cuda.synchronize()
+    return {"prev_occurrence": ev[0].elapsed_time(ev[1]),
+            "dp_table": ev[1].elapsed_time(ev[2]),
+            "dp_recurrence": ev[2].elapsed_time(ev[3])}
+
+
+def dp_against_plain(label, C, model, W, Pi, dev):
+    """Both kernels against their plain versions on the first ``DP_CUT``
+    columns: S, opt and prev bitwise.  Returns the largest |Δ| of each."""
+    pos, grp, wts, alpha, beta = dp_inputs(csc_cut(C, DP_CUT), model, W, Pi,
+                                           device=dev)
+    prevcol = dp_ops.prev_occurrence(pos, grp)
+    S = dp_ops.dp_table(pos, grp, prevcol, wts, alpha, beta, W)
+    S_plain = dp_ops.dp_table_plain(pos, grp, prevcol, wts, alpha, beta, W)
+    prev, opt = dp_ops.dp_recurrence(S)
+    prev_plain, opt_plain = dp_ops.dp_recurrence_plain(S_plain)
+    torch.cuda.synchronize()
+    check(torch.equal(S, S_plain), f"{label}: dp_table differs from its plain version")
+    check(torch.equal(opt, opt_plain) and torch.equal(prev, prev_plain),
+          f"{label}: dp_recurrence differs from its plain version")
+    finite = torch.isfinite(S_plain)
+    return {"dp_table": float((S - S_plain)[finite].abs().max()),
+            "dp_recurrence": float((opt - opt_plain).abs().max())}
+
+
+def phase_plan(dev, flag, fem, mdl, mdl2, smi, errs):
+    """17: the split-point DP on the card (``dp_partition_device``,
+    ``dp_partition_device_2d``) on the cases of :func:`dp_cases`, each
+    plan's split points against the host C++ DP's, both kernels against
+    their plain versions on the first ``DP_CUT`` columns (bitwise), the
+    device time of each pass (CUDA events) beside the device plan's host
+    wall (copies and backtrack included) and the host DP's, the chain's
+    dependent floor, the flagship's recurrence at ``DP_WIDE``; then
+    ``probe_pack`` (all stages) and the weak-scaling rows at ``WEAK_L0``
+    up to ``WEAK_WORLD`` ranks.  Prints ``PLAN``, ``PACK`` and ``WEAK`` lines;
+    returns the DP kernels' launches on the plans and their timing
+    records."""
+    t_phase = time.perf_counter()
+    cases = dp_cases(flag, fem, mdl, mdl2)
+    for k in DP_KERNELS:
+        k.launches = 0
+    for label, C, model, W, Pi in cases:
+        got = device_plan(C, model, W, Pi, dev)
+        want = dp_partition(C, model, W, row_partition=Pi)
+        check(np.array_equal(got.spl, want.spl),
+              f"{label}: the device DP's split points differ from the host DP's")
+    launches = {k.__name__: k.launches for k in DP_KERNELS}
+    check(all(v == len(cases) for v in launches.values()),
+          f"the plans did not launch each DP kernel once a plan: {launches}")
+    rec = {"card": smi, "cut": DP_CUT, "cases": {}}
+    for label, C, model, W, Pi in cases:
+        walls, hosts = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = device_plan(C, model, W, Pi, dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            dp_partition(C, model, W, row_partition=Pi)
+            hosts.append((time.perf_counter() - t0) * 1e3)
+        inputs = dp_inputs(C, model, W, Pi, device=dev)
+        passes = dp_passes_ms(inputs, W, dev)
+        cut = dp_against_plain(label, C, model, W, Pi, dev)
+        for k, v in cut.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        rec["cases"][label] = {
+            "n": C.n, "nnz": C.nnz, "W": W,
+            "R": 1 if inputs[2] is None else int(inputs[2].shape[0]),
+            "stripes": len(got), "equal_host": True, "host_dp_ms": min(hosts),
+            "device_wall_ms": min(walls), "passes_ms": passes,
+            "ns_a_step": passes["dp_recurrence"] * 1e6 / C.n, "cut_max_abs": cut}
+        print(f"[17 plan] {label}: n {C.n}, W {W}, {len(got)} stripes equal to "
+              f"the host DP's; device passes (ms) prev {passes['prev_occurrence']:.3f}, "
+              f"table {passes['dp_table']:.3f}, recurrence "
+              f"{passes['dp_recurrence']:.3f} ({passes['dp_recurrence'] * 1e6 / C.n:.1f}"
+              f" ns a step); device plan wall {min(walls):.2f} ms against the host "
+              f"C++ DP {min(hosts):.2f} ms; cut of {DP_CUT} columns bitwise", flush=True)
+    # the kernels line's numbers: the flagship's min-memory plan
+    label, C, model, W, Pi = cases[0]
+    pos, grp, wts, alpha, beta = inputs = dp_inputs(C, model, W, Pi, device=dev)
+    prevcol = dp_ops.prev_occurrence(pos, grp)
+    S = dp_ops.dp_table(pos, grp, prevcol, wts, alpha, beta, W)
+    same_function("dp_table plain", lambda: dp_ops.dp_table_plain(
+        pos, grp, prevcol, wts, alpha, beta, W), lambda: dp_ops.dp_table(
+        pos, grp, prevcol, wts, alpha, beta, W), tol=None)
+    t_table = paired_ms([lambda: dp_ops.dp_table(pos, grp, prevcol, wts, alpha, beta, W),
+                         lambda: dp_ops.dp_table_plain(pos, grp, prevcol, wts,
+                                                       alpha, beta, W)], dev, iters=3)
+    t_rec = paired_ms([lambda: dp_ops.dp_recurrence(S)], dev, iters=3)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prev_plain, _ = dp_ops.dp_recurrence_plain(S)
+    torch.cuda.synchronize()
+    rec_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(prev_plain, dp_ops.dp_recurrence(S)[0]),
+          "flagship: dp_recurrence differs from its plain version")
+    s_floor = torch.tensor([1.0, 3.0, 2.0, 5.0, 4.0, 7.0, 6.0, 8.0, 1e300],
+                           dtype=torch.float64, device=dev) * 1e-3
+    check(torch.equal(dp_ops.chain_floor(s_floor, 4096),
+                      dp_ops.chain_floor_plain(s_floor, 4096)),
+          "chain_floor differs from its plain version")
+    n8 = C.n - C.n % 8
+    floor_ms = paired_ms([lambda: dp_ops.chain_floor(s_floor, n8)], dev,
+                         iters=3)[0] * C.n / n8
+    table_work, rec_work = dp_work(pos, wts, W)
+    ms = {"dp_table": {"ms": t_table[0], "plain_ms": t_table[1], "library_ms": None},
+          "dp_recurrence": {"ms": t_rec, "plain_ms": rec_plain_ms,
+                            "plain_clock": "host", "library_ms": None,
+                            "dependent_floor_ms": floor_ms}}
+    for key, work in (("dp_table", table_work), ("dp_recurrence", rec_work)):
+        ms[key]["bound_ms"], ms[key]["bound_by"] = bound64(*work)
+    rec["kernels"] = ms
+    print(f"[17 plan] {label}: dp_table {t_table[0] * 1e3:.1f} us (plain "
+          f"{t_table[1] * 1e3:.1f} us, bound {ms['dp_table']['bound_ms'] * 1e3:.2f} "
+          f"us, {ms['dp_table']['bound_by']}); dp_recurrence {t_rec:.3f} ms "
+          f"({t_rec * 1e6 / C.n:.1f} ns a step; plain {rec_plain_ms:.1f} ms on the "
+          f"host clock; bound {ms['dp_recurrence']['bound_ms'] * 1e3:.2f} us, "
+          f"{ms['dp_recurrence']['bound_by']}; the {C.n}-step dependent floor "
+          f"{floor_ms:.3f} ms, {floor_ms * 1e6 / C.n:.2f} ns a step)", flush=True)
+    wide = dp_inputs(C, model, DP_WIDE, Pi, device=dev)
+    S_wide = dp_ops.dp_table(*wide[:2], dp_ops.prev_occurrence(*wide[:2]),
+                             *wide[2:], DP_WIDE)
+    t_wide = paired_ms([lambda: dp_ops.dp_recurrence(S_wide)], dev, iters=3)[0]
+    got = vt.dp_partition_device(C, model, DP_WIDE, device=dev)
+    check(np.array_equal(got.spl, dp_partition(C, model, DP_WIDE).spl),
+          f"{label} at W = {DP_WIDE}: the device DP's split points differ "
+          "from the host DP's")
+    rec["wide"] = {"W": DP_WIDE, "dp_recurrence_ms": t_wide,
+                   "ns_a_step": t_wide * 1e6 / C.n, "stripes": len(got),
+                   "equal_host": True}
+    print(f"[17 plan] {label} at W = {DP_WIDE} (past the register ring: the "
+          f"plain loop): dp_recurrence {t_wide:.3f} ms ({t_wide * 1e6 / C.n:.1f} "
+          f"ns a step) beside {t_rec:.3f} ms at W = {W}; {len(got)} stripes "
+          "equal to the host DP's", flush=True)
+    rec["seconds_dp"] = time.perf_counter() - t_phase
+    print("PLAN " + json.dumps(rec), flush=True)
+
+    t0 = time.perf_counter()
+    pack = probe_pack.run("all", dev)
+    print("PACK " + json.dumps({"card": smi, "stages_s": pack,
+                                "seconds": time.perf_counter() - t0}), flush=True)
+    t0 = time.perf_counter()
+    rows = weak_scaling.measure(WEAK_L0, WEAK_WORLD, dev, reps=WEAK_REPS)
+    model = weak_scaling.analytic(rows)
+    print(f"[17 weak] l0 {WEAK_L0}: "
+          + "; ".join(f"N={r['ndev']} {r['path']} ({r['backend']}) "
+                      f"{r['t_us']:.1f} us, {r['gnnz_s']:.3f} Gnnz/s, halo "
+                      f"{r['halo_kib']:.0f} KiB, eff "
+                      f"{'-' if r['efficiency'] is None else format(r['efficiency'], '.3f')}"
+                      for r in rows)
+          + f"; NOTE: {weak_scaling.SHARED_CARD}", flush=True)
+    print("WEAK " + json.dumps({"card": smi, "l0": WEAK_L0, "rows": rows,
+                                "analytic_model": model,
+                                "seconds": time.perf_counter() - t0}), flush=True)
+    return launches, ms
+
+
 def reset_launches():
     for kern in KERNELS:
         kern.launches = 0
@@ -2470,6 +2740,10 @@ def main():
         launches[k] += v
     print(f"[16 launches] the distributed paths, summed over ranks and worlds: "
           f"{d_launches}", flush=True)
+    p_launches, p_ms = phase_plan(dev, flag, fem, mdl, mdl2, smi, errs)
+    launches.update(p_launches)
+    ms.update(p_ms)
+    print(f"[17 launches] the plans: {p_launches}", flush=True)
     check("jax" not in sys.modules, "the port loaded JAX")
     meta = [
         ("tr_spmv_stripe", "tr_spmv", "trspmv.cu",
@@ -2491,6 +2765,10 @@ def main():
          "bench_tools/probe_kernel.py:78, bench_tools/probe_kernel2.py:71"),
         ("probe_chain", "chain", "probe_chain.cu", "bench_tools/probe_chain.py:66"),
         ("probe_spmm4_fma", "fma", "probe_spmm4.cu", "bench_tools/probe_spmm4.py:45"),
+        ("dp_table", "dp_table", "dp.cu",
+         "vbcs_tpu/plan/jax_dp.py:54, vbcs_tpu/plan/jax_dp.py:155 (lax.scan)"),
+        ("dp_recurrence", "dp_recurrence", "dp.cu",
+         "vbcs_tpu/plan/jax_dp.py:54, vbcs_tpu/plan/jax_dp.py:155 (lax.scan)"),
     ]
     rec = [{"name": name, "route": "cuda",
             "source": f"vbcs_tpu_torch/csrc/{src}", "replaces": replaces,

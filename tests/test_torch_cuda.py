@@ -847,3 +847,98 @@ def test_autotune_sample_on_card(cuda_device):
     t2, name2 = at._measure_shipped_2d(B2, cuda_device)
     assert name2 == "tile2d" and t2 is not None and t2 > 0
 
+
+
+# ---- slice 10: the split-point DP (csrc/dp.cu) ----------------------------
+
+def _dp_models(W, m):
+    rng = np.random.default_rng(W)
+    fitted_1d = vt.ColumnBlockComponentCostModel(
+        np.cumsum(rng.uniform(0.1, 1.3, W)) * 0.37,
+        np.cumsum(rng.uniform(0.01, 0.2, W)) * 0.29)
+    fitted_2d = vt.BlockComponentCostModel(
+        alpha_row=1.0, alpha_col=np.cumsum(rng.uniform(0.1, 1.3, W)) * 0.41,
+        beta_row=(np.cumsum(rng.uniform(0.1, 0.5, 4)) * 0.3, rng.uniform(0.05, 0.3, 4)),
+        beta_col=(np.cumsum(rng.uniform(0.01, 0.2, W)) * 0.7,
+                  np.cumsum(rng.uniform(0.01, 0.1, W))))
+    return [(vt.model_1dvbc_memory(4, 8), None), (fitted_1d, None),
+            (vt.model_vbc_memory(4, 8), vt.SplitPartition.equi(m, 3)),
+            (fitted_2d, vt.SplitPartition.equi(m, 4))]
+
+
+@pytest.mark.parametrize("W", [1, 5, 8, 16, 33])
+def test_dp_kernels_match_plain(W, cuda_device):
+    """Both DP kernels bitwise against their plain versions (S, opt, prev)
+    in the register ring (W <= 8: 1, 5, 8) and past it (16, 33: the plain
+    loop), and the split points against the host C++ DP."""
+    from vbcs_tpu_torch.ops import dp as dp_ops
+    from vbcs_tpu_torch.plan.device_dp import dp_inputs
+    from vbcs_tpu_torch.plan.dynamic import dp_partition
+
+    for seed, shape in enumerate(((300, 2000), (2000, 300), (50, 3000))):
+        A = vt.CSC.from_scipy(sp.random(*shape, 0.03, random_state=seed, format="csc"))
+        for model, Pi in _dp_models(W, shape[0]):
+            pos, grp, wts, alpha, beta = dp_inputs(A, model, W, Pi, device=cuda_device)
+            prevcol = dp_ops.prev_occurrence(pos, grp)
+            S = dp_ops.dp_table(pos, grp, prevcol, wts, alpha, beta, W)
+            S_plain = dp_ops.dp_table_plain(pos, grp, prevcol, wts, alpha, beta, W)
+            prev, opt = dp_ops.dp_recurrence(S)
+            prev_plain, opt_plain = dp_ops.dp_recurrence_plain(S_plain)
+            torch.cuda.synchronize()
+            assert torch.equal(S, S_plain)
+            assert torch.equal(opt, opt_plain) and torch.equal(prev, prev_plain)
+            got = (vt.dp_partition_device(A, model, W, device=cuda_device) if Pi is None
+                   else vt.dp_partition_device_2d(A, model, W, Pi, device=cuda_device))
+            np.testing.assert_array_equal(
+                got.spl, dp_partition(A, model, W, row_partition=Pi).spl)
+
+
+def test_dp_table_window_in_device_memory(cuda_device):
+    """R * W too large for shared memory: the table's window in a scratch
+    buffer (the size the kernel's source asks for); and W = 2,100, a width
+    past the columns of the matrix, on the recurrence's plain loop."""
+    from vbcs_tpu_torch.ops import dp as dp_ops
+    from vbcs_tpu_torch.plan.device_dp import dp_inputs
+
+    A = vt.CSC.from_scipy(sp.random(200, 700, 0.05, random_state=3, format="csc"))
+    W = 50
+    mdl = vt.BlockComponentCostModel(
+        alpha_row=2.0, alpha_col=np.linspace(5, 9, W),
+        beta_row=tuple(np.array([1.0, 1.5]) * k for k in (1, 2, 3, 4, 5)),
+        beta_col=tuple(np.linspace(1, 2.5, W) * k for k in (1, .5, .25, .3, .2)))
+    for model, W, Pi in ((mdl, 50, vt.SplitPartition.equi(200, 2)),
+                         (vt.model_1dvbc_memory(4, 8), 2100, None)):
+        inputs = dp_inputs(A, model, W, Pi, device=cuda_device)
+        prevcol = dp_ops.prev_occurrence(*inputs[:2])
+        S = dp_ops.dp_table(inputs[0], inputs[1], prevcol, *inputs[2:], W)
+        S_plain = dp_ops.dp_table_plain(inputs[0], inputs[1], prevcol, *inputs[2:], W)
+        assert torch.equal(S, S_plain)
+        prev, opt = dp_ops.dp_recurrence(S)
+        prev_plain, opt_plain = dp_ops.dp_recurrence_plain(S_plain)
+        assert torch.equal(opt, opt_plain) and torch.equal(prev, prev_plain)
+
+
+def test_dp_flagship_split_points(cuda_device):
+    """The flagship and the FEM, 1-D and 2-D, planned on the card, equal
+    to the host C++ DP's."""
+    from vbcs_tpu_torch.plan.dynamic import dp_partition
+
+    F = vt.CSC.from_scipy(blocky_matrix())
+    Fe = vt.CSC.from_scipy(fem_matrix(k=320))
+    for A in (F, Fe):
+        got = vt.dp_partition_device(A, vt.model_1dvbc_memory(4, 8), 8, device=cuda_device)
+        np.testing.assert_array_equal(
+            got.spl, dp_partition(A, vt.model_1dvbc_memory(4, 8), 8).spl)
+    Pi = vt.SplitPartition.equi(F.m, 8)
+    got = vt.dp_partition_device_2d(F, vt.model_vbc_memory(4, 8), 8, Pi, device=cuda_device)
+    np.testing.assert_array_equal(
+        got.spl, dp_partition(F, vt.model_vbc_memory(4, 8), 8, row_partition=Pi).spl)
+
+
+def test_dp_chain_floor_matches_plain(cuda_device):
+    from vbcs_tpu_torch.ops import dp as dp_ops
+
+    s = torch.tensor([1.0, 3.0, 2.0, 5.0, 4.0, 7.0, 6.0, 8.0, 1e300],
+                     dtype=torch.float64, device=cuda_device) * 1e-3
+    for n in (0, 8, 4096):
+        assert torch.equal(dp_ops.chain_floor(s, n), dp_ops.chain_floor_plain(s, n))

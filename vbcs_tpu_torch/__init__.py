@@ -8,22 +8,26 @@ there:
   oracles), and ``VBC1DDevice``/``VBC2DDevice``/``ScatterDevice``, their
   arrays on a torch device, with ``SemiringDevice``, a pack's stored
   values flat in any dtype;
-* ``plan``     — chunkers, the ``DynamicTotalChunker`` optimal DP, the
-  ``AlternatingPacker`` 2-D planner, symmetric RCM and its locality
-  estimate;
+* ``plan``     — chunkers, the ``DynamicTotalChunker`` optimal DP (on
+  the host, and ``dp_partition_device`` on a torch device), the
+  ``AlternatingPacker`` 2-D planner, the row and symmetric reorderings
+  and the locality estimate;
 * ``models``   — the 1-D and 2-D cost models and the autotuned time
   models, fit on the card;
 * ``ops``      — the hand-written CUDA kernels (``csrc/``) with their
-  plain PyTorch versions, the semiring SpMV/SpMM in any dtype and the
-  CSC baseline;
+  plain PyTorch versions (the products, and the DP's cost table and
+  recurrence), the semiring SpMV/SpMM in any dtype and the CSC baseline;
 * ``native``   — ctypes bindings to the C++ host paths (the port's own
   copy of the JAX package's source);
 * ``operator`` — ``VBCOperator`` (``tr_mul``/``mul``, ``tr_mul_chain``,
   ``tr_mul_mat``/``mul_mat``) and ``VBC2DOperator``;
 * ``probes``   — micro-probes of the kernels on the card (ports of
-  ``bench_tools/probe_*.py``, each on a kernel of its own);
+  ``bench_tools/probe_*.py``, each on a kernel of its own) and the host
+  stages' timings (``probe_pack``);
 * ``tools``    — the method table (``python -m
-  vbcs_tpu_torch.tools.method_table``);
+  vbcs_tpu_torch.tools.method_table``), the distributed weak-scaling
+  rows (``python -m vbcs_tpu_torch.tools.weak_scaling``) and the JAX
+  bench's four matrices;
 * ``utils``    — CUDA-event timing and the roofline and trace helpers.
 
 Importing this package loads no JAX.  Devices are never picked
@@ -81,6 +85,7 @@ from .plan.alternating import (
 )
 from .plan.chunkers import EquiChunker, OverlapChunker, StrictChunker
 from .plan.dynamic import DynamicTotalChunker
-from .plan.reorder import rcm_symmetric, window_badness
+from .plan.device_dp import dp_partition_device, dp_partition_device_2d
+from .plan.reorder import profile_rows, rcm_rows, rcm_symmetric, window_badness
 
 __version__ = "0.1.0"

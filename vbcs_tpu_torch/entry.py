@@ -193,9 +193,10 @@ def operand(job, device) -> torch.Tensor:
 def rank_paths(rank, world, device, jobs, reps=0):
     """Run each job on this rank: ``job = {"path", "B", "x"}`` (a key of
     :data:`PATHS`, a host pack, the whole x or X: :func:`operand`), with
-    the path's keyword arguments as ``"options"`` and its own ``"reps"``
-    in place of ``reps``.  Each job's first call runs between a reset and
-    a read of the kernels' launch counts.  Returns a record a job: ``y``
+    the path's keyword arguments as ``"options"``, its own ``"reps"`` in
+    place of ``reps`` and ``"kernel_ms": False`` to time the walls alone.
+    Each job's first call runs between a reset and a read of the kernels'
+    launch counts.  Returns a record a job: ``y``
     (rank 0 only), ``launches``, the shard's ``stats``, ``plain``
     (:func:`against_plain` of the path's :func:`kernel_calls`; on the CPU
     a wrapper runs its plain version, so there it checks only which
@@ -232,6 +233,9 @@ def rank_paths(rank, world, device, jobs, reps=0):
                 torch.cuda.synchronize(device)
                 walls.append((time.perf_counter() - t0) * 1e3)
             rec["wall_ms"] = statistics.median(walls)
+            if not job.get("kernel_ms", True):
+                out.append(rec)
+                continue
             by_kernel = {}
             for k, args in calls:
                 by_kernel.setdefault(k.__name__, []).append((k, args))

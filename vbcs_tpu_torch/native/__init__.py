@@ -15,6 +15,7 @@ stay the bitwise oracles.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -32,15 +33,24 @@ __all__ = [
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vbc_native.cpp")
-SO = os.path.join(_ROOT, "build", "libvbcnative.so")
+# -ffp-contract=off: each product and sum rounded apart, as in the NumPy
+# oracle and the device DP (g++ would contract the DP's ``stripe += a *
+# beta`` into an FMA under -march=native, which flips ties on fractional
+# cost tables)
+FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC",
+         "-std=c++17")
+# the flags are part of the library's name: a build under other flags is
+# never loaded in its place
+SO = os.path.join(_ROOT, "build", "libvbcnative-" + hashlib.sha256(
+    " ".join(FLAGS).encode()).hexdigest()[:12] + ".so")
 _lock = threading.Lock()
 _lib = None
 _failed = False
 
 
 def build() -> float:
-    """Compile ``SRC`` into ``SO`` if it is missing or older than the
-    source; returns the seconds spent (0.0 when up to date).  Raises
+    """Compile ``SRC`` with ``FLAGS`` into ``SO`` if it is missing or older
+    than the source; returns the seconds spent (0.0 when up to date).  Raises
     ``OSError`` or ``subprocess.CalledProcessError`` when g++ fails."""
     if os.path.exists(SO) and os.path.getmtime(SO) >= os.path.getmtime(SRC):
         return 0.0
@@ -49,8 +59,7 @@ def build() -> float:
     # build at the same time never load a half-written library
     tmp = f"{SO}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           SRC, "-o", tmp]
+    cmd = ["g++", *FLAGS, SRC, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
         os.replace(tmp, SO)

@@ -118,6 +118,15 @@ def load():
             lib.vbcs_chain_grid.restype = i32
             lib.vbcs_tile_relayout.argtypes = [i32, i32, vp, vp, vp]
             lib.vbcs_tile_relayout.restype = i32
+            # the split-point DP (ops/dp.py)
+            lib.vbcs_dp_table.argtypes = [i64, i32, i32, i64] + [vp] * 9
+            lib.vbcs_dp_table.restype = i32
+            lib.vbcs_dp_table_scratch_doubles.argtypes = [i64, i32, i32]
+            lib.vbcs_dp_table_scratch_doubles.restype = i64
+            lib.vbcs_dp_recurrence.argtypes = [i64, i32] + [vp] * 4
+            lib.vbcs_dp_recurrence.restype = i32
+            lib.vbcs_dp_chain_floor.argtypes = [i64] + [vp] * 3
+            lib.vbcs_dp_chain_floor.restype = i32
             # the probes (vbcs_tpu_torch/probes)
             lib.vbcs_probe_add_one.argtypes = [i32, vp, vp, vp]
             lib.vbcs_probe_add_one.restype = i32

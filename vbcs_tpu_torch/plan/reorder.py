@@ -1,11 +1,16 @@
-"""Symmetric RCM relabeling and the locality estimate that decides it.
+"""Row and column reorderings for x locality, and the estimate that
+decides auto-RCM.
 
-Port of ``rcm_symmetric`` and ``window_badness`` from
-``vbcs_tpu/plan/reorder.py`` (NumPy/SciPy; bitwise the same outputs), so
-the port's auto-RCM decision equals the JAX operator's.  The estimate
-models the TPU stream kernel's x-gather through aligned 1024-element
-windows; whether that heuristic still pays on the GPU is an open
-question (ROADMAP.md).
+Port of ``vbcs_tpu/plan/reorder.py`` (NumPy/SciPy; bitwise the same
+permutations and CSC arrays): the row reorderings :func:`rcm_rows`
+(reverse Cuthill-McKee on the symmetrized graph, or on ``A @ A.T`` for a
+rectangle) and :func:`profile_rows` (rows by the mean column of their
+nonzeros, empty rows last), both returning ``(A[perm, :], perm)``; for
+``y = A.T @ x`` only ``x -> x[perm]`` changes.  Then the symmetric
+relabeling :func:`rcm_symmetric` and :func:`window_badness`, so the port's
+auto-RCM decision equals the JAX operator's.  The estimate models the TPU
+stream kernel's x-gather through aligned 1024-element windows; whether
+that heuristic still pays on the GPU is an open question (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -14,7 +19,45 @@ import numpy as np
 
 from ..formats.csc import CSC
 
-__all__ = ["rcm_symmetric", "window_badness"]
+__all__ = ["apply_row_perm", "rcm_rows", "profile_rows", "rcm_symmetric",
+           "window_badness"]
+
+
+def apply_row_perm(A: CSC, perm: np.ndarray) -> CSC:
+    """``A[perm, :]`` as CSC (row ``perm[k]`` becomes row ``k``)."""
+    import scipy.sparse as sp
+
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size)
+    S = A.to_scipy().tocoo()
+    return CSC.from_scipy(
+        sp.coo_matrix((S.data, (inv[S.row], S.col)), shape=(A.m, A.n)))
+
+
+def rcm_rows(A: CSC):
+    """Reverse Cuthill-McKee row order: on ``A + A.T`` for a square matrix,
+    on the row graph ``A @ A.T`` otherwise.  Returns ``(A[perm, :], perm)``."""
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    S = A.to_scipy()
+    G = (S + S.T).tocsr() if A.m == A.n else (S @ S.T).tocsr()
+    perm = np.asarray(reverse_cuthill_mckee(G, symmetric_mode=True))
+    return apply_row_perm(A, perm), perm
+
+
+def profile_rows(A: CSC):
+    """Rows by the mean column of their nonzeros (stable; empty rows last).
+    Returns ``(A[perm, :], perm)``."""
+    S = A.to_scipy().tocsr()
+    per_row = np.diff(S.indptr)
+    # exact integer sums, as the JAX package's np.add.reduceat, which
+    # raises when the last row is empty
+    sums = np.bincount(np.repeat(np.arange(A.m), per_row),
+                       weights=S.indices.astype(np.float64), minlength=A.m)
+    mean = sums / np.maximum(1, per_row)
+    mean[per_row == 0] = np.inf
+    perm = np.argsort(mean, kind="stable")
+    return apply_row_perm(A, perm), perm
 
 
 def rcm_symmetric(A: CSC):
