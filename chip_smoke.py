@@ -110,17 +110,20 @@ Phases (one line each; any failure raises and exits non-zero):
     ``entry()`` and
     ``dryrun_multichip(4, backend="gloo")`` (a ``DIST {...}`` line);
 17. the split-point DP on the card (``dp_partition_device``,
-    ``dp_partition_device_2d``; ``csrc/dp.cu``): the flagship and the
-    scrambled FEM at W=8 (1-D), ``blocky2d_matrix()`` under
-    ``SplitPartition.equi(m, 4)`` and the flagship under ``equi(m, 8)``
-    (2-D), with the memory models and again with phase 14's fitted time
-    models (the 2-D one at U=W=4); every plan's split points against the
-    host C++ DP's, both kernels (the stripe-cost table and the recurrence)
-    bitwise against their plain versions on each matrix's first 4,096
-    columns, each pass's device time beside the plan's host wall and the
-    host DP's, the recurrence beside its n-step dependent floor, and the
-    flagship's recurrence again at W = 16, past its register ring (a
-    ``PLAN {...}`` line); then ``probes/probe_pack.py`` (every host stage
+    ``dp_partition_device_2d``; ``csrc/dp.cu``, ``csrc/dp_scan.cu``): the
+    flagship and the scrambled FEM at W=8 (1-D), ``blocky2d_matrix()``
+    under ``SplitPartition.equi(m, 4)`` and the flagship under ``equi(m,
+    8)`` (2-D), with the memory models (exact tables: the scan's route)
+    and again with phase 14's fitted time models (the 2-D one at U=W=4;
+    fractional: the serial fold's route), and the flagship at W = 16;
+    every plan's split points against the host C++ DP's, its route and the
+    host ms of each stage of its wall (index copy, sort, table,
+    recurrence, backtrack); the three kernels (the stripe-cost table, the
+    scan, the serial fold) bitwise against their plain versions on each
+    matrix's first 4,096 columns and the scan also on the whole flagship;
+    each pass's device time beside the plan's host wall and the host
+    DP's, the serial fold beside its n-step dependent floor, and the scan
+    and the serial fold at W = 16 (a ``PLAN {...}`` line); then ``probes/probe_pack.py`` (every host stage
     of plan and pack, a ``PACK {...}`` line) and
     ``tools/weak_scaling.py`` at ``WEAK_L0`` stripes a rank (N = 1 on one
     NCCL rank, N = 2 in gloo ranks sharing the card; a ``WEAK {...}``
@@ -165,8 +168,8 @@ chunk, chain-probe and FMA kernels), the autotuner of phase 14 and the
 method table of phase 15 (the routed kernels), and each distributed
 path of phase 16 on every rank (counted in the ranks, summed over them:
 the stripe, scatter, SpMM and tile TrSpMV kernels, and the gather on the
-halo paths), and the plans of phase 17 (the DP's table and recurrence, once a
-plan).  No f32 call of phases
+halo paths), and the plans of phase 17 (the DP's table once a plan and
+exactly one recurrence kernel, the one the plan's route names).  No f32 call of phases
 4-10 enters ``ops/semiring.py`` (a spy counts), and phase 13's calls do.
 Then each kernel is held against its
 plain version at the shapes those paths gave it: the stripe kernel on
@@ -215,7 +218,7 @@ from vbcs_tpu_torch.probes import (probe_chain, probe_kernel, probe_kernel2,
 from vbcs_tpu_torch.probes._common import marginal_ms
 from vbcs_tpu_torch.probes import probe_pack
 from vbcs_tpu_torch.ops import dp as dp_ops
-from vbcs_tpu_torch.plan.device_dp import dp_inputs
+from vbcs_tpu_torch.plan.device_dp import STAGES, dp_inputs, dp_route, dp_stages
 from vbcs_tpu_torch.plan.dynamic import dp_partition
 from vbcs_tpu_torch.tools import method_table, weak_scaling
 from vbcs_tpu_torch.utils.timing import flushed_ms, host_ms, paired_ms
@@ -2339,7 +2342,7 @@ def phase_dist(dev, flag, parts, smi, errs):
 # ---- slice 10: the split-point DP on the card, the pack stages, weak scaling
 
 DP_CUT = 4096  # the first columns of each matrix, where the kernels are held bitwise
-DP_KERNELS = (dp_ops.dp_table, dp_ops.dp_recurrence)
+DP_KERNELS = (dp_ops.dp_table, dp_ops.dp_recurrence, dp_ops.dp_recurrence_scan)
 # H100 SXM data sheet: f64 outside the tensor cores (the DP's type)
 F64_FLOP_PER_S = 34e12
 WEAK_L0 = 1000  # stripes a rank in the weak-scaling rows
@@ -2347,7 +2350,7 @@ WEAK_REPS = 3
 # N = 1 and 2: each N is a world of its own, and a world's start-up, not
 # its rows, is the cost (phase 16 runs the 4-rank gloo world)
 WEAK_WORLD = 2
-DP_WIDE = 16  # past the recurrence's register ring (W <= 8): its plain loop
+DP_WIDE = 16  # past the serial fold's register ring (W <= 8): its plain loop
 
 
 def dp_cases(flag, fem, mdl, mdl2):
@@ -2355,7 +2358,8 @@ def dp_cases(flag, fem, mdl, mdl2):
     (integer tables) and phase 14's fitted time models (fractional), 1-D
     on the flagship and the scrambled FEM, 2-D on ``blocky2d_matrix()`` and
     the flagship (the 2-D time model was fit at U = W = 4: W = 4 and
-    tiles of 4 rows)."""
+    tiles of 4 rows); last, the flagship's 1-D memory plan at
+    ``DP_WIDE``."""
     F, Fe = vt.CSC.from_scipy(flag[0]), vt.CSC.from_scipy(fem[0])
     B2 = vt.CSC.from_scipy(blocky2d_matrix())
     mem1, mem2 = vt.model_1dvbc_memory(4, 8), vt.model_vbc_memory(4, 8)
@@ -2367,7 +2371,8 @@ def dp_cases(flag, fem, mdl, mdl2):
             ("flagship 1-D time", F, mdl, 8, None),
             ("FEM 1-D time", Fe, mdl, 8, None),
             ("blocky2d 2-D time", B2, mdl2, 4, equi(B2.m, 4)),
-            ("flagship 2-D time", F, mdl2, 4, equi(F.m, 4))]
+            ("flagship 2-D time", F, mdl2, 4, equi(F.m, 4)),
+            (f"flagship 1-D memory W={DP_WIDE}", F, mem1, DP_WIDE, None)]
 
 
 def device_plan(C, model, W, Pi, dev):
@@ -2390,7 +2395,8 @@ def dp_work(pos, wts, W):
     inputs: each input read once and S, opt and prev written once; the
     table's counter updates (each nonzero, once for every window holding
     its column), suffix sums and stripe costs, the recurrence's add and
-    compare per candidate."""
+    compare per candidate (the serial fold's count: the least work of the
+    function, whichever kernel computes it)."""
     p = pos.cpu().numpy()
     n, nnz = p.size - 1, int(p[-1])
     R = 1 if wts is None else wts.shape[0]
@@ -2413,8 +2419,8 @@ def bound64(nbytes, ops):
 
 def dp_passes_ms(inputs, W, dev):
     """Device ms of each pass of ``dp_prev`` on ``inputs`` (CUDA events,
-    the second of two runs)."""
-    pos, grp, wts, alpha, beta = inputs
+    the second of two runs), the recurrence on the inputs' route."""
+    pos, grp, wts, alpha, beta, exact = inputs
     for _ in range(2):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
@@ -2422,60 +2428,106 @@ def dp_passes_ms(inputs, W, dev):
         ev[1].record()
         S = dp_ops.dp_table(pos, grp, prevcol, wts, alpha, beta, W)
         ev[2].record()
-        dp_ops.dp_recurrence(S)
+        dp_ops.dp_recurrence(S, exact)
         ev[3].record()
         torch.cuda.synchronize()
     return {"prev_occurrence": ev[0].elapsed_time(ev[1]),
             "dp_table": ev[1].elapsed_time(ev[2]),
-            "dp_recurrence": ev[2].elapsed_time(ev[3])}
+            "recurrence": ev[2].elapsed_time(ev[3])}
 
 
 def dp_against_plain(label, C, model, W, Pi, dev):
-    """Both kernels against their plain versions on the first ``DP_CUT``
-    columns: S, opt and prev bitwise.  Returns the largest |Δ| of each."""
-    pos, grp, wts, alpha, beta = dp_inputs(csc_cut(C, DP_CUT), model, W, Pi,
-                                           device=dev)
+    """The three kernels against their plain versions on the first
+    ``DP_CUT`` columns: S, and opt and prev of the serial fold and of the
+    scan, bitwise (the scan follows its plain version's order of sums, so
+    this holds on fractional tables too); on exact tables the scan also
+    equal to the serial fold.  Returns the largest |Δ| of each."""
+    pos, grp, wts, alpha, beta, exact = dp_inputs(csc_cut(C, DP_CUT), model, W,
+                                                  Pi, device=dev)
     prevcol = dp_ops.prev_occurrence(pos, grp)
     S = dp_ops.dp_table(pos, grp, prevcol, wts, alpha, beta, W)
     S_plain = dp_ops.dp_table_plain(pos, grp, prevcol, wts, alpha, beta, W)
     prev, opt = dp_ops.dp_recurrence(S)
     prev_plain, opt_plain = dp_ops.dp_recurrence_plain(S_plain)
+    scan_prev, scan_opt = dp_ops.dp_recurrence_scan(S)
+    scan_prev_plain, scan_opt_plain = dp_ops.dp_recurrence_scan_plain(S_plain)
     torch.cuda.synchronize()
     check(torch.equal(S, S_plain), f"{label}: dp_table differs from its plain version")
     check(torch.equal(opt, opt_plain) and torch.equal(prev, prev_plain),
           f"{label}: dp_recurrence differs from its plain version")
+    check(torch.equal(scan_opt, scan_opt_plain) and torch.equal(scan_prev, scan_prev_plain),
+          f"{label}: dp_recurrence_scan differs from its plain version")
+    check(not exact or (torch.equal(scan_opt, opt) and torch.equal(scan_prev, prev)),
+          f"{label}: on exact tables the scan differs from the serial fold")
     finite = torch.isfinite(S_plain)
     return {"dp_table": float((S - S_plain)[finite].abs().max()),
-            "dp_recurrence": float((opt - opt_plain).abs().max())}
+            "dp_recurrence": float((opt - opt_plain).abs().max()),
+            "dp_recurrence_scan": float((scan_opt - scan_opt_plain).abs().max())}
+
+
+def recurrence_record(label, S, exact, dev):
+    """The recurrence kernel of ``S``'s route on the whole matrix: its
+    device ms, its plain version's and the result against the plain
+    version (bitwise) and, for the scan, against the serial fold; the
+    serial fold's plain version is Python, timed on the host clock."""
+    kern = dp_ops.dp_recurrence_scan if exact else dp_ops.dp_recurrence
+    plain = dp_ops.dp_recurrence_scan_plain if exact else dp_ops.dp_recurrence_plain
+    got = kern(S)
+    t = paired_ms([lambda: kern(S)], dev, iters=3)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain(S)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{label}: {kern.__name__} differs from its plain version")
+    if exact:
+        check(torch.equal(got[0], dp_ops.dp_recurrence(S)[0]),
+              f"{label}: the scan differs from the serial fold")
+    return {"ms": t, "plain_ms": plain_ms, "plain_clock": "host",
+            "library_ms": None}
 
 
 def phase_plan(dev, flag, fem, mdl, mdl2, smi, errs):
     """17: the split-point DP on the card (``dp_partition_device``,
     ``dp_partition_device_2d``) on the cases of :func:`dp_cases`, each
-    plan's split points against the host C++ DP's, both kernels against
-    their plain versions on the first ``DP_CUT`` columns (bitwise), the
-    device time of each pass (CUDA events) beside the device plan's host
-    wall (copies and backtrack included) and the host DP's, the chain's
-    dependent floor, the flagship's recurrence at ``DP_WIDE``; then
-    ``probe_pack`` (all stages) and the weak-scaling rows at ``WEAK_L0``
-    up to ``WEAK_WORLD`` ranks.  Prints ``PLAN``, ``PACK`` and ``WEAK`` lines;
-    returns the DP kernels' launches on the plans and their timing
-    records."""
+    plan's split points against the host C++ DP's and its launches (the
+    table once, one recurrence kernel: its route's), the host ms of each
+    stage of the plan (``dp_stages``), the three kernels against their
+    plain versions on the first ``DP_CUT`` columns (bitwise), the device
+    time of each pass (CUDA events) beside the device plan's host wall and
+    the host DP's; the table and the scan (flagship, memory, W = 8, and
+    ``DP_WIDE``) and the serial fold (flagship, time model) on the whole
+    matrix against their plain versions, timed, and the serial fold beside
+    its dependent floor and at ``DP_WIDE``; then ``probe_pack`` (all
+    stages) and the weak-scaling rows at ``WEAK_L0`` up to ``WEAK_WORLD``
+    ranks.  Prints ``PLAN``, ``PACK`` and ``WEAK`` lines; returns the DP
+    kernels' launches on the plans and their timing records."""
     t_phase = time.perf_counter()
     cases = dp_cases(flag, fem, mdl, mdl2)
-    for k in DP_KERNELS:
-        k.launches = 0
+    launches = {k.__name__: 0 for k in DP_KERNELS}
+    routes = {}
     for label, C, model, W, Pi in cases:
+        for k in DP_KERNELS:
+            k.launches = 0
         got = device_plan(C, model, W, Pi, dev)
+        counts = {k.__name__: k.launches for k in DP_KERNELS}
+        routes[label] = route = dp_route(C, model, W, Pi)
         want = dp_partition(C, model, W, row_partition=Pi)
         check(np.array_equal(got.spl, want.spl),
               f"{label}: the device DP's split points differ from the host DP's")
-    launches = {k.__name__: k.launches for k in DP_KERNELS}
-    check(all(v == len(cases) for v in launches.values()),
-          f"the plans did not launch each DP kernel once a plan: {launches}")
+        want_counts = {"dp_table": 1, "dp_recurrence": int(route == "serial"),
+                       "dp_recurrence_scan": int(route == "scan")}
+        check(counts == want_counts,
+              f"{label}: the plan launched {counts}, want {want_counts} "
+              f"(route {route})")
+        for k, v in counts.items():
+            launches[k] += v
+    check(routes[cases[0][0]] == "scan" and routes[cases[4][0]] == "serial",
+          f"the memory plans take the scan, the time plans the serial fold: {routes}")
     rec = {"card": smi, "cut": DP_CUT, "cases": {}}
     for label, C, model, W, Pi in cases:
-        walls, hosts = [], []
+        walls, hosts, stages = [], [], None
         for _ in range(2):
             t0 = time.perf_counter()
             got = device_plan(C, model, W, Pi, dev)
@@ -2483,6 +2535,8 @@ def phase_plan(dev, flag, fem, mdl, mdl2, smi, errs):
             t0 = time.perf_counter()
             dp_partition(C, model, W, row_partition=Pi)
             hosts.append((time.perf_counter() - t0) * 1e3)
+            staged, stages = dp_stages(C, model, W, Pi, device=dev)
+            check(staged == got, f"{label}: dp_stages planned otherwise")
         inputs = dp_inputs(C, model, W, Pi, device=dev)
         passes = dp_passes_ms(inputs, W, dev)
         cut = dp_against_plain(label, C, model, W, Pi, dev)
@@ -2491,18 +2545,21 @@ def phase_plan(dev, flag, fem, mdl, mdl2, smi, errs):
         rec["cases"][label] = {
             "n": C.n, "nnz": C.nnz, "W": W,
             "R": 1 if inputs[2] is None else int(inputs[2].shape[0]),
-            "stripes": len(got), "equal_host": True, "host_dp_ms": min(hosts),
-            "device_wall_ms": min(walls), "passes_ms": passes,
-            "ns_a_step": passes["dp_recurrence"] * 1e6 / C.n, "cut_max_abs": cut}
-        print(f"[17 plan] {label}: n {C.n}, W {W}, {len(got)} stripes equal to "
-              f"the host DP's; device passes (ms) prev {passes['prev_occurrence']:.3f}, "
-              f"table {passes['dp_table']:.3f}, recurrence "
-              f"{passes['dp_recurrence']:.3f} ({passes['dp_recurrence'] * 1e6 / C.n:.1f}"
-              f" ns a step); device plan wall {min(walls):.2f} ms against the host "
-              f"C++ DP {min(hosts):.2f} ms; cut of {DP_CUT} columns bitwise", flush=True)
-    # the kernels line's numbers: the flagship's min-memory plan
+            "route": stages["route"], "stripes": len(got), "equal_host": True,
+            "host_dp_ms": min(hosts), "device_wall_ms": min(walls),
+            "stages_ms": {k: stages[k] for k in STAGES}, "passes_ms": passes,
+            "ns_a_step": passes["recurrence"] * 1e6 / C.n, "cut_max_abs": cut}
+        print(f"[17 plan] {label}: n {C.n}, W {W}, route {stages['route']}, "
+              f"{len(got)} stripes equal to the host DP's; device passes (ms) prev "
+              f"{passes['prev_occurrence']:.3f}, table {passes['dp_table']:.3f}, "
+              f"recurrence {passes['recurrence']:.3f}; device plan wall "
+              f"{min(walls):.2f} ms against the host C++ DP {min(hosts):.2f} ms; "
+              "stages (host ms) " + ", ".join(f"{k} {stages[k]:.3f}" for k in STAGES)
+              + f"; cut of {DP_CUT} columns bitwise", flush=True)
+    # the kernels line's numbers: the table and the scan on the flagship's
+    # min-memory plan, the serial fold on its time plan
     label, C, model, W, Pi = cases[0]
-    pos, grp, wts, alpha, beta = inputs = dp_inputs(C, model, W, Pi, device=dev)
+    pos, grp, wts, alpha, beta, exact = dp_inputs(C, model, W, Pi, device=dev)
     prevcol = dp_ops.prev_occurrence(pos, grp)
     S = dp_ops.dp_table(pos, grp, prevcol, wts, alpha, beta, W)
     same_function("dp_table plain", lambda: dp_ops.dp_table_plain(
@@ -2511,52 +2568,48 @@ def phase_plan(dev, flag, fem, mdl, mdl2, smi, errs):
     t_table = paired_ms([lambda: dp_ops.dp_table(pos, grp, prevcol, wts, alpha, beta, W),
                          lambda: dp_ops.dp_table_plain(pos, grp, prevcol, wts,
                                                        alpha, beta, W)], dev, iters=3)
-    t_rec = paired_ms([lambda: dp_ops.dp_recurrence(S)], dev, iters=3)[0]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    prev_plain, _ = dp_ops.dp_recurrence_plain(S)
-    torch.cuda.synchronize()
-    rec_plain_ms = (time.perf_counter() - t0) * 1e3
-    check(torch.equal(prev_plain, dp_ops.dp_recurrence(S)[0]),
-          "flagship: dp_recurrence differs from its plain version")
+    table_work, rec_work = dp_work(pos, wts, W)
+    ms = {"dp_table": {"ms": t_table[0], "plain_ms": t_table[1], "library_ms": None},
+          "dp_recurrence_scan": recurrence_record(label, S, True, dev)}
+    t_label, tC, t_model, tW, tPi = cases[4]
+    t_in = dp_inputs(tC, t_model, tW, tPi, device=dev)
+    S_time = dp_ops.dp_table(t_in[0], t_in[1], dp_ops.prev_occurrence(*t_in[:2]),
+                             *t_in[2:5], tW)
+    ms["dp_recurrence"] = recurrence_record(t_label, S_time, False, dev)
     s_floor = torch.tensor([1.0, 3.0, 2.0, 5.0, 4.0, 7.0, 6.0, 8.0, 1e300],
                            dtype=torch.float64, device=dev) * 1e-3
     check(torch.equal(dp_ops.chain_floor(s_floor, 4096),
                       dp_ops.chain_floor_plain(s_floor, 4096)),
           "chain_floor differs from its plain version")
-    n8 = C.n - C.n % 8
-    floor_ms = paired_ms([lambda: dp_ops.chain_floor(s_floor, n8)], dev,
-                         iters=3)[0] * C.n / n8
-    table_work, rec_work = dp_work(pos, wts, W)
-    ms = {"dp_table": {"ms": t_table[0], "plain_ms": t_table[1], "library_ms": None},
-          "dp_recurrence": {"ms": t_rec, "plain_ms": rec_plain_ms,
-                            "plain_clock": "host", "library_ms": None,
-                            "dependent_floor_ms": floor_ms}}
-    for key, work in (("dp_table", table_work), ("dp_recurrence", rec_work)):
+    n8 = tC.n - tC.n % 8
+    ms["dp_recurrence"]["dependent_floor_ms"] = paired_ms(
+        [lambda: dp_ops.chain_floor(s_floor, n8)], dev, iters=3)[0] * tC.n / n8
+    for key, work in (("dp_table", table_work), ("dp_recurrence_scan", rec_work),
+                      ("dp_recurrence", dp_work(t_in[0], t_in[2], tW)[1])):
         ms[key]["bound_ms"], ms[key]["bound_by"] = bound64(*work)
     rec["kernels"] = ms
-    print(f"[17 plan] {label}: dp_table {t_table[0] * 1e3:.1f} us (plain "
-          f"{t_table[1] * 1e3:.1f} us, bound {ms['dp_table']['bound_ms'] * 1e3:.2f} "
-          f"us, {ms['dp_table']['bound_by']}); dp_recurrence {t_rec:.3f} ms "
-          f"({t_rec * 1e6 / C.n:.1f} ns a step; plain {rec_plain_ms:.1f} ms on the "
-          f"host clock; bound {ms['dp_recurrence']['bound_ms'] * 1e3:.2f} us, "
-          f"{ms['dp_recurrence']['bound_by']}; the {C.n}-step dependent floor "
-          f"{floor_ms:.3f} ms, {floor_ms * 1e6 / C.n:.2f} ns a step)", flush=True)
+    mt, ms_scan, ms_ser = ms["dp_table"], ms["dp_recurrence_scan"], ms["dp_recurrence"]
+    print(f"[17 plan] {label}: dp_table {mt['ms'] * 1e3:.1f} us (plain "
+          f"{mt['plain_ms'] * 1e3:.1f} us, bound {mt['bound_ms'] * 1e3:.2f} us, "
+          f"{mt['bound_by']}); dp_recurrence_scan {ms_scan['ms'] * 1e3:.1f} us "
+          f"(plain {ms_scan['plain_ms']:.1f} ms on the host clock, bound "
+          f"{ms_scan['bound_ms'] * 1e3:.2f} us, {ms_scan['bound_by']}); {t_label}: "
+          f"dp_recurrence {ms_ser['ms']:.3f} ms ({ms_ser['ms'] * 1e6 / tC.n:.1f} ns "
+          f"a step; plain {ms_ser['plain_ms']:.1f} ms on the host clock; the "
+          f"{tC.n}-step dependent floor {ms_ser['dependent_floor_ms']:.3f} ms)",
+          flush=True)
     wide = dp_inputs(C, model, DP_WIDE, Pi, device=dev)
     S_wide = dp_ops.dp_table(*wide[:2], dp_ops.prev_occurrence(*wide[:2]),
-                             *wide[2:], DP_WIDE)
+                             *wide[2:5], DP_WIDE)
+    wide_scan = recurrence_record(f"{label} at W = {DP_WIDE}", S_wide, True, dev)
     t_wide = paired_ms([lambda: dp_ops.dp_recurrence(S_wide)], dev, iters=3)[0]
-    got = vt.dp_partition_device(C, model, DP_WIDE, device=dev)
-    check(np.array_equal(got.spl, dp_partition(C, model, DP_WIDE).spl),
-          f"{label} at W = {DP_WIDE}: the device DP's split points differ "
-          "from the host DP's")
-    rec["wide"] = {"W": DP_WIDE, "dp_recurrence_ms": t_wide,
-                   "ns_a_step": t_wide * 1e6 / C.n, "stripes": len(got),
-                   "equal_host": True}
-    print(f"[17 plan] {label} at W = {DP_WIDE} (past the register ring: the "
-          f"plain loop): dp_recurrence {t_wide:.3f} ms ({t_wide * 1e6 / C.n:.1f} "
-          f"ns a step) beside {t_rec:.3f} ms at W = {W}; {len(got)} stripes "
-          "equal to the host DP's", flush=True)
+    rec["wide"] = {"W": DP_WIDE, "dp_recurrence_scan_ms": wide_scan["ms"],
+                   "dp_recurrence_scan_plain_ms": wide_scan["plain_ms"],
+                   "dp_recurrence_ms": t_wide, "ns_a_step": t_wide * 1e6 / C.n}
+    print(f"[17 plan] {label} at W = {DP_WIDE}: dp_recurrence_scan "
+          f"{wide_scan['ms'] * 1e3:.1f} us, bitwise its plain version and the "
+          f"serial fold; the serial fold's plain loop {t_wide:.3f} ms "
+          f"({t_wide * 1e6 / C.n:.1f} ns a step)", flush=True)
     rec["seconds_dp"] = time.perf_counter() - t_phase
     print("PLAN " + json.dumps(rec), flush=True)
 
@@ -2569,11 +2622,14 @@ def phase_plan(dev, flag, fem, mdl, mdl2, smi, errs):
     model = weak_scaling.analytic(rows)
     print(f"[17 weak] l0 {WEAK_L0}: "
           + "; ".join(f"N={r['ndev']} {r['path']} ({r['backend']}) "
-                      f"{r['t_us']:.1f} us, {r['gnnz_s']:.3f} Gnnz/s, halo "
-                      f"{r['halo_kib']:.0f} KiB, eff "
+                      f"{r['t_us']:.1f} us wall, {r['gnnz_s']:.3f} Gnnz/s; kernels "
+                      f"{'-' if r['kernel_us'] is None else format(r['kernel_us'], '.2f')}"
+                      f" us; halo {r['halo_kib']:.0f} KiB, eff "
                       f"{'-' if r['efficiency'] is None else format(r['efficiency'], '.3f')}"
                       for r in rows)
-          + f"; NOTE: {weak_scaling.SHARED_CARD}", flush=True)
+          + f"; the model's card rate {model['single_card_gnnz_s']:.3f} Gnnz/s "
+          f"({model['rate_from']}) beside the wall's {model['wall_gnnz_s']:.3f}"
+          f"; NOTE: {weak_scaling.SHARED_CARD}", flush=True)
     print("WEAK " + json.dumps({"card": smi, "l0": WEAK_L0, "rows": rows,
                                 "analytic_model": model,
                                 "seconds": time.perf_counter() - t0}), flush=True)
@@ -2768,6 +2824,8 @@ def main():
         ("dp_table", "dp_table", "dp.cu",
          "vbcs_tpu/plan/jax_dp.py:54, vbcs_tpu/plan/jax_dp.py:155 (lax.scan)"),
         ("dp_recurrence", "dp_recurrence", "dp.cu",
+         "vbcs_tpu/plan/jax_dp.py:54, vbcs_tpu/plan/jax_dp.py:155 (lax.scan)"),
+        ("dp_recurrence_scan", "dp_recurrence_scan", "dp_scan.cu",
          "vbcs_tpu/plan/jax_dp.py:54, vbcs_tpu/plan/jax_dp.py:155 (lax.scan)"),
     ]
     rec = [{"name": name, "route": "cuda",

@@ -866,11 +866,13 @@ def _dp_models(W, m):
             (fitted_2d, vt.SplitPartition.equi(m, 4))]
 
 
-@pytest.mark.parametrize("W", [1, 5, 8, 16, 33])
+@pytest.mark.parametrize("W", [1, 5, 8, 16, 24, 32, 33])
 def test_dp_kernels_match_plain(W, cuda_device):
-    """Both DP kernels bitwise against their plain versions (S, opt, prev)
-    in the register ring (W <= 8: 1, 5, 8) and past it (16, 33: the plain
-    loop), and the split points against the host C++ DP."""
+    """The DP kernels bitwise against their plain versions (S, opt, prev):
+    the table, the serial fold in the register ring (W <= 8: 1, 5, 8) and
+    past it (16 to 33: the plain loop), and the scan (rings in registers to
+    W = 16, the device-memory path from 17: 24, 32, 33); and the split
+    points against the host C++ DP, each model on its route."""
     from vbcs_tpu_torch.ops import dp as dp_ops
     from vbcs_tpu_torch.plan.device_dp import dp_inputs
     from vbcs_tpu_torch.plan.dynamic import dp_partition
@@ -878,25 +880,68 @@ def test_dp_kernels_match_plain(W, cuda_device):
     for seed, shape in enumerate(((300, 2000), (2000, 300), (50, 3000))):
         A = vt.CSC.from_scipy(sp.random(*shape, 0.03, random_state=seed, format="csc"))
         for model, Pi in _dp_models(W, shape[0]):
-            pos, grp, wts, alpha, beta = dp_inputs(A, model, W, Pi, device=cuda_device)
+            pos, grp, wts, alpha, beta, exact = dp_inputs(A, model, W, Pi,
+                                                          device=cuda_device)
             prevcol = dp_ops.prev_occurrence(pos, grp)
             S = dp_ops.dp_table(pos, grp, prevcol, wts, alpha, beta, W)
             S_plain = dp_ops.dp_table_plain(pos, grp, prevcol, wts, alpha, beta, W)
             prev, opt = dp_ops.dp_recurrence(S)
             prev_plain, opt_plain = dp_ops.dp_recurrence_plain(S_plain)
+            scan_prev, scan_opt = dp_ops.dp_recurrence_scan(S)
+            scan_plain = dp_ops.dp_recurrence_scan_plain(S_plain)
             torch.cuda.synchronize()
             assert torch.equal(S, S_plain)
             assert torch.equal(opt, opt_plain) and torch.equal(prev, prev_plain)
+            assert torch.equal(scan_opt, scan_plain[1])
+            assert torch.equal(scan_prev, scan_plain[0])
+            if exact:
+                assert torch.equal(scan_opt, opt) and torch.equal(scan_prev, prev)
             got = (vt.dp_partition_device(A, model, W, device=cuda_device) if Pi is None
                    else vt.dp_partition_device_2d(A, model, W, Pi, device=cuda_device))
             np.testing.assert_array_equal(
                 got.spl, dp_partition(A, model, W, row_partition=Pi).spl)
 
 
+def _scan_case(n, W, seed, exact):
+    """S [n, W] as the table makes it (inf where w > jp): small integers
+    (exact, many ties) or fractions (inexact)."""
+    rng = np.random.default_rng(seed)
+    S = (rng.integers(1, 9, (n, W)).astype(np.float64) if exact
+         else rng.uniform(0.1, 3.0, (n, W)))
+    S[np.triu_indices(min(n, W), 1)] = np.inf
+    return torch.from_numpy(S)
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8, 16, 17, 24, 32, 33])
+def test_dp_scan_edges(W, cuda_device):
+    """The scan kernel against its plain version, bitwise, at the edges of
+    its chunks (L = 64 rows) and blocks, on exact S (also equal to the
+    serial fold) and on fractional S (the same order of sums: still equal
+    to its plain version)."""
+    from vbcs_tpu_torch.ops import dp as dp_ops
+
+    L = dp_ops.SCAN_ROWS
+    for n in (1, 2, L - 1, L, L + 1, 5 * L + 3, 300 * L + 17):
+        We, _, K, B, nb = dp_ops.scan_layout(n, W)
+        for exact in (True, False):
+            S = _scan_case(n, W, n + W, exact)
+            got = dp_ops.dp_recurrence_scan(S.to(cuda_device))
+            want = dp_ops.dp_recurrence_scan_plain(S.to(cuda_device))
+            torch.cuda.synchronize()
+            assert torch.equal(got[1], want[1]), (n, W, exact)
+            assert torch.equal(got[0], want[0]), (n, W, exact)
+            if exact:
+                serial = dp_ops.dp_recurrence_plain(S)
+                assert torch.equal(got[1].cpu(), serial[1])
+                assert torch.equal(got[0].cpu(), serial[0])
+
+
 def test_dp_table_window_in_device_memory(cuda_device):
     """R * W too large for shared memory: the table's window in a scratch
-    buffer (the size the kernel's source asks for); and W = 2,100, a width
-    past the columns of the matrix, on the recurrence's plain loop."""
+    buffer (the size the kernel's source asks for); W = 2,100, a width
+    past the columns of the matrix, on the serial fold's plain loop and on
+    the scan's device-memory path; and columns whose nonzeros overflow the
+    table's staging (a 5,000-entry column) on both of its window paths."""
     from vbcs_tpu_torch.ops import dp as dp_ops
     from vbcs_tpu_torch.plan.device_dp import dp_inputs
 
@@ -906,16 +951,49 @@ def test_dp_table_window_in_device_memory(cuda_device):
         alpha_row=2.0, alpha_col=np.linspace(5, 9, W),
         beta_row=tuple(np.array([1.0, 1.5]) * k for k in (1, 2, 3, 4, 5)),
         beta_col=tuple(np.linspace(1, 2.5, W) * k for k in (1, .5, .25, .3, .2)))
-    for model, W, Pi in ((mdl, 50, vt.SplitPartition.equi(200, 2)),
-                         (vt.model_1dvbc_memory(4, 8), 2100, None)):
-        inputs = dp_inputs(A, model, W, Pi, device=cuda_device)
+    dense = sp.random(6000, 400, 0.004, random_state=5, format="lil")
+    dense[:5000, 150] = 1.0
+    D = vt.CSC.from_scipy(dense.tocsc())
+    for C, model, W, Pi in ((A, mdl, 50, vt.SplitPartition.equi(200, 2)),
+                            (A, vt.model_1dvbc_memory(4, 8), 2100, None),
+                            (D, vt.model_1dvbc_memory(4, 8), 8, None),
+                            (D, mdl, 50, vt.SplitPartition.equi(6000, 2)),
+                            (D, vt.model_vbc_memory(4, 8), 8,
+                             vt.SplitPartition.equi(6000, 3))):
+        inputs = dp_inputs(C, model, W, Pi, device=cuda_device)
         prevcol = dp_ops.prev_occurrence(*inputs[:2])
-        S = dp_ops.dp_table(inputs[0], inputs[1], prevcol, *inputs[2:], W)
-        S_plain = dp_ops.dp_table_plain(inputs[0], inputs[1], prevcol, *inputs[2:], W)
+        S = dp_ops.dp_table(inputs[0], inputs[1], prevcol, *inputs[2:5], W)
+        S_plain = dp_ops.dp_table_plain(inputs[0], inputs[1], prevcol, *inputs[2:5], W)
         assert torch.equal(S, S_plain)
         prev, opt = dp_ops.dp_recurrence(S)
         prev_plain, opt_plain = dp_ops.dp_recurrence_plain(S_plain)
         assert torch.equal(opt, opt_plain) and torch.equal(prev, prev_plain)
+        scan = dp_ops.dp_recurrence_scan(S)
+        scan_plain = dp_ops.dp_recurrence_scan_plain(S_plain)
+        assert torch.equal(scan[1], scan_plain[1]) and torch.equal(scan[0], scan_plain[0])
+        if inputs[5]:
+            assert torch.equal(scan[1], opt) and torch.equal(scan[0], prev)
+
+
+def test_dp_routes_on_card(cuda_device):
+    """Exact tables launch the scan and no serial fold, fitted ones the
+    serial fold and no scan, once a plan each; the device backtrack equals
+    the host loop."""
+    from vbcs_tpu_torch.ops import dp as dp_ops
+    from vbcs_tpu_torch.plan import device_dp
+
+    A = vt.CSC.from_scipy(sp.random(300, 2000, 0.03, random_state=1, format="csc"))
+    for model, Pi in _dp_models(8, 300):
+        dp_ops.dp_recurrence.launches = dp_ops.dp_recurrence_scan.launches = 0
+        exact = device_dp.dp_inputs(A, model, 8, Pi, device=cuda_device)[5]
+        got, stages = device_dp.dp_stages(A, model, 8, Pi, device=cuda_device)
+        assert stages["route"] == ("scan" if exact else "serial")
+        assert (dp_ops.dp_recurrence_scan.launches, dp_ops.dp_recurrence.launches) == (
+            (1, 0) if exact else (0, 1))
+        prev, _ = device_dp.dp_prev(*device_dp.dp_inputs(A, model, 8, Pi,
+                                                         device=cuda_device), 8)
+        assert device_dp.backtrack(prev) == device_dp._backtrack(prev.tolist(), A.n)
+        assert got == device_dp.backtrack(prev)
 
 
 def test_dp_flagship_split_points(cuda_device):

@@ -1,10 +1,13 @@
 """The split-point DP on a torch device (``vbcs_tpu_torch.plan.device_dp``,
-``ops/dp.py``) on the CPU, where its two kernels run their plain
-versions: against the JAX package's ``dp_partition_jit``/``_2d`` (jit on
-the CPU) and the host DP ``plan/dynamic.dp_partition`` (the C++ DP), split
-points bitwise; the stripe-cost table against a NumPy walk of the host's
-counters, bitwise.  The kernels themselves are held against the plain
-versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+``ops/dp.py``) on the CPU, where its kernels run their plain versions:
+against the JAX package's ``dp_partition_jit``/``_2d`` (jit on the CPU)
+and the host DP ``plan/dynamic.dp_partition`` (the C++ DP), split points
+bitwise; the stripe-cost table against a NumPy walk of the host's
+counters, bitwise; the recurrence's two routes (the (min,+) scan on exact
+tables, the serial fold otherwise) against each other and the host; the
+backtrack by pointer doubling against the host loop.  The kernels
+themselves are held against the plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
 import numpy as np
@@ -127,10 +130,11 @@ def test_blocky_matrix_and_fem():
 
 def test_ties_take_the_narrowest_stripe():
     """Each stripe costs its width: every plan costs n, so every step takes
-    the narrowest stripe."""
+    the narrowest stripe (the tables are integers: the scan's route)."""
     A = csc(sp.random(50, 40, 0.2, random_state=3, format="csc"))
     for W in (1, 4, 8):
         mdl = vt.ColumnBlockComponentCostModel(np.arange(1.0, W + 1), 0.0)
+        assert device_dp.dp_route(A, mdl, W) == "scan"
         got = assert_host(A, mdl, W)
         np.testing.assert_array_equal(got.spl, np.arange(41))
 
@@ -199,7 +203,7 @@ def test_table_walks_the_host_counters(W):
     A = csc(S)
     for model, Pi in ((fitted_1d(W), None), (fitted_2d(W), vt.SplitPartition.equi(80, 4)),
                       (vt.model_vbc_memory(4, 8), vt.SplitPartition.equi(80, 3))):
-        pos, grp, wts, alpha, beta = device_dp.dp_inputs(A, model, W, Pi, device=CPU)
+        pos, grp, wts, alpha, beta, _ = device_dp.dp_inputs(A, model, W, Pi, device=CPU)
         got = dp_ops.dp_table(pos, grp, dp_ops.prev_occurrence(pos, grp), wts,
                               alpha, beta, W)
         want = host_table(pos.numpy(), grp.numpy(), None if wts is None else wts.numpy(),
@@ -264,14 +268,16 @@ def test_refusals():
 
 
 def test_the_cpu_launches_no_kernel():
-    for k in (dp_ops.dp_table, dp_ops.dp_recurrence, dp_ops.chain_floor):
+    for k in (dp_ops.dp_table, dp_ops.dp_recurrence, dp_ops.dp_recurrence_scan,
+              dp_ops.chain_floor):
         k.launches = 0
-    plan(csc(sp.random(30, 50, 0.1, random_state=2, format="csc")),
-         vt.model_1dvbc_memory(4, 8), 8)
+    A = csc(sp.random(30, 50, 0.1, random_state=2, format="csc"))
+    plan(A, vt.model_1dvbc_memory(4, 8), 8)
+    plan(A, fitted_1d(8), 8)
     s = torch.arange(9, dtype=torch.float64)
     assert dp_ops.chain_floor(s, 16).item() == dp_ops.chain_floor_plain(s, 16).item()
     assert dp_ops.dp_table.launches == dp_ops.dp_recurrence.launches == 0
-    assert dp_ops.chain_floor.launches == 0
+    assert dp_ops.dp_recurrence_scan.launches == dp_ops.chain_floor.launches == 0
     with pytest.raises(ValueError):
         dp_ops.chain_floor(s, 12)
 
@@ -282,3 +288,122 @@ def test_counterparts_name_both_sides():
         assert callable(getattr(device_dp, port_name))
     assert set(device_dp.COUNTERPARTS) == set(jax_dp.__all__)
     assert vt.dp_partition_device is device_dp.dp_partition_device
+
+
+# ---- the scan route: the (min,+) scan on exact tables --------------------------
+
+L = dp_ops.SCAN_ROWS
+
+
+def table_like(n, W, seed, scale=1.0):
+    """S [n, W] as the table makes it (inf where w > jp): small multiples of
+    ``scale`` (exact; many ties)."""
+    rng = np.random.default_rng(seed)
+    S = rng.integers(1, 9, (n, W)).astype(np.float64) * scale
+    S[np.triu_indices(min(n, W), 1)] = np.inf
+    return torch.from_numpy(S)
+
+
+def scan_sizes(W):
+    """n at the scan's edges: none, one row, a chunk and its neighbours,
+    several chunks, and two full blocks and a part of a third."""
+    B = dp_ops.scan_layout(10 ** 6, W)[3]
+    return (0, 1, L - 1, L, L + 1, 5 * L + 3, 2 * B * L + 17)
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8, 16, 24, 33])
+def test_scan_plain_equals_the_serial_fold(W):
+    """prev and opt bitwise the serial fold's on exact S: integers and
+    binary fractions, with ties."""
+    for n in scan_sizes(W):
+        for scale in (1.0, 0.25):
+            S = table_like(n, W, n + W, scale)
+            got = dp_ops.dp_recurrence_scan_plain(S)
+            want = dp_ops.dp_recurrence_plain(S)
+            assert torch.equal(got[1], want[1]), (n, W, scale)
+            assert torch.equal(got[0], want[0]), (n, W, scale)
+            assert torch.equal(dp_ops.dp_recurrence(S, exact=True)[0], want[0])
+
+
+def exact_models(W, m):
+    return [(vt.model_1dvbc_memory(4, 8), None),
+            (vt.ColumnBlockComponentCostModel(2.0, 1.5), None),
+            (vt.model_vbc_memory(4, 8), vt.SplitPartition.equi(m, 3))]
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8, 16, 24, 33])
+def test_scan_route_matches_the_host_dp(W):
+    """The exact models take the scan: on the table's S its prev and opt
+    are the serial fold's, and the split points the host C++ DP's, at the
+    scan's edges of n (the first n columns of a matrix) with empty
+    columns among them."""
+    A = sp.random(120, 2 * dp_ops.scan_layout(10 ** 6, W)[3] * L + 17, 0.03,
+                  random_state=W, format="lil")
+    A[:, 3:9] = 0
+    A[:, L - 2:L + 2] = 0
+    A = A.tocsc()
+    A.eliminate_zeros()
+    for n in scan_sizes(W)[1:]:
+        C = csc(A[:, :n])
+        for model, Pi in exact_models(W, C.m):
+            assert device_dp.dp_route(C, model, W, Pi) == "scan"
+            pos, grp, wts, alpha, beta, exact = device_dp.dp_inputs(C, model, W, Pi,
+                                                                    device=CPU)
+            assert exact
+            S = dp_ops.dp_table(pos, grp, dp_ops.prev_occurrence(pos, grp), wts,
+                                alpha, beta, W)
+            got = dp_ops.dp_recurrence_scan_plain(S)
+            want = dp_ops.dp_recurrence_plain(S)
+            assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), (n, W)
+            assert device_dp.backtrack(got[0]) == dp_partition(C, model, W,
+                                                               row_partition=Pi)
+            assert_host(C, model, W, Pi)
+
+
+def test_routes():
+    """Memory models and binary fractions take the scan, fitted time
+    models (and any table whose sums can round) the serial fold."""
+    A = csc(sp.random(300, 700, 0.02, random_state=0, format="csc"))
+    Pi = vt.SplitPartition.equi(300, 4)
+    for W in (1, 4, 8, 33):
+        assert device_dp.dp_route(A, vt.model_1dvbc_memory(4, 8), W) == "scan"
+        assert device_dp.dp_route(A, vt.model_vbc_memory(4, 8), W, Pi) == "scan"
+        assert device_dp.dp_route(A, vt.ColumnBlockComponentCostModel(2.0, 1.5), W) == "scan"
+        assert device_dp.dp_route(A, fitted_1d(W), W) == "serial"
+        assert device_dp.dp_route(A, fitted_2d(W), W, Pi) == "serial"
+    third = vt.ColumnBlockComponentCostModel(1.0, 1.0 / 3.0)
+    assert device_dp.dp_route(A, third, 8) == "serial"
+    # exact but too large: n * max|S| reaches 2^52
+    big = vt.ColumnBlockComponentCostModel(2.0 ** 45, 1.0)
+    assert device_dp.dp_route(A, big, 8) == "serial"
+    assert device_dp.dp_route(A, vt.ColumnBlockComponentCostModel(2.0 ** 30, 1.0), 8) == "scan"
+    assert dp_ops.exact_tables([0.5, 0.75], [[1.0, 2.0]], None, 10, 10)
+    assert not dp_ops.exact_tables([0.1, 0.75], [[1.0, 2.0]], None, 10, 10)
+    assert not dp_ops.exact_tables([1.0], [[1.0]], np.array([[0.1, 1.0]]), 2, 10)
+    assert dp_ops.exact_tables([1.0], [[0.5]], np.array([[0.25, 3.0]]), 2, 10)
+
+
+def test_backtrack_is_the_host_loop():
+    rng = np.random.default_rng(5)
+    assert device_dp.backtrack(torch.zeros(1, dtype=torch.int64)) == vt.SplitPartition.whole(0)
+    for n in (1, 2, 7, 1000, 4097):
+        for W in (1, 3, 8):
+            prev = np.zeros(n + 1, dtype=np.int64)
+            for j in range(1, n + 1):
+                prev[j] = j - rng.integers(1, min(W, j) + 1)
+            got = device_dp.backtrack(torch.from_numpy(prev))
+            assert got == device_dp._backtrack(prev.tolist(), n)
+
+
+def test_dp_stages_plan_as_the_entry_points():
+    A = csc(sp.random(100, 300, 0.05, random_state=6, format="csc"))
+    Pi = vt.SplitPartition.equi(100, 4)
+    for model, W, P, route in ((vt.model_1dvbc_memory(4, 8), 8, None, "scan"),
+                               (fitted_1d(8), 8, None, "serial"),
+                               (vt.model_vbc_memory(4, 8), 4, Pi, "scan"),
+                               (fitted_2d(4), 4, Pi, "serial")):
+        got, stages = device_dp.dp_stages(A, model, W, P, device=CPU)
+        assert got == plan(A, model, W, P)
+        assert stages["route"] == route
+        assert set(stages) == {"route", *device_dp.STAGES}
+        assert all(stages[k] >= 0.0 for k in device_dp.STAGES)

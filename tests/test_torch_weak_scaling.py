@@ -31,6 +31,7 @@ def test_rows_cover_each_world_and_path(rows):
     for r in rows:
         assert r["err"] <= TOL and r["backend"] == "gloo" and r["platform"] == "cpu"
         assert r["t_us"] is r["gnnz_s"] is r["efficiency"] is None
+        assert r["kernel_us"] is r["kernel_gnnz_s"] is None
         assert not r["shared_card"]
         A = blocky_matrix(L=L0 * r["ndev"])
         assert r["nnz"] == A.nnz
@@ -62,10 +63,25 @@ def test_analytic_rows_recomputed(rows):
 
 
 def test_the_model_takes_the_measured_single_card_row(rows):
-    measured = [dict(r, gnnz_s=2.0 if r["ndev"] == 1 else 1.0) for r in rows]
+    """The rate is the N = 1 replicated row's kernel time, not its wall (a
+    host-paced call is ~100x its kernel on the card); the wall's rate
+    stands beside it."""
+    measured = [dict(r, gnnz_s=0.1 if r["ndev"] == 1 else 0.05,
+                     kernel_gnnz_s=2.0 if r["ndev"] == 1 else 1.0) for r in rows]
     model = ws.analytic(measured)
     assert model["single_card_gnnz_s"] == 2.0
-    assert model["rate_from"] == "the measured N = 1 row"
+    assert model["wall_gnnz_s"] == 0.1
+    assert model["rate_from"] == "the kernel time of the measured N = 1 row"
+    t_comp = [r["nnz"] / r["ndev"] / 2e9 * 1e6 for r in measured if r["path"] == "halo"]
+    np.testing.assert_allclose([m["compute_us"] for m in model["rows"]], t_comp,
+                               rtol=1e-12)
+
+
+def test_a_wall_without_a_kernel_time_gives_no_rate(rows):
+    """Rows that carry a wall and no kernel time (a path with no kernel)
+    do not feed the model: it raises, as without any timing."""
+    with pytest.raises(ValueError, match="kernel time"):
+        ws.analytic([dict(r, gnnz_s=2.0) for r in rows])
 
 
 def test_without_a_single_card_rate_the_model_raises(rows):

@@ -23,10 +23,19 @@
 //   a window in shared memory, in the host's order, and gets the host's
 //   counters bit for bit.  Then the suffix sums and stripe = alpha[w];
 //   stripe += a_r * beta[r][w], each product and sum rounded apart (no
-//   FMA: a contraction flips ties on fractional cost tables).  Bound: the
-//   bytes of S (8 n W) and of the index arrays each thread reads again.
+//   FMA: a contraction flips ties on fractional cost tables).  A block's
+//   threads share their windows' columns: the block stages those columns'
+//   pointers and nonzeros (prevcol, and grp with weights) in shared memory
+//   once with cp.async, so each nonzero is read from device memory once a
+//   block, not once a window; with one counter (R = 1) the counters of the
+//   swept column and the one before it stay in registers.  Windows too
+//   large for shared memory go to a device-memory scratch.  Bound: the
+//   bytes of S (8 n W) and of the index arrays.
 //
-// * vbcs_dp_recurrence: one block.  W <= 8 (the widths the planners use):
+// * vbcs_dp_recurrence, the serial fold (csrc/dp_scan.cu holds the scan
+//   that ops/dp.py takes on exact cost tables; this kernel alone
+//   reproduces the host's fold on fitted, fractional ones): one block.
+//   W <= 8 (the widths the planners use):
 //   lane 0 of warp 0 runs the chain; the last 8 opt values stay in
 //   registers (a ring of 8 slots, the steps unrolled 8 at a time), the S
 //   rows come from shared memory, padded to 8 candidates with +inf.  The
@@ -50,7 +59,9 @@
 namespace {
 
 constexpr int kTableThreads = 128;
-constexpr int kSmemBytes = 48 * 1024;  // without cudaFuncSetAttribute
+constexpr int kSmemBytes = 48 * 1024;  // the table's counter windows
+constexpr int kStagePos = 256;         // the table's staged column pointers
+constexpr int kStageNnz = 1152;        // the table's staged nonzeros
 constexpr int kRing = 8;               // the ring kernel's slots: W <= 8
 constexpr int kRecThreads = 128;       // warp 0: the chain; warps 1-3: loads
 constexpr int kRecBuffers = 3;         // chunk loading, chained, recovered
@@ -69,6 +80,23 @@ int table_smem_threads(int W, int R) {
   return 0;
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+}
+
+// a block: blockDim.x consecutive end columns jp (one a thread), columns
+// [cs, ce) the union of their windows.  Their pointers and (up to
+// kStageNnz) their nonzeros' prevcol (and, with weights, grp) are staged
+// in shared memory once, coalesced, with cp.async; nonzero q0 + e at
+// stage_at(e) = e + e / 16, a pad a 16 so that the threads of a warp, each
+// sweeping a neighbouring column, read distinct banks; the rest is read in
+// place.  kOne: one counter (R == 1), the counters of the column being
+// swept and of the one before it (most nonzeros' previous column) kept in
+// registers.  The rows of S go out through the shared windows, coalesced.
+__device__ __forceinline__ int stage_at(int e) { return e + (e >> 4); }
+
+template <bool kOne>
 __global__ void __launch_bounds__(kTableThreads)
 dp_table_kernel(int64_t n, int W, int R, int64_t G,
                 const int64_t* __restrict__ pos,
@@ -78,61 +106,127 @@ dp_table_kernel(int64_t n, int W, int R, int64_t G,
                 const double* __restrict__ alpha,
                 const double* __restrict__ beta,
                 double* __restrict__ S, double* __restrict__ scratch) {
-  extern __shared__ double smem[];
-  const int64_t jp = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x + 1;
-  if (jp > n) return;
+  extern __shared__ __align__(16) double smem[];
+  const int T = blockDim.x;
+  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * T;
+  const int64_t cs = j0 + 1 - W > 0 ? j0 + 1 - W : 0;
+  const int64_t ce = j0 + T < n ? j0 + T : n;
+  const int ncol = static_cast<int>(ce - cs);
+  const bool smem_win = scratch == nullptr;
+  const int sw = T + 1;  // the shared windows' stride
+  int64_t* s_pos = reinterpret_cast<int64_t*>(
+      smem + (smem_win ? static_cast<int64_t>(R) * W * sw : 0));
+  int64_t* s_prev = s_pos + kStagePos + 1;
+  int64_t* s_grp = s_prev + stage_at(kStageNnz);
+  const int tid = threadIdx.x;
+  const bool pos_staged = ncol <= kStagePos;
+  if (pos_staged)
+    for (int i = tid; i <= ncol; i += T) cp_async8(s_pos + i, pos + cs + i);
+  const int64_t q0 = pos[cs];
+  const int64_t qn = pos[ce] - q0;
+  const int ns = static_cast<int>(qn < kStageNnz ? qn : kStageNnz);
+  for (int e = tid; e < ns; e += T) {
+    cp_async8(s_prev + stage_at(e), prevcol + q0 + e);
+    if (wts != nullptr) cp_async8(s_grp + stage_at(e), grp + q0 + e);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  auto pos_at = [&](int64_t c) { return pos_staged ? s_pos[c - cs] : pos[c]; };
+
+  const int64_t jp = j0 + tid + 1;
+  const bool active = jp <= n;
   const int weff = static_cast<int>(jp < W ? jp : W);
   const int64_t base = jp - weff;
   // counter (r, column base + s) at win[(r * W + s) * st]
   double* win;
   int64_t st;
-  if (scratch != nullptr) {
+  if (smem_win) {
+    win = smem + tid;
+    st = sw;
+  } else {
     win = scratch + (jp - 1);
     st = n;
-  } else {
-    win = smem + threadIdx.x;
-    st = blockDim.x;
   }
-  for (int r = 0; r < R; ++r)
-    for (int s = 0; s < weff; ++s) win[(r * W + s) * st] = 0.0;
-
-  for (int64_t c = base; c < jp; ++c) {
-    const int s = static_cast<int>(c - base);
-    const int64_t q1 = pos[c + 1];
-    for (int64_t q = pos[c]; q < q1; ++q) {
-      const int64_t old = prevcol[q];
-      const int64_t g = wts != nullptr ? grp[q] : 0;
-      for (int r = 0; r < R; ++r) {
-        const double wgt = wts != nullptr ? wts[r * G + g] : 1.0;
-        if (old >= base) {
-          double* p = win + (r * W + (old - base)) * st;
-          *p = __dsub_rn(*p, wgt);
+  if (active) {
+    for (int r = 0; r < R; ++r)
+      for (int s = 0; s < weff; ++s) win[(r * W + s) * st] = 0.0;
+    // kOne: the counters of the column being swept (cur, 0 until its
+    // sweep) and of the one before it (last) in registers, each stored
+    // when the sweep has passed it; every update of a counter still in the
+    // host's order
+    double last = 0.0;
+    for (int64_t c = base; c < jp; ++c) {
+      const int s = static_cast<int>(c - base);
+      const int e1 = static_cast<int>(pos_at(c + 1) - q0);
+      double cur = 0.0;
+      for (int e = static_cast<int>(pos_at(c) - q0); e < e1; ++e) {
+        const bool staged = e < ns;
+        // the previous column, relative to the window (< 0: before it)
+        const int old = static_cast<int>(
+            (staged ? s_prev[stage_at(e)] : prevcol[q0 + e]) - base);
+        const int64_t g = wts == nullptr
+                              ? 0
+                              : (staged ? s_grp[stage_at(e)] : grp[q0 + e]);
+        if (kOne) {
+          const double wgt = wts != nullptr ? wts[g] : 1.0;
+          if (old == s) {
+            cur = __dsub_rn(cur, wgt);
+          } else if (old == s - 1) {
+            last = __dsub_rn(last, wgt);
+          } else if (old >= 0) {
+            double* p = win + old * st;
+            *p = __dsub_rn(*p, wgt);
+          }
+          cur = __dadd_rn(cur, wgt);
+        } else {
+          for (int r = 0; r < R; ++r) {
+            const double wgt = wts != nullptr ? wts[r * G + g] : 1.0;
+            if (old >= 0) {
+              double* p = win + (r * W + old) * st;
+              *p = __dsub_rn(*p, wgt);
+            }
+            double* p = win + (r * W + s) * st;
+            *p = __dadd_rn(*p, wgt);
+          }
         }
-        double* p = win + (r * W + s) * st;
-        *p = __dadd_rn(*p, wgt);
+      }
+      if (kOne) {
+        if (s > 0) win[(s - 1) * st] = last;
+        last = cur;
       }
     }
-  }
-  // a_r(w) = cnt_r[jp-1] + ... + cnt_r[jp-w], from 0.0 in that order, in place
-  for (int r = 0; r < R; ++r) {
-    double a = 0.0;
-    for (int w = 1; w <= weff; ++w) {
-      double* p = win + (r * W + (weff - w)) * st;
-      a = __dadd_rn(a, *p);
-      *p = a;
+    if (kOne) win[(weff - 1) * st] = last;
+    // a_r(w) = cnt_r[jp-1] + ... + cnt_r[jp-w], from 0.0 in that order, in place
+    for (int r = 0; r < R; ++r) {
+      double a = 0.0;
+      for (int w = 1; w <= weff; ++w) {
+        double* p = win + (r * W + (weff - w)) * st;
+        a = __dadd_rn(a, *p);
+        *p = a;
+      }
     }
-  }
-  double* row = S + (jp - 1) * W;
-  for (int w = 1; w <= W; ++w) {
-    double stripe = CUDART_INF;  // no stripe reaches before column 0
-    if (w <= weff) {
-      stripe = alpha[w - 1];
+    // stripe(w) in place of a_0(w)
+    for (int w = 1; w <= weff; ++w) {
+      double stripe = alpha[w - 1];
       for (int r = 0; r < R; ++r)
         stripe = __dadd_rn(
             stripe, __dmul_rn(win[(r * W + (weff - w)) * st], beta[r * W + w - 1]));
+      win[(weff - w) * st] = stripe;
     }
-    row[w - 1] = stripe;
+    if (!smem_win) {
+      double* row = S + (jp - 1) * W;
+      for (int w = 1; w <= W; ++w)  // no stripe reaches before column 0
+        row[w - 1] = w <= weff ? win[(weff - w) * st] : CUDART_INF;
+    }
+  }
+  if (!smem_win) return;
+  __syncthreads();
+  const int rows = static_cast<int>(ce - j0);
+  for (int e = tid; e < rows * W; e += T) {
+    const int i = e / W, w = e % W + 1;
+    const int we = j0 + i + 1 < W ? static_cast<int>(j0 + i + 1) : W;
+    S[j0 * W + e] = w <= we ? smem[(we - w) * sw + i] : CUDART_INF;
   }
 }
 
@@ -377,12 +471,18 @@ int vbcs_dp_table(int64_t n, int W, int R, int64_t G, const void* pos,
   if ((smem_threads == 0) != (scratch != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int threads = smem_threads > 0 ? smem_threads : kTableThreads;
-  const size_t smem = smem_threads > 0
-                          ? static_cast<size_t>(R) * W * sizeof(double) * threads
-                          : 0;
+  const size_t smem =
+      (smem_threads > 0 ? static_cast<size_t>(R) * W * sizeof(double) * (threads + 1)
+                        : 0) +
+      sizeof(int64_t) * (kStagePos + 1 + (kStageNnz + kStageNnz / 16) *
+                                             (wts != nullptr ? 2 : 1));
   const int64_t blocks = (n + threads - 1) / threads;
-  dp_table_kernel<<<static_cast<unsigned>(blocks), threads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = R == 1 ? dp_table_kernel<true> : dp_table_kernel<false>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<static_cast<unsigned>(blocks), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       n, W, R, G, static_cast<const int64_t*>(pos),
       static_cast<const int64_t*>(grp), static_cast<const int64_t*>(prevcol),
       static_cast<const double*>(wts), static_cast<const double*>(alpha),

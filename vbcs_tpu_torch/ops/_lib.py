@@ -125,6 +125,10 @@ def load():
             lib.vbcs_dp_table_scratch_doubles.restype = i64
             lib.vbcs_dp_recurrence.argtypes = [i64, i32] + [vp] * 4
             lib.vbcs_dp_recurrence.restype = i32
+            lib.vbcs_dp_scan_scratch_doubles.argtypes = [i64, i32]
+            lib.vbcs_dp_scan_scratch_doubles.restype = i64
+            lib.vbcs_dp_scan.argtypes = [i64, i32] + [vp] * 5
+            lib.vbcs_dp_scan.restype = i32
             lib.vbcs_dp_chain_floor.argtypes = [i64] + [vp] * 3
             lib.vbcs_dp_chain_floor.restype = i32
             # the probes (vbcs_tpu_torch/probes)

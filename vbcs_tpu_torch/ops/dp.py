@@ -10,29 +10,78 @@ splits what the scan computes into its parallel part and its chain:
 * :func:`dp_table` (``csrc/dp.cu`` on a CUDA tensor): ``S[jp - 1, w - 1]``,
   the cost of the stripe of columns ``[jp - w, jp)``, from the host DP's
   counters replayed over the W columns before ``jp`` (inf where ``w > jp``);
-* :func:`dp_recurrence` (``csrc/dp.cu``): ``opt[jp] = min_w opt[jp - w] +
-  S[jp - 1, w - 1]`` and the back pointers ``prev``, the narrowest stripe
-  winning ties;
+* :func:`dp_recurrence`: ``opt[jp] = min_w opt[jp - w] + S[jp - 1, w - 1]``
+  and the back pointers ``prev``, the narrowest stripe winning ties, by one
+  of two kernels: on exact cost tables (:func:`exact_tables`, decided on the
+  host from the model's tables) the parallel (min,+) scan
+  :func:`dp_recurrence_scan` (``csrc/dp_scan.cu``), else the serial fold
+  (``csrc/dp.cu``), which alone reproduces the host's sums on fractional
+  tables;
 * :func:`chain_floor` (``csrc/dp.cu``): the recurrence's dependent path
   alone, a measurement of the floor of its n steps (not on the DP's path).
 
-Both compute in f64 in the order of the C++ DP (``native/vbc_native.cpp``
-``dp_partition``), so the split points are that DP's bit for bit.  On a
-CPU tensor each wrapper runs its plain version (:func:`dp_table_plain`,
-:func:`dp_recurrence_plain`); on a CUDA tensor it launches its kernel or
-raises.
+The table and the serial fold compute in f64 in the order of the C++ DP
+(``native/vbc_native.cpp`` ``dp_partition``); the scan regroups the sums,
+which changes no bit where every sum is exact.  So the split points are
+that DP's bit for bit.  On a CPU tensor each wrapper runs its plain version
+(:func:`dp_table_plain`, :func:`dp_recurrence_plain`,
+:func:`dp_recurrence_scan_plain`); on a CUDA tensor it launches its kernel
+or raises.
 """
 
 from __future__ import annotations
 
+import math
+from fractions import Fraction
+
+import numpy as np
 import torch
 
 from . import _lib
 
-__all__ = ["prev_occurrence", "dp_table", "dp_table_plain", "dp_recurrence",
-           "dp_recurrence_plain", "chain_floor", "chain_floor_plain"]
+__all__ = ["prev_occurrence", "dp_table", "dp_table_plain", "exact_tables",
+           "dp_recurrence", "dp_recurrence_plain", "dp_recurrence_scan",
+           "dp_recurrence_scan_plain", "scan_layout", "chain_floor",
+           "chain_floor_plain"]
 
 INF = float("inf")
+# csrc/dp_scan.cu's kRows, kThreads, kMaxChunks and kSmallW
+SCAN_ROWS, SCAN_THREADS, SCAN_MAX_CHUNKS, SCAN_SMALL_W = 64, 512, 128, 16
+
+
+def _binary_exponent(a) -> int:
+    """The least ``e >= 0`` with every finite entry of ``a`` a multiple of
+    ``2**-e`` (every finite double is such a multiple for some ``e``)."""
+    vals = np.unique(np.asarray(a, dtype=np.float64))
+    return max([Fraction(float(x)).denominator.bit_length() - 1
+                for x in vals[np.isfinite(vals)]], default=0)
+
+
+def exact_tables(alpha, beta, wts, groups: int, n: int) -> bool:
+    """Whether every sum the DP forms is exact in f64, so that any grouping
+    of the recurrence's sums gives the serial fold's bits: the scan's
+    route.  Host arrays: ``alpha`` ``[W]``, ``beta`` ``[R, W]``, ``wts``
+    ``[R, groups]`` or None (unit weights over ``groups`` groups); ``n``
+    columns.
+
+    A counter is a sum of +-weights, at most ``c_r = sum_g |wts[r, g]|`` in
+    size and a multiple of ``2**-e_w``; a stripe cost ``alpha + sum_r a_r *
+    beta_r`` is at most ``s = max|alpha| + sum_r c_r max|beta_r|`` and a
+    multiple of ``2**-e``, ``e = max(e_alpha, e_w + e_beta)``; a plan's cost
+    is at most ``n s``.  All are exact when ``c_r < 2**(53 - e_w)`` and
+    ``n s < 2**(52 - e)`` (one bit spare for the float sum of the bound).
+    Integer tables (the memory models) and binary fractions pass; fitted
+    time models do not."""
+    alpha = np.asarray(alpha, dtype=np.float64)
+    beta = np.asarray(beta, dtype=np.float64)
+    e_w = 0 if wts is None else _binary_exponent(wts)
+    e = max(_binary_exponent(alpha), e_w + _binary_exponent(beta))
+    counts = (np.full(beta.shape[0], float(groups)) if wts is None
+              else np.abs(np.asarray(wts, dtype=np.float64)).sum(axis=1))
+    smax = (np.abs(alpha).max(initial=0.0)
+            + float((counts * np.abs(beta).max(axis=1, initial=0.0)).sum()))
+    return bool((counts < math.ldexp(1.0, 53 - e_w)).all()
+                and n * smax < math.ldexp(1.0, 52 - e))
 
 
 def prev_occurrence(pos: torch.Tensor, grp: torch.Tensor) -> torch.Tensor:
@@ -184,21 +233,31 @@ def dp_recurrence_plain(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
             torch.tensor(opt, dtype=torch.float64, device=S.device))
 
 
-def dp_recurrence(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _check_S(S: torch.Tensor) -> None:
+    if S.dtype != torch.float64 or S.dim() != 2 or not S.is_contiguous():
+        raise ValueError("S must be a contiguous 2-D float64 tensor")
+    if S.shape[1] < 1:
+        raise ValueError(f"width cap W must be >= 1, got {S.shape[1]}")
+    if S.device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"no DP kernel for device {S.device}")
+
+
+def dp_recurrence(S: torch.Tensor, exact: bool = False
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(prev, opt)``, each ``[n + 1]`` (int64, f64), from ``S`` ``[n, W]``
     f64: ``opt[0] = 0``, ``opt[jp] = min_{w <= min(W, jp)} opt[jp - w] +
     S[jp - 1, w - 1]`` and ``prev[jp]`` the ``jp - w`` of the first
-    minimum over ascending ``w`` (``jp - 1`` when ``opt[jp]`` is inf)."""
-    if S.dtype != torch.float64 or S.dim() != 2 or not S.is_contiguous():
-        raise ValueError("S must be a contiguous 2-D float64 tensor")
+    minimum over ascending ``w`` (``jp - 1`` when ``opt[jp]`` is inf).
+    ``exact`` (:func:`exact_tables` of the tables that made S) routes to
+    the scan, :func:`dp_recurrence_scan`; else the serial fold, whose
+    launches ``dp_recurrence.launches`` counts."""
+    _check_S(S)
+    if exact:
+        return dp_recurrence_scan(S)
     n, W = S.shape
-    if W < 1:
-        raise ValueError(f"width cap W must be >= 1, got {W}")
     dev = S.device
     if dev.type == "cpu":
         return dp_recurrence_plain(S)
-    if dev.type != "cuda":
-        raise NotImplementedError(f"no DP kernel for device {dev}")
     opt = torch.zeros(n + 1, dtype=torch.float64, device=dev)
     prev = torch.zeros(n + 1, dtype=torch.int64, device=dev)
     if n == 0:
@@ -210,6 +269,106 @@ def dp_recurrence(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                                     prev.data_ptr(), stream)
     _lib.check(lib, rc, "dp_recurrence")
     dp_recurrence.launches += 1
+    return prev, opt
+
+
+def scan_layout(n: int, W: int) -> tuple[int, int, int, int, int]:
+    """``(We, L, K, B, nb)`` of the scan on ``S`` ``[n, W]``, n > 0: the
+    state's width ``min(W, n)``, rows a chunk, chunks, chunks a block and
+    blocks (``csrc/dp_scan.cu`` ``layout``: a lane a chunk's padded state
+    slot, the power of two at or above We up to ``SCAN_SMALL_W``, We
+    above; ``SCAN_THREADS`` lanes a block)."""
+    We = min(W, n)
+    Wp = 1 << (We - 1).bit_length() if We <= SCAN_SMALL_W else We
+    L = max(SCAN_ROWS, We)
+    K = -(-n // L)
+    B = max(1, min(SCAN_MAX_CHUNKS, SCAN_THREADS // Wp))
+    return We, L, K, B, -(-K // B)
+
+
+def _matvec(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``out[..., i] = min_k A[..., i, k] + v[..., k]``."""
+    return (A + v[..., None, :]).amin(-1)
+
+
+def dp_recurrence_scan_plain(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain scan in torch ops: the kernel's chunks, blocks and order of
+    (min,+) products, each add of the same two operands, so that kernel
+    and plain version are bitwise equal on any finite S.  Matrices here
+    are ``[..., i, k]``: ``out[i] = min_k M[i, k] + in[k]``."""
+    n, W = S.shape
+    dev, f64 = S.device, torch.float64
+    opt = torch.zeros(n + 1, dtype=f64, device=dev)
+    prev = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    if n == 0:
+        return prev, opt
+    We, L, K, B, nb = scan_layout(n, W)
+    rows = torch.full((K * L, We), INF, dtype=f64, device=dev)
+    rows[:n] = S[:, :We]
+    rows = rows.view(K, L, We).flip(-1)  # column j: w = We - j
+    lane = torch.arange(We, device=dev)
+    # pass 1: lane k of each chunk from the unit start e_k; hist[c, k, We - 1 + p]
+    # holds position p (p <= 0: the start's slot -p)
+    hist = torch.full((K, We, L + We), INF, dtype=f64, device=dev)
+    hist[:, lane, We - 1 - lane] = 0.0
+    for t in range(L):  # position t + 1 from positions t + 1 - We .. t
+        hist[:, :, We + t] = (hist[:, :, t:t + We] + rows[:, t, None, :]).amin(-1)
+    # M[c, i, k]: position L - i; each block's prefix products (Hillis-Steele,
+    # Q_c <- Q_c (x) Q_{c-d}), the blocks padded to B chunks
+    Q = torch.full((nb * B, We, We), INF, dtype=f64, device=dev)
+    Q[:K] = hist[:, :, We - 1 + L - lane].transpose(1, 2)
+    Q = Q.view(nb, B, We, We)
+    d = 1
+    while d < B:
+        Q = torch.cat([Q[:, :d], (Q[:, d:, :, :, None] + Q[:, :-d, None, :, :]).amin(3)], 1)
+        d *= 2
+    # pass 2: each block's start by the chain over the aggregates before it,
+    # then each chunk's from the prefix before it
+    v = torch.full((We,), INF, dtype=f64, device=dev)
+    v[0] = 0.0
+    vb = [v]
+    for b in range(nb - 1):
+        vb.append(_matvec(Q[b, B - 1], vb[-1]))
+    vb = torch.stack(vb)
+    st = torch.cat([vb[:, None], _matvec(Q[:, :B - 1], vb[:, None])], 1)
+    st = st.reshape(nb * B, We)[:K]  # st[c, j] = opt[cL - j]
+    # the replay from each chunk's start: the first minimum over ascending w
+    h = torch.full((K, L + We), INF, dtype=f64, device=dev)
+    h[:, :We] = st.flip(-1)
+    bw = torch.empty((K, L), dtype=torch.int64, device=dev)
+    for t in range(L):
+        cand = h[:, t:t + We] + rows[:, t]
+        best = cand.amin(-1)
+        j = torch.where(cand == best[:, None], lane, -1).amax(-1)
+        h[:, We + t] = best
+        bw[:, t] = We - j
+    opt[1:] = h[:, We:].reshape(-1)[:n]
+    prev[1:] = torch.arange(1, n + 1, device=dev) - bw.reshape(-1)[:n]
+    return prev, opt
+
+
+def dp_recurrence_scan(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dp_recurrence` by the parallel (min,+) scan
+    (``csrc/dp_scan.cu``): the serial fold's bits wherever every sum is
+    exact (:func:`exact_tables`), any ``W``."""
+    _check_S(S)
+    n, W = S.shape
+    dev = S.device
+    if dev.type == "cpu":
+        return dp_recurrence_scan_plain(S)
+    opt = torch.zeros(n + 1, dtype=torch.float64, device=dev)
+    prev = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    if n == 0:
+        return prev, opt
+    lib = _lib.load()
+    scratch = torch.empty(lib.vbcs_dp_scan_scratch_doubles(n, W),
+                          dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vbcs_dp_scan(n, W, S.data_ptr(), opt.data_ptr(), prev.data_ptr(),
+                              scratch.data_ptr(), stream)
+    _lib.check(lib, rc, "dp_recurrence_scan")
+    dp_recurrence_scan.launches += 1
     return prev, opt
 
 
@@ -247,4 +406,5 @@ def chain_floor(s: torch.Tensor, n: int) -> torch.Tensor:
 
 dp_table.launches = 0
 dp_recurrence.launches = 0
+dp_recurrence_scan.launches = 0
 chain_floor.launches = 0

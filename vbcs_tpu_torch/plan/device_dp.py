@@ -6,10 +6,13 @@ runs the DP as a ``lax.scan`` so that a partition can be planned inside a
 jit trace, without a host round trip.  Here the cores (:func:`dp_prev`)
 take the CSC's arrays as tensors already on the device and return ``prev``
 and ``opt`` there: the previous occurrence of each nonzero's group (torch
-ops), the stripe-cost table (a kernel, one thread a column) and the
-recurrence (a kernel: one thread walks the n dependent steps, the others
-load its rows and recover the back pointers).  The wrappers backtrack
-``prev`` on the host, as the JAX ones do.
+ops), the stripe-cost table (a kernel, one thread a column, a block's
+columns staged once) and the recurrence, by one of two kernels: a parallel
+(min,+) scan where the model's tables are exact (every sum exact in f64:
+the memory models, binary fractions), the serial fold otherwise (fitted
+time models).  The wrappers backtrack ``prev`` on the device by pointer
+doubling and copy the split points to the host once (the JAX ones
+backtrack on the host).
 
 The split points are those of ``plan/dynamic.dp_partition`` (the C++ DP)
 bit for bit, the narrowest stripe winning ties, for the two models the
@@ -25,6 +28,8 @@ subtracts and adds them at that column, and so does the table.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -32,11 +37,14 @@ from ..formats.csc import CSC
 from ..formats.partition import SplitPartition
 from ..models.cost import (BlockComponentCostModel,
                            ColumnBlockComponentCostModel)
-from ..ops.dp import dp_recurrence, dp_table, prev_occurrence
+from ..ops.dp import dp_recurrence, dp_table, exact_tables, prev_occurrence
 from .dynamic import _native_tables, _row_weights
 
-__all__ = ["dp_prev", "dp_inputs", "dp_partition_device",
-           "dp_partition_device_2d", "COUNTERPARTS"]
+__all__ = ["dp_prev", "dp_inputs", "dp_route", "backtrack", "dp_partition_device",
+           "dp_partition_device_2d", "dp_stages", "STAGES", "COUNTERPARTS"]
+
+# the stages of a device plan that dp_stages times apart
+STAGES = ("inputs", "prev_occurrence", "table", "recurrence", "backtrack")
 
 # every public function of vbcs_tpu/plan/jax_dp.py -> its port
 COUNTERPARTS = {
@@ -48,21 +56,51 @@ COUNTERPARTS = {
 
 
 def dp_prev(pos: torch.Tensor, grp: torch.Tensor, wts, alpha: torch.Tensor,
-            beta: torch.Tensor, W: int) -> tuple[torch.Tensor, torch.Tensor]:
+            beta: torch.Tensor, exact: bool, W: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """The DP's core on the tensors' device: ``(prev, opt)``, each ``[n + 1]``.
 
     ``pos`` ``[n + 1]`` and ``grp`` ``[nnz]`` int64 (the CSC's pointers and
     each nonzero's group: its row, or its row-block in 2-D); ``wts`` None
     (unit weights, one counter) or ``[R, groups]`` f64; ``alpha`` ``[W]``
-    and ``beta`` ``[R, W]`` f64, the models' tables, all finite
-    (:func:`dp_inputs` builds them).  ``prev[jp]`` is the start of the last
-    stripe of the best plan of columns ``[0, jp)``."""
+    and ``beta`` ``[R, W]`` f64, the models' tables, all finite; ``exact``
+    whether every sum is exact (the scan's route).  :func:`dp_inputs`
+    builds them all.  ``prev[jp]`` is the start of the last stripe of the
+    best plan of columns ``[0, jp)``."""
     _check_width(W)
     S = dp_table(pos, grp, prev_occurrence(pos, grp), wts, alpha, beta, W)
-    return dp_recurrence(S)
+    return dp_recurrence(S, exact)
+
+
+def backtrack(prev: torch.Tensor) -> SplitPartition:
+    """The split points of ``prev`` ``[n + 1]`` (``prev[0] = 0``, ``prev[j]
+    < j``): ``n, prev[n], prev[prev[n]], ..., 0`` ascending.  Pointer
+    doubling on ``prev``'s device: ``jump[b] = prev^(2^b)`` for
+    ``2^b <= n``, the number of steps to 0 by binary lifting, then every
+    split point at once from the bits of its distance to ``n``; one copy of
+    the split points to the host."""
+    n = prev.numel() - 1
+    if n == 0:
+        return SplitPartition.whole(0)
+    jumps = [prev]
+    for _ in range(n.bit_length() - 1):
+        jumps.append(jumps[-1][jumps[-1]])
+    x = torch.tensor(n, device=prev.device)
+    steps = torch.tensor(1, device=prev.device)
+    for b in reversed(range(len(jumps))):
+        y = jumps[b][x]
+        go = y != 0
+        x = torch.where(go, y, x)
+        steps = steps + go * (1 << b)
+    k = torch.arange(int(steps) + 1, device=prev.device)
+    at = torch.full_like(k, n)
+    for b, jump in enumerate(jumps):
+        at = torch.where((k >> b) & 1 == 1, jump[at], at)
+    return SplitPartition(at.flip(0).cpu().numpy())
 
 
 def _backtrack(prev: list, n: int) -> SplitPartition:
+    """The host loop over ``prev`` (a list): :func:`backtrack`'s oracle."""
     splits = [n]
     j = n
     while j > 0:
@@ -81,14 +119,8 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
 
-def dp_inputs(A: CSC, model, W: int, Pi: SplitPartition | None = None, *,
-              device) -> tuple:
-    """``(pos, grp, wts, alpha, beta)`` for :func:`dp_prev` on ``device``:
-    a :class:`ColumnBlockComponentCostModel` counts rows (``wts`` None, one
-    counter; ``Pi`` must be None), a :class:`BlockComponentCostModel` the
-    row-blocks of ``Pi`` (default: every row a block), weighted by
-    ``beta_row``.  Raises ``TypeError`` for any other model and
-    ``ValueError`` for a table that is not finite."""
+def _host_tables(A: CSC, model, W: int, Pi):
+    """``(Pi, wts, alpha, beta)`` on the host, the checks of :func:`dp_inputs`."""
     _check_width(W)
     if isinstance(model, ColumnBlockComponentCostModel):
         if Pi is not None:
@@ -104,19 +136,78 @@ def dp_inputs(A: CSC, model, W: int, Pi: SplitPartition | None = None, *,
     for name, t in (("alpha", alpha), ("beta", beta), ("beta_row", wts)):
         if t is not None and not np.isfinite(t).all():
             raise ValueError(f"the model's {name} table is not finite")
+    return Pi, wts, alpha, beta
+
+
+def dp_route(A: CSC, model, W: int, Pi: SplitPartition | None = None) -> str:
+    """The recurrence kernel a plan of ``A`` under ``model`` takes:
+    ``"scan"`` where the tables are exact
+    (:func:`~vbcs_tpu_torch.ops.dp.exact_tables`), else ``"serial"``;
+    decided on the host."""
+    _, wts, alpha, beta = _host_tables(A, model, W, Pi)
+    return "scan" if exact_tables(alpha, beta, wts, A.m, A.n) else "serial"
+
+
+def dp_inputs(A: CSC, model, W: int, Pi: SplitPartition | None = None, *,
+              device) -> tuple:
+    """``(pos, grp, wts, alpha, beta, exact)`` for :func:`dp_prev` on
+    ``device`` (``exact`` a bool, :func:`~vbcs_tpu_torch.ops.dp.exact_tables`
+    of the tables, decided on the host): a
+    :class:`ColumnBlockComponentCostModel` counts rows (``wts`` None, one
+    counter; ``Pi`` must be None), a :class:`BlockComponentCostModel` the
+    row-blocks of ``Pi`` (default: every row a block), weighted by
+    ``beta_row``.  Raises ``TypeError`` for any other model and
+    ``ValueError`` for a table that is not finite."""
+    Pi, wts, alpha, beta = _host_tables(A, model, W, Pi)
+    exact = exact_tables(alpha, beta, wts, A.m, A.n)
     idx = _tensor(A.idx, np.int64, device)
     grp = idx if wts is None else _tensor(Pi.to_map().asg, np.int64, device)[idx]
     return (_tensor(A.pos, np.int64, device), grp,
             None if wts is None else _tensor(wts, np.float64, device),
-            _tensor(alpha, np.float64, device), _tensor(beta, np.float64, device))
+            _tensor(alpha, np.float64, device), _tensor(beta, np.float64, device),
+            exact)
 
 
-def _solve(A: CSC, model, W: int, Pi, device) -> SplitPartition:
-    inputs = dp_inputs(A, model, W, Pi, device=device)
+def _solve(A: CSC, model, W: int, Pi, device, stages=None) -> SplitPartition:
+    """The plan; with ``stages`` a dict, each stage of :data:`STAGES` ends
+    in a synchronize and its host ms is recorded there, with the route
+    (``"scan"`` or ``"serial"``)."""
+    device = torch.device(device)
+    t = [time.perf_counter()]
+
+    def lap(name):
+        if stages is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            now = time.perf_counter()
+            stages[name] = (now - t[0]) * 1e3
+            t[0] = now
+
+    pos, grp, wts, alpha, beta, exact = dp_inputs(A, model, W, Pi, device=device)
+    if stages is not None:
+        stages["route"] = "scan" if exact else "serial"
+    lap("inputs")
     if A.n == 0:
         return SplitPartition.whole(0)
-    prev, _ = dp_prev(*inputs, W)
-    return _backtrack(prev.cpu().tolist(), A.n)
+    prevcol = prev_occurrence(pos, grp)
+    lap("prev_occurrence")
+    S = dp_table(pos, grp, prevcol, wts, alpha, beta, W)
+    lap("table")
+    prev, _ = dp_recurrence(S, exact)
+    lap("recurrence")
+    out = backtrack(prev)
+    lap("backtrack")
+    return out
+
+
+def dp_stages(A: CSC, model, W: int, Pi: SplitPartition | None = None, *,
+              device) -> tuple[SplitPartition, dict]:
+    """:func:`dp_partition_device` (``Pi`` None) or
+    :func:`dp_partition_device_2d`'s plan and the host ms of each of its
+    :data:`STAGES`, each ended by a synchronize, with the recurrence's
+    route."""
+    stages = {}
+    return _solve(A, model, W, Pi, device, stages), stages
 
 
 def dp_partition_device(A: CSC, model: ColumnBlockComponentCostModel, W: int,
