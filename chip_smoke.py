@@ -110,20 +110,26 @@ Phases (one line each; any failure raises and exits non-zero):
     ``entry()`` and
     ``dryrun_multichip(4, backend="gloo")`` (a ``DIST {...}`` line);
 17. the split-point DP on the card (``dp_partition_device``,
-    ``dp_partition_device_2d``; ``csrc/dp.cu``, ``csrc/dp_scan.cu``): the
-    flagship and the scrambled FEM at W=8 (1-D), ``blocky2d_matrix()``
-    under ``SplitPartition.equi(m, 4)`` and the flagship under ``equi(m,
-    8)`` (2-D), with the memory models (exact tables: the scan's route)
-    and again with phase 14's fitted time models (the 2-D one at U=W=4;
-    fractional: the serial fold's route), and the flagship at W = 16;
-    every plan's split points against the host C++ DP's, its route and the
-    host ms of each stage of its wall (index copy, sort, table,
-    recurrence, backtrack); the three kernels (the stripe-cost table, the
-    scan, the serial fold) bitwise against their plain versions on each
-    matrix's first 4,096 columns and the scan also on the whole flagship;
-    each pass's device time beside the plan's host wall and the host
-    DP's, the serial fold beside its n-step dependent floor, and the scan
-    and the serial fold at W = 16 (a ``PLAN {...}`` line); then ``probes/probe_pack.py`` (every host stage
+    ``dp_partition_device_2d``; ``csrc/dp.cu``, ``csrc/dp_scan.cu``,
+    ``csrc/dp_checked.cu``): the flagship and the scrambled FEM at W=8
+    (1-D), ``blocky2d_matrix()`` under ``SplitPartition.equi(m, 4)`` and
+    the flagship under ``equi(m, 8)`` (2-D), with the memory models (exact
+    tables: the scan's route) and again with phase 14's fitted time models
+    (the 2-D one at U=W=4; fractional: the checked fold on the scan's back
+    pointers), and the flagship at W = 16; every plan's split points
+    against the host C++ DP's, its route, the checked fold's restarts and
+    re-walked rows, and the host ms of each stage of its wall (index copy,
+    sort, table, recurrence, backtrack); the four kernels (the stripe-cost
+    table, the scan, the checked fold, the serial fold) bitwise against
+    their plain versions on each matrix's first 4,096 columns (the checked
+    fold with the scan's guess and with one whose every 97th pointer is
+    moved, which must restart, and against the serial fold), the scan also
+    on the whole flagship; each pass's device time beside the plan's host
+    wall and the host DP's; the checked fold (with the scan and alone)
+    beside the serial fold in turns on the whole flagship time plan, on
+    the flagship's memory S at W = 16 and on a fractional table at W = 16,
+    each bitwise with both guesses; the serial fold beside its n-step
+    dependent floor (a ``PLAN {...}`` line); then ``probes/probe_pack.py`` (every host stage
     of plan and pack, a ``PACK {...}`` line) and
     ``tools/weak_scaling.py`` at ``WEAK_L0`` stripes a rank (N = 1 on one
     NCCL rank, N = 2 in gloo ranks sharing the card; a ``WEAK {...}``
@@ -168,8 +174,9 @@ chunk, chain-probe and FMA kernels), the autotuner of phase 14 and the
 method table of phase 15 (the routed kernels), and each distributed
 path of phase 16 on every rank (counted in the ranks, summed over them:
 the stripe, scatter, SpMM and tile TrSpMV kernels, and the gather on the
-halo paths), and the plans of phase 17 (the DP's table once a plan and
-exactly one recurrence kernel, the one the plan's route names).  No f32 call of phases
+halo paths), and the plans of phase 17 (the DP's table once a plan, the
+scan once, and on fitted tables the checked fold once; the serial fold,
+timed as the checked fold's yardstick, on no plan).  No f32 call of phases
 4-10 enters ``ops/semiring.py`` (a spy counts), and phase 13's calls do.
 Then each kernel is held against its
 plain version at the shapes those paths gave it: the stripe kernel on
@@ -2342,7 +2349,8 @@ def phase_dist(dev, flag, parts, smi, errs):
 # ---- slice 10: the split-point DP on the card, the pack stages, weak scaling
 
 DP_CUT = 4096  # the first columns of each matrix, where the kernels are held bitwise
-DP_KERNELS = (dp_ops.dp_table, dp_ops.dp_recurrence, dp_ops.dp_recurrence_scan)
+DP_KERNELS = (dp_ops.dp_table, dp_ops.dp_recurrence_serial, dp_ops.dp_recurrence_scan,
+              dp_ops.dp_recurrence_checked)
 # H100 SXM data sheet: f64 outside the tensor cores (the DP's type)
 F64_FLOP_PER_S = 34e12
 WEAK_L0 = 1000  # stripes a rank in the weak-scaling rows
@@ -2351,6 +2359,7 @@ WEAK_REPS = 3
 # its rows, is the cost (phase 16 runs the 4-rank gloo world)
 WEAK_WORLD = 2
 DP_WIDE = 16  # past the serial fold's register ring (W <= 8): its plain loop
+DP_CORRUPT = 97  # every 97th pointer of a corrupted guess moved to another width
 
 
 def dp_cases(flag, fem, mdl, mdl2):
@@ -2436,42 +2445,82 @@ def dp_passes_ms(inputs, W, dev):
             "recurrence": ev[2].elapsed_time(ev[3])}
 
 
+def corrupt_guess(guess, W, every=DP_CORRUPT):
+    """``guess`` with every ``every``-th back pointer moved to another valid
+    width (``jp - guess[jp]`` cycled within ``1 .. min(W, jp)``), which must
+    make the checked fold restart."""
+    g = guess.clone()
+    if every >= g.numel():
+        return g
+    jp = torch.arange(every, g.numel(), every, device=g.device)
+    lo = jp - jp.clamp(max=W)
+    span = jp - lo
+    g[jp] = torch.where(span > 1, lo + (g[jp] - lo + 1) % span, g[jp])
+    return g
+
+
+def checked_against(label, S, want, dev):
+    """The checked fold on ``S`` with the scan's guess and a corrupted one,
+    each bitwise its plain version (prev, opt and counters) and ``want``
+    (the serial fold's prev and opt); the corrupted guess must restart.
+    Returns the counters of both and the largest |Δ| of opt."""
+    guess = dp_ops.dp_recurrence_scan(S)[0]
+    out, err = {}, 0.0
+    for name, g in (("scan", guess), ("corrupted", corrupt_guess(guess, S.shape[1]))):
+        got = dp_ops.dp_recurrence_checked(S, g)
+        plain = dp_ops.dp_recurrence_checked_plain(S, g)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, plain)),
+              f"{label}: dp_recurrence_checked differs from its plain version "
+              f"({name} guess)")
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"{label}: dp_recurrence_checked differs from the serial fold "
+              f"({name} guess)")
+        out[name] = dict(zip(("restarts", "rewalked", "folded"), got[2].tolist()))
+        err = max(err, float((got[1] - plain[1]).abs().max()))
+    check(out["corrupted"]["restarts"] > 0,
+          f"{label}: the corrupted guess made no restart: {out}")
+    return out, err
+
+
 def dp_against_plain(label, C, model, W, Pi, dev):
-    """The three kernels against their plain versions on the first
-    ``DP_CUT`` columns: S, and opt and prev of the serial fold and of the
-    scan, bitwise (the scan follows its plain version's order of sums, so
-    this holds on fractional tables too); on exact tables the scan also
-    equal to the serial fold.  Returns the largest |Δ| of each."""
+    """The four kernels against their plain versions on the first
+    ``DP_CUT`` columns: S, and opt and prev of the serial fold, the scan and
+    the checked fold, bitwise (the scan follows its plain version's order
+    of sums, so this holds on fractional tables too); on exact tables the
+    scan also equal to the serial fold; the checked fold equal to the
+    serial fold on every table, with the scan's guess and a corrupted one.
+    Returns the largest |Δ| of each and the checked fold's counters."""
     pos, grp, wts, alpha, beta, exact = dp_inputs(csc_cut(C, DP_CUT), model, W,
                                                   Pi, device=dev)
     prevcol = dp_ops.prev_occurrence(pos, grp)
     S = dp_ops.dp_table(pos, grp, prevcol, wts, alpha, beta, W)
     S_plain = dp_ops.dp_table_plain(pos, grp, prevcol, wts, alpha, beta, W)
-    prev, opt = dp_ops.dp_recurrence(S)
+    prev, opt = dp_ops.dp_recurrence_serial(S)
     prev_plain, opt_plain = dp_ops.dp_recurrence_plain(S_plain)
     scan_prev, scan_opt = dp_ops.dp_recurrence_scan(S)
     scan_prev_plain, scan_opt_plain = dp_ops.dp_recurrence_scan_plain(S_plain)
     torch.cuda.synchronize()
     check(torch.equal(S, S_plain), f"{label}: dp_table differs from its plain version")
     check(torch.equal(opt, opt_plain) and torch.equal(prev, prev_plain),
-          f"{label}: dp_recurrence differs from its plain version")
+          f"{label}: dp_recurrence_serial differs from its plain version")
     check(torch.equal(scan_opt, scan_opt_plain) and torch.equal(scan_prev, scan_prev_plain),
           f"{label}: dp_recurrence_scan differs from its plain version")
     check(not exact or (torch.equal(scan_opt, opt) and torch.equal(scan_prev, prev)),
           f"{label}: on exact tables the scan differs from the serial fold")
+    counts, checked_err = checked_against(label, S, (prev, opt), dev)
     finite = torch.isfinite(S_plain)
     return {"dp_table": float((S - S_plain)[finite].abs().max()),
-            "dp_recurrence": float((opt - opt_plain).abs().max()),
-            "dp_recurrence_scan": float((scan_opt - scan_opt_plain).abs().max())}
+            "dp_recurrence_serial": float((opt - opt_plain).abs().max()),
+            "dp_recurrence_scan": float((scan_opt - scan_opt_plain).abs().max()),
+            "dp_recurrence_checked": checked_err}, counts
 
 
-def recurrence_record(label, S, exact, dev):
-    """The recurrence kernel of ``S``'s route on the whole matrix: its
-    device ms, its plain version's and the result against the plain
-    version (bitwise) and, for the scan, against the serial fold; the
-    serial fold's plain version is Python, timed on the host clock."""
-    kern = dp_ops.dp_recurrence_scan if exact else dp_ops.dp_recurrence
-    plain = dp_ops.dp_recurrence_scan_plain if exact else dp_ops.dp_recurrence_plain
+def recurrence_record(label, S, dev):
+    """The scan on the whole matrix (exact tables): its device ms, its plain
+    version's (host clock) and the result against the plain version and the
+    serial fold (bitwise)."""
+    kern, plain = dp_ops.dp_recurrence_scan, dp_ops.dp_recurrence_scan_plain
     got = kern(S)
     t = paired_ms([lambda: kern(S)], dev, iters=3)[0]
     torch.cuda.synchronize()
@@ -2480,29 +2529,89 @@ def recurrence_record(label, S, exact, dev):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-          f"{label}: {kern.__name__} differs from its plain version")
-    if exact:
-        check(torch.equal(got[0], dp_ops.dp_recurrence(S)[0]),
-              f"{label}: the scan differs from the serial fold")
+          f"{label}: dp_recurrence_scan differs from its plain version")
+    check(torch.equal(got[0], dp_ops.dp_recurrence_serial(S)[0]),
+          f"{label}: the scan differs from the serial fold")
     return {"ms": t, "plain_ms": plain_ms, "plain_clock": "host",
             "library_ms": None}
+
+
+def host_clock_ms(fn):
+    """Host ms of one call of ``fn`` (a plain version), ended by a
+    synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def fold_records(label, S, dev, serial_plain=True):
+    """The checked fold and the serial fold on a whole ``S``: each bitwise
+    the other and its plain version with the scan's guess and a corrupted
+    one; in one ``paired_ms``, in turns, the checked fold alone on the
+    scan's guess (its ``ms``), with the scan (the route, ``route_ms``) and
+    on the corrupted guess (``corrupted_ms``), the scan alone
+    (``scan_ms``) and the serial fold; the plain versions on the host
+    clock.  Returns (checked record, serial record, counters)."""
+    guess = dp_ops.dp_recurrence_scan(S)[0]
+    bad = corrupt_guess(guess, S.shape[1])
+    serial = dp_ops.dp_recurrence_serial(S)
+    counts, _ = checked_against(label, S, serial, dev)
+    t_alone, t_route, t_bad, t_scan, t_serial = paired_ms(
+        [lambda: dp_ops.dp_recurrence_checked(S, guess),
+         lambda: dp_ops.dp_recurrence_checked(S),
+         lambda: dp_ops.dp_recurrence_checked(S, bad),
+         lambda: dp_ops.dp_recurrence_scan(S),
+         lambda: dp_ops.dp_recurrence_serial(S)], dev, iters=3)
+    checked = {"ms": t_alone, "route_ms": t_route, "corrupted_ms": t_bad,
+               "scan_ms": t_scan, "library_ms": None,
+               "plain_ms": host_clock_ms(
+                   lambda: dp_ops.dp_recurrence_checked_plain(S, guess)),
+               "plain_clock": "host"}
+    ser = {"ms": t_serial, "library_ms": None, "plain_clock": "host",
+           "plain_ms": (host_clock_ms(lambda: dp_ops.dp_recurrence_plain(S))
+                        if serial_plain else None)}
+    return checked, ser, counts
+
+
+def fitted_1d(W, seed=0):
+    """A 1-D model with fractional tables from ``seed``, like a fitted time
+    model."""
+    rng = np.random.default_rng(seed)
+    return vt.ColumnBlockComponentCostModel(
+        alpha_col=np.cumsum(rng.uniform(0.1, 1.3, W)) * 0.37,
+        beta_col=np.cumsum(rng.uniform(0.01, 0.2, W)) * 0.29)
+
+
+def table_of(C, model, W, Pi, dev):
+    """S of ``C`` under ``model`` on the card."""
+    pos, grp, wts, alpha, beta, _ = dp_inputs(C, model, W, Pi, device=dev)
+    return dp_ops.dp_table(pos, grp, dp_ops.prev_occurrence(pos, grp), wts,
+                           alpha, beta, W)
 
 
 def phase_plan(dev, flag, fem, mdl, mdl2, smi, errs):
     """17: the split-point DP on the card (``dp_partition_device``,
     ``dp_partition_device_2d``) on the cases of :func:`dp_cases`, each
     plan's split points against the host C++ DP's and its launches (the
-    table once, one recurrence kernel: its route's), the host ms of each
-    stage of the plan (``dp_stages``), the three kernels against their
-    plain versions on the first ``DP_CUT`` columns (bitwise), the device
-    time of each pass (CUDA events) beside the device plan's host wall and
-    the host DP's; the table and the scan (flagship, memory, W = 8, and
-    ``DP_WIDE``) and the serial fold (flagship, time model) on the whole
-    matrix against their plain versions, timed, and the serial fold beside
-    its dependent floor and at ``DP_WIDE``; then ``probe_pack`` (all
-    stages) and the weak-scaling rows at ``WEAK_L0`` up to ``WEAK_WORLD``
-    ranks.  Prints ``PLAN``, ``PACK`` and ``WEAK`` lines; returns the DP
-    kernels' launches on the plans and their timing records."""
+    table once; the scan once, and on fitted tables the checked fold once on
+    the scan's guess; the serial fold never), the host ms of each stage of
+    the plan and the checked fold's restarts (``dp_stages``), the four
+    kernels against their plain versions on the first ``DP_CUT`` columns
+    (bitwise; the checked fold with the scan's guess and a corrupted one,
+    against the serial fold too), the device time of each pass (CUDA events)
+    beside the device plan's host wall and the host DP's; the table and the
+    scan (flagship, memory, W = 8, and ``DP_WIDE``) on the whole matrix
+    against their plain versions, timed; the checked fold beside the serial
+    fold in one ``paired_ms`` on the flagship's time plan, on its memory
+    plan's S at ``DP_WIDE`` (the route forced to the checked fold) and on a
+    fractional ``fitted_1d`` table at ``DP_WIDE``, each bitwise with both
+    guesses; the serial fold beside its dependent floor; then
+    ``probe_pack`` (all stages) and the weak-scaling rows at ``WEAK_L0`` up
+    to ``WEAK_WORLD`` ranks.  Prints ``PLAN``, ``PACK`` and ``WEAK`` lines;
+    returns the DP kernels' launches on the plans and their timing
+    records."""
     t_phase = time.perf_counter()
     cases = dp_cases(flag, fem, mdl, mdl2)
     launches = {k.__name__: 0 for k in DP_KERNELS}
@@ -2516,15 +2625,16 @@ def phase_plan(dev, flag, fem, mdl, mdl2, smi, errs):
         want = dp_partition(C, model, W, row_partition=Pi)
         check(np.array_equal(got.spl, want.spl),
               f"{label}: the device DP's split points differ from the host DP's")
-        want_counts = {"dp_table": 1, "dp_recurrence": int(route == "serial"),
-                       "dp_recurrence_scan": int(route == "scan")}
+        want_counts = {"dp_table": 1, "dp_recurrence_serial": 0,
+                       "dp_recurrence_scan": 1,
+                       "dp_recurrence_checked": int(route == "checked")}
         check(counts == want_counts,
               f"{label}: the plan launched {counts}, want {want_counts} "
               f"(route {route})")
         for k, v in counts.items():
             launches[k] += v
-    check(routes[cases[0][0]] == "scan" and routes[cases[4][0]] == "serial",
-          f"the memory plans take the scan, the time plans the serial fold: {routes}")
+    check(routes[cases[0][0]] == "scan" and routes[cases[4][0]] == "checked",
+          f"the memory plans take the scan, the time plans the checked fold: {routes}")
     rec = {"card": smi, "cut": DP_CUT, "cases": {}}
     for label, C, model, W, Pi in cases:
         walls, hosts, stages = [], [], None
@@ -2539,25 +2649,31 @@ def phase_plan(dev, flag, fem, mdl, mdl2, smi, errs):
             check(staged == got, f"{label}: dp_stages planned otherwise")
         inputs = dp_inputs(C, model, W, Pi, device=dev)
         passes = dp_passes_ms(inputs, W, dev)
-        cut = dp_against_plain(label, C, model, W, Pi, dev)
+        cut, cut_counts = dp_against_plain(label, C, model, W, Pi, dev)
         for k, v in cut.items():
             errs[k] = max(errs.get(k, 0.0), v)
+        fold = {k: stages[k] for k in ("restarts", "rewalked", "folded")}
         rec["cases"][label] = {
             "n": C.n, "nnz": C.nnz, "W": W,
             "R": 1 if inputs[2] is None else int(inputs[2].shape[0]),
-            "route": stages["route"], "stripes": len(got), "equal_host": True,
-            "host_dp_ms": min(hosts), "device_wall_ms": min(walls),
+            "route": stages["route"], **fold, "stripes": len(got),
+            "equal_host": True, "host_dp_ms": min(hosts),
+            "device_wall_ms": min(walls),
             "stages_ms": {k: stages[k] for k in STAGES}, "passes_ms": passes,
-            "ns_a_step": passes["recurrence"] * 1e6 / C.n, "cut_max_abs": cut}
-        print(f"[17 plan] {label}: n {C.n}, W {W}, route {stages['route']}, "
-              f"{len(got)} stripes equal to the host DP's; device passes (ms) prev "
-              f"{passes['prev_occurrence']:.3f}, table {passes['dp_table']:.3f}, "
-              f"recurrence {passes['recurrence']:.3f}; device plan wall "
-              f"{min(walls):.2f} ms against the host C++ DP {min(hosts):.2f} ms; "
-              "stages (host ms) " + ", ".join(f"{k} {stages[k]:.3f}" for k in STAGES)
-              + f"; cut of {DP_CUT} columns bitwise", flush=True)
+            "ns_a_step": passes["recurrence"] * 1e6 / C.n, "cut_max_abs": cut,
+            "cut_checked": cut_counts}
+        print(f"[17 plan] {label}: n {C.n}, W {W}, route {stages['route']} "
+              f"(restarts {fold['restarts']}, re-walked rows {fold['rewalked']}, "
+              f"folded rows {fold['folded']}), {len(got)} stripes equal to the host "
+              f"DP's; device passes (ms) prev {passes['prev_occurrence']:.3f}, table "
+              f"{passes['dp_table']:.3f}, recurrence {passes['recurrence']:.3f}; "
+              f"device plan wall {min(walls):.2f} ms against the host C++ DP "
+              f"{min(hosts):.2f} ms; stages (host ms) "
+              + ", ".join(f"{k} {stages[k]:.3f}" for k in STAGES)
+              + f"; cut of {DP_CUT} columns bitwise (checked fold, corrupted "
+              f"guess: {cut_counts['corrupted']['restarts']} restarts)", flush=True)
     # the kernels line's numbers: the table and the scan on the flagship's
-    # min-memory plan, the serial fold on its time plan
+    # min-memory plan, the checked and the serial fold on its time plan
     label, C, model, W, Pi = cases[0]
     pos, grp, wts, alpha, beta, exact = dp_inputs(C, model, W, Pi, device=dev)
     prevcol = dp_ops.prev_occurrence(pos, grp)
@@ -2570,46 +2686,78 @@ def phase_plan(dev, flag, fem, mdl, mdl2, smi, errs):
                                                        alpha, beta, W)], dev, iters=3)
     table_work, rec_work = dp_work(pos, wts, W)
     ms = {"dp_table": {"ms": t_table[0], "plain_ms": t_table[1], "library_ms": None},
-          "dp_recurrence_scan": recurrence_record(label, S, True, dev)}
+          "dp_recurrence_scan": recurrence_record(label, S, dev)}
     t_label, tC, t_model, tW, tPi = cases[4]
     t_in = dp_inputs(tC, t_model, tW, tPi, device=dev)
-    S_time = dp_ops.dp_table(t_in[0], t_in[1], dp_ops.prev_occurrence(*t_in[:2]),
-                             *t_in[2:5], tW)
-    ms["dp_recurrence"] = recurrence_record(t_label, S_time, False, dev)
+    S_time = table_of(tC, t_model, tW, tPi, dev)
+    ms["dp_recurrence_checked"], ms["dp_recurrence_serial"], t_counts = fold_records(
+        t_label, S_time, dev)
     s_floor = torch.tensor([1.0, 3.0, 2.0, 5.0, 4.0, 7.0, 6.0, 8.0, 1e300],
                            dtype=torch.float64, device=dev) * 1e-3
     check(torch.equal(dp_ops.chain_floor(s_floor, 4096),
                       dp_ops.chain_floor_plain(s_floor, 4096)),
           "chain_floor differs from its plain version")
     n8 = tC.n - tC.n % 8
-    ms["dp_recurrence"]["dependent_floor_ms"] = paired_ms(
+    ms["dp_recurrence_serial"]["dependent_floor_ms"] = paired_ms(
         [lambda: dp_ops.chain_floor(s_floor, n8)], dev, iters=3)[0] * tC.n / n8
+    t_rec_work = dp_work(t_in[0], t_in[2], tW)[1]
     for key, work in (("dp_table", table_work), ("dp_recurrence_scan", rec_work),
-                      ("dp_recurrence", dp_work(t_in[0], t_in[2], tW)[1])):
+                      ("dp_recurrence_serial", t_rec_work),
+                      ("dp_recurrence_checked", t_rec_work)):
         ms[key]["bound_ms"], ms[key]["bound_by"] = bound64(*work)
     rec["kernels"] = ms
-    mt, ms_scan, ms_ser = ms["dp_table"], ms["dp_recurrence_scan"], ms["dp_recurrence"]
+    rec["checked_time_plan"] = t_counts
+    mt, ms_scan = ms["dp_table"], ms["dp_recurrence_scan"]
+    ms_chk, ms_ser = ms["dp_recurrence_checked"], ms["dp_recurrence_serial"]
     print(f"[17 plan] {label}: dp_table {mt['ms'] * 1e3:.1f} us (plain "
           f"{mt['plain_ms'] * 1e3:.1f} us, bound {mt['bound_ms'] * 1e3:.2f} us, "
           f"{mt['bound_by']}); dp_recurrence_scan {ms_scan['ms'] * 1e3:.1f} us "
           f"(plain {ms_scan['plain_ms']:.1f} ms on the host clock, bound "
           f"{ms_scan['bound_ms'] * 1e3:.2f} us, {ms_scan['bound_by']}); {t_label}: "
-          f"dp_recurrence {ms_ser['ms']:.3f} ms ({ms_ser['ms'] * 1e6 / tC.n:.1f} ns "
-          f"a step; plain {ms_ser['plain_ms']:.1f} ms on the host clock; the "
+          f"dp_recurrence_checked {ms_chk['ms']:.3f} ms alone "
+          f"({ms_chk['ms'] * 1e6 / tC.n:.1f} ns a row), {ms_chk['route_ms']:.3f} ms "
+          f"with the scan (the scan {ms_chk['scan_ms']:.3f}; restarts "
+          f"{t_counts['scan']['restarts']}, re-walked rows "
+          f"{t_counts['scan']['rewalked']}); with the corrupted guess "
+          f"{ms_chk['corrupted_ms']:.3f} ms ({t_counts['corrupted']['restarts']} "
+          f"restarts, {t_counts['corrupted']['folded']} rows folded); plain "
+          f"{ms_chk['plain_ms']:.1f} ms on the host clock; bound "
+          f"{ms_chk['bound_ms'] * 1e3:.2f} us, {ms_chk['bound_by']}) beside the "
+          f"serial fold {ms_ser['ms']:.3f} ms ({ms_ser['ms'] * 1e6 / tC.n:.1f} ns a "
+          f"step; plain {ms_ser['plain_ms']:.1f} ms on the host clock; the "
           f"{tC.n}-step dependent floor {ms_ser['dependent_floor_ms']:.3f} ms)",
           flush=True)
     wide = dp_inputs(C, model, DP_WIDE, Pi, device=dev)
     S_wide = dp_ops.dp_table(*wide[:2], dp_ops.prev_occurrence(*wide[:2]),
                              *wide[2:5], DP_WIDE)
-    wide_scan = recurrence_record(f"{label} at W = {DP_WIDE}", S_wide, True, dev)
-    t_wide = paired_ms([lambda: dp_ops.dp_recurrence(S_wide)], dev, iters=3)[0]
+    wide_scan = recurrence_record(f"{label} at W = {DP_WIDE}", S_wide, dev)
+    # the route forced to the checked fold on the memory plan's S, and a
+    # fractional table at the same width; the serial fold's plain loop
+    # (W > 8) is timed, its Python plain version is not (seconds)
+    w_chk, w_ser, w_counts = fold_records(f"{label} at W = {DP_WIDE}", S_wide, dev,
+                                          serial_plain=False)
+    frac_label = f"flagship 1-D fitted_1d({DP_WIDE}, 11)"
+    S_frac = table_of(C, fitted_1d(DP_WIDE, 11), DP_WIDE, None, dev)
+    f_chk, f_ser, f_counts = fold_records(frac_label, S_frac, dev, serial_plain=False)
     rec["wide"] = {"W": DP_WIDE, "dp_recurrence_scan_ms": wide_scan["ms"],
                    "dp_recurrence_scan_plain_ms": wide_scan["plain_ms"],
-                   "dp_recurrence_ms": t_wide, "ns_a_step": t_wide * 1e6 / C.n}
+                   "dp_recurrence_ms": w_ser["ms"], "ns_a_step": w_ser["ms"] * 1e6 / C.n,
+                   "dp_recurrence_checked": w_chk, "checked": w_counts,
+                   "fractional": {"dp_recurrence_checked": f_chk,
+                                  "dp_recurrence_ms": f_ser["ms"], "checked": f_counts}}
     print(f"[17 plan] {label} at W = {DP_WIDE}: dp_recurrence_scan "
           f"{wide_scan['ms'] * 1e3:.1f} us, bitwise its plain version and the "
-          f"serial fold; the serial fold's plain loop {t_wide:.3f} ms "
-          f"({t_wide * 1e6 / C.n:.1f} ns a step)", flush=True)
+          f"serial fold; the checked fold {w_chk['ms']:.3f} ms alone "
+          f"({w_chk['route_ms']:.3f} with the scan; restarts "
+          f"{w_counts['scan']['restarts']}; corrupted guess {w_chk['corrupted_ms']:.3f} "
+          f"ms, {w_counts['corrupted']['restarts']} restarts) "
+          f"beside the serial fold's plain loop {w_ser['ms']:.3f} ms "
+          f"({w_ser['ms'] * 1e6 / C.n:.1f} ns a step); {frac_label}: the checked "
+          f"fold {f_chk['ms']:.3f} ms alone ({f_chk['route_ms']:.3f} with the scan; "
+          f"restarts {f_counts['scan']['restarts']}; corrupted guess "
+          f"{f_chk['corrupted_ms']:.3f} ms, {f_counts['corrupted']['restarts']} "
+          f"restarts) beside the serial fold "
+          f"{f_ser['ms']:.3f} ms, all bitwise", flush=True)
     rec["seconds_dp"] = time.perf_counter() - t_phase
     print("PLAN " + json.dumps(rec), flush=True)
 
@@ -2823,9 +2971,11 @@ def main():
         ("probe_spmm4_fma", "fma", "probe_spmm4.cu", "bench_tools/probe_spmm4.py:45"),
         ("dp_table", "dp_table", "dp.cu",
          "vbcs_tpu/plan/jax_dp.py:54, vbcs_tpu/plan/jax_dp.py:155 (lax.scan)"),
-        ("dp_recurrence", "dp_recurrence", "dp.cu",
+        ("dp_recurrence", "dp_recurrence_serial", "dp.cu",
          "vbcs_tpu/plan/jax_dp.py:54, vbcs_tpu/plan/jax_dp.py:155 (lax.scan)"),
         ("dp_recurrence_scan", "dp_recurrence_scan", "dp_scan.cu",
+         "vbcs_tpu/plan/jax_dp.py:54, vbcs_tpu/plan/jax_dp.py:155 (lax.scan)"),
+        ("dp_recurrence_checked", "dp_recurrence_checked", "dp_checked.cu",
          "vbcs_tpu/plan/jax_dp.py:54, vbcs_tpu/plan/jax_dp.py:155 (lax.scan)"),
     ]
     rec = [{"name": name, "route": "cuda",

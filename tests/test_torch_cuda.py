@@ -30,7 +30,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from bench import (blocky2d_matrix, blocky_matrix, fem_matrix,  # noqa: E402
                    scattered_matrix)
 from chip_smoke import (chain_bytes, chain_oracle,  # noqa: E402
-                        chain_residencies, coo_matrix, lane_group_packs,
+                        chain_residencies, coo_matrix, corrupt_guess,
+                        lane_group_packs,
                         launch_chain, long_stripes, mixed_height_pack,
                         mixed_stripes, scatter_packs, straddle_pack,
                         zero_height_pack)
@@ -870,8 +871,9 @@ def _dp_models(W, m):
 def test_dp_kernels_match_plain(W, cuda_device):
     """The DP kernels bitwise against their plain versions (S, opt, prev):
     the table, the serial fold in the register ring (W <= 8: 1, 5, 8) and
-    past it (16 to 33: the plain loop), and the scan (rings in registers to
-    W = 16, the device-memory path from 17: 24, 32, 33); and the split
+    past it (16 to 33: the plain loop), the scan (rings in registers to
+    W = 16, the device-memory path from 17: 24, 32, 33) and the checked
+    fold (also equal to the serial fold on every table); and the split
     points against the host C++ DP, each model on its route."""
     from vbcs_tpu_torch.ops import dp as dp_ops
     from vbcs_tpu_torch.plan.device_dp import dp_inputs
@@ -885,15 +887,19 @@ def test_dp_kernels_match_plain(W, cuda_device):
             prevcol = dp_ops.prev_occurrence(pos, grp)
             S = dp_ops.dp_table(pos, grp, prevcol, wts, alpha, beta, W)
             S_plain = dp_ops.dp_table_plain(pos, grp, prevcol, wts, alpha, beta, W)
-            prev, opt = dp_ops.dp_recurrence(S)
+            prev, opt = dp_ops.dp_recurrence_serial(S)
             prev_plain, opt_plain = dp_ops.dp_recurrence_plain(S_plain)
             scan_prev, scan_opt = dp_ops.dp_recurrence_scan(S)
             scan_plain = dp_ops.dp_recurrence_scan_plain(S_plain)
+            checked = dp_ops.dp_recurrence_checked(S, scan_prev)
+            checked_plain = dp_ops.dp_recurrence_checked_plain(S_plain, scan_plain[0])
             torch.cuda.synchronize()
             assert torch.equal(S, S_plain)
             assert torch.equal(opt, opt_plain) and torch.equal(prev, prev_plain)
             assert torch.equal(scan_opt, scan_plain[1])
             assert torch.equal(scan_prev, scan_plain[0])
+            assert all(torch.equal(a, b) for a, b in zip(checked, checked_plain))
+            assert torch.equal(checked[1], opt) and torch.equal(checked[0], prev)
             if exact:
                 assert torch.equal(scan_opt, opt) and torch.equal(scan_prev, prev)
             got = (vt.dp_partition_device(A, model, W, device=cuda_device) if Pi is None
@@ -965,9 +971,12 @@ def test_dp_table_window_in_device_memory(cuda_device):
         S = dp_ops.dp_table(inputs[0], inputs[1], prevcol, *inputs[2:5], W)
         S_plain = dp_ops.dp_table_plain(inputs[0], inputs[1], prevcol, *inputs[2:5], W)
         assert torch.equal(S, S_plain)
-        prev, opt = dp_ops.dp_recurrence(S)
+        prev, opt = dp_ops.dp_recurrence_serial(S)
         prev_plain, opt_plain = dp_ops.dp_recurrence_plain(S_plain)
         assert torch.equal(opt, opt_plain) and torch.equal(prev, prev_plain)
+        checked = dp_ops.dp_recurrence_checked(S, prev)
+        assert torch.equal(checked[1], opt) and torch.equal(checked[0], prev)
+        assert checked[2].tolist() == [0, 0, 0]
         scan = dp_ops.dp_recurrence_scan(S)
         scan_plain = dp_ops.dp_recurrence_scan_plain(S_plain)
         assert torch.equal(scan[1], scan_plain[1]) and torch.equal(scan[0], scan_plain[0])
@@ -976,20 +985,24 @@ def test_dp_table_window_in_device_memory(cuda_device):
 
 
 def test_dp_routes_on_card(cuda_device):
-    """Exact tables launch the scan and no serial fold, fitted ones the
-    serial fold and no scan, once a plan each; the device backtrack equals
-    the host loop."""
+    """Exact tables launch the scan once a plan, fitted ones the scan (the
+    guess) and the checked fold once each; no plan launches the serial
+    fold; the stages hold the checked fold's counters; the device backtrack
+    equals the host loop."""
     from vbcs_tpu_torch.ops import dp as dp_ops
     from vbcs_tpu_torch.plan import device_dp
 
     A = vt.CSC.from_scipy(sp.random(300, 2000, 0.03, random_state=1, format="csc"))
+    kernels = (dp_ops.dp_recurrence_scan, dp_ops.dp_recurrence_checked,
+               dp_ops.dp_recurrence_serial)
     for model, Pi in _dp_models(8, 300):
-        dp_ops.dp_recurrence.launches = dp_ops.dp_recurrence_scan.launches = 0
+        for k in kernels:
+            k.launches = 0
         exact = device_dp.dp_inputs(A, model, 8, Pi, device=cuda_device)[5]
         got, stages = device_dp.dp_stages(A, model, 8, Pi, device=cuda_device)
-        assert stages["route"] == ("scan" if exact else "serial")
-        assert (dp_ops.dp_recurrence_scan.launches, dp_ops.dp_recurrence.launches) == (
-            (1, 0) if exact else (0, 1))
+        assert stages["route"] == ("scan" if exact else "checked")
+        assert [k.launches for k in kernels] == ([1, 0, 0] if exact else [1, 1, 0])
+        assert stages["folded"] == 0 and stages["restarts"] >= 0
         prev, _ = device_dp.dp_prev(*device_dp.dp_inputs(A, model, 8, Pi,
                                                          device=cuda_device), 8)
         assert device_dp.backtrack(prev) == device_dp._backtrack(prev.tolist(), A.n)
@@ -1020,3 +1033,61 @@ def test_dp_chain_floor_matches_plain(cuda_device):
                      dtype=torch.float64, device=cuda_device) * 1e-3
     for n in (0, 8, 4096):
         assert torch.equal(dp_ops.chain_floor(s, n), dp_ops.chain_floor_plain(s, n))
+
+
+# ---- the checked speculative fold (csrc/dp_checked.cu) --------------------
+
+def _fitted_S(n, W, seed):
+    """S [n, W] like a fitted table's (fractional; inf where w > jp)."""
+    return _scan_case(n, W, seed, exact=False) * 0.37
+
+
+@pytest.mark.parametrize("W", [1, 2, 5, 8, 9, 16, 24, 33])
+def test_dp_checked_matches_plain(W, cuda_device):
+    """The checked fold bitwise against its plain version (prev, opt and the
+    counters) and the serial kernel, on fitted and exact S, with the scan's
+    guess, with every 97th and every 3rd pointer moved (restarts) and with
+    every pointer moved (the budget spent, the host-order fold: its values
+    in 8 or 16 registers up to W = 16, from the value ring above), at n
+    around its chunk of 256 rows."""
+    from vbcs_tpu_torch.ops import dp as dp_ops
+
+    for n in (1, 2, 255, 256, 257, 5000):
+        for exact in (False, True):
+            S = (_scan_case(n, W, n + W, True) if exact else _fitted_S(n, W, n + W)).to(
+                cuda_device)
+            serial = dp_ops.dp_recurrence_serial(S)
+            guess = dp_ops.dp_recurrence_scan(S)[0]
+            for every in (None, 97, 3, 1):
+                g = guess if every is None else corrupt_guess(guess, W, every)
+                got = dp_ops.dp_recurrence_checked(S, g)
+                want = dp_ops.dp_recurrence_checked_plain(S, g)
+                torch.cuda.synchronize()
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (n, exact, every)
+                assert torch.equal(got[0], serial[0]) and torch.equal(got[1], serial[1])
+                if every is not None and W > 1 and n >= 97:
+                    assert got[2][0] > 0
+                if every == 1 and W > 1 and n >= 97:
+                    assert got[2][2] > 0
+
+
+def test_dp_checked_opt_as_its_ring(cuda_device):
+    """Widths whose value ring (3 chunks and W values) passes shared memory
+    walk with opt itself as the ring: every plan ties (S = w / 2, exact
+    sums), the first minimum is w = 1 everywhere, and a guess with every
+    2,000th pointer moved to another width restarts there."""
+    from vbcs_tpu_torch.ops import dp as dp_ops
+
+    n, W = 15700, 15650
+    w = torch.arange(1, W + 1, device=cuda_device)
+    S = (w * 0.5).to(torch.float64).expand(n, W).clone()
+    S.masked_fill_(w[None] > torch.arange(1, n + 1, device=cuda_device)[:, None],
+                   float("inf"))
+    guess = torch.arange(-1, n, device=cuda_device).clamp(min=0)
+    for g in (guess, corrupt_guess(guess, W, 2000)):
+        got = dp_ops.dp_recurrence_checked(S, g)
+        want = dp_ops.dp_recurrence_checked_plain(S, g)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert torch.equal(got[0][1:], torch.arange(n, device=cuda_device))
+    assert got[2][0] > 0 and got[2][2] == 0

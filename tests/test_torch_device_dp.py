@@ -3,12 +3,17 @@
 against the JAX package's ``dp_partition_jit``/``_2d`` (jit on the CPU)
 and the host DP ``plan/dynamic.dp_partition`` (the C++ DP), split points
 bitwise; the stripe-cost table against a NumPy walk of the host's
-counters, bitwise; the recurrence's two routes (the (min,+) scan on exact
-tables, the serial fold otherwise) against each other and the host; the
-backtrack by pointer doubling against the host loop.  The kernels
+counters, bitwise; the recurrence's routes (the (min,+) scan on exact
+tables, the checked fold on the scan's back pointers otherwise) against
+the serial fold and the host, the checked fold also with guesses wrong on
+purpose and past its restart budget; the backtrack by pointer doubling
+against the host loop.  The kernels
 themselves are held against the plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -24,19 +29,14 @@ from vbcs_tpu_torch.ops import dp as dp_ops
 from vbcs_tpu_torch.plan import device_dp
 from vbcs_tpu_torch.plan.dynamic import dp_partition
 
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from chip_smoke import corrupt_guess, fitted_1d  # noqa: E402
+
 CPU = torch.device("cpu")
 
 
 def csc(A):
     return vt.CSC.from_scipy(sp.csc_matrix(A))
-
-
-def fitted_1d(W, seed=0):
-    """A 1-D model with fractional tables, like a fitted time model."""
-    rng = np.random.default_rng(seed)
-    return vt.ColumnBlockComponentCostModel(
-        alpha_col=np.cumsum(rng.uniform(0.1, 1.3, W)) * 0.37,
-        beta_col=np.cumsum(rng.uniform(0.01, 0.2, W)) * 0.29)
 
 
 def fitted_2d(W, U=4, seed=0):
@@ -268,16 +268,19 @@ def test_refusals():
 
 
 def test_the_cpu_launches_no_kernel():
-    for k in (dp_ops.dp_table, dp_ops.dp_recurrence, dp_ops.dp_recurrence_scan,
-              dp_ops.chain_floor):
+    kernels = (dp_ops.dp_table, dp_ops.dp_recurrence_serial, dp_ops.dp_recurrence_scan,
+               dp_ops.dp_recurrence_checked, dp_ops.chain_floor)
+    for k in kernels:
         k.launches = 0
     A = csc(sp.random(30, 50, 0.1, random_state=2, format="csc"))
     plan(A, vt.model_1dvbc_memory(4, 8), 8)
     plan(A, fitted_1d(8), 8)
     s = torch.arange(9, dtype=torch.float64)
     assert dp_ops.chain_floor(s, 16).item() == dp_ops.chain_floor_plain(s, 16).item()
-    assert dp_ops.dp_table.launches == dp_ops.dp_recurrence.launches == 0
-    assert dp_ops.dp_recurrence_scan.launches == dp_ops.chain_floor.launches == 0
+    S = table_like(70, 5, 3, 0.37)
+    dp_ops.dp_recurrence_serial(S)
+    dp_ops.dp_recurrence_checked(S)
+    assert [k.launches for k in kernels] == [0] * len(kernels)
     with pytest.raises(ValueError):
         dp_ops.chain_floor(s, 12)
 
@@ -362,20 +365,20 @@ def test_scan_route_matches_the_host_dp(W):
 
 def test_routes():
     """Memory models and binary fractions take the scan, fitted time
-    models (and any table whose sums can round) the serial fold."""
+    models (and any table whose sums can round) the checked fold."""
     A = csc(sp.random(300, 700, 0.02, random_state=0, format="csc"))
     Pi = vt.SplitPartition.equi(300, 4)
     for W in (1, 4, 8, 33):
         assert device_dp.dp_route(A, vt.model_1dvbc_memory(4, 8), W) == "scan"
         assert device_dp.dp_route(A, vt.model_vbc_memory(4, 8), W, Pi) == "scan"
         assert device_dp.dp_route(A, vt.ColumnBlockComponentCostModel(2.0, 1.5), W) == "scan"
-        assert device_dp.dp_route(A, fitted_1d(W), W) == "serial"
-        assert device_dp.dp_route(A, fitted_2d(W), W, Pi) == "serial"
+        assert device_dp.dp_route(A, fitted_1d(W), W) == "checked"
+        assert device_dp.dp_route(A, fitted_2d(W), W, Pi) == "checked"
     third = vt.ColumnBlockComponentCostModel(1.0, 1.0 / 3.0)
-    assert device_dp.dp_route(A, third, 8) == "serial"
+    assert device_dp.dp_route(A, third, 8) == "checked"
     # exact but too large: n * max|S| reaches 2^52
     big = vt.ColumnBlockComponentCostModel(2.0 ** 45, 1.0)
-    assert device_dp.dp_route(A, big, 8) == "serial"
+    assert device_dp.dp_route(A, big, 8) == "checked"
     assert device_dp.dp_route(A, vt.ColumnBlockComponentCostModel(2.0 ** 30, 1.0), 8) == "scan"
     assert dp_ops.exact_tables([0.5, 0.75], [[1.0, 2.0]], None, 10, 10)
     assert not dp_ops.exact_tables([0.1, 0.75], [[1.0, 2.0]], None, 10, 10)
@@ -398,12 +401,145 @@ def test_backtrack_is_the_host_loop():
 def test_dp_stages_plan_as_the_entry_points():
     A = csc(sp.random(100, 300, 0.05, random_state=6, format="csc"))
     Pi = vt.SplitPartition.equi(100, 4)
+    # the route that ran: the host loop where dp_route says "checked"
     for model, W, P, route in ((vt.model_1dvbc_memory(4, 8), 8, None, "scan"),
-                               (fitted_1d(8), 8, None, "serial"),
+                               (fitted_1d(8), 8, None, "host"),
                                (vt.model_vbc_memory(4, 8), 4, Pi, "scan"),
-                               (fitted_2d(4), 4, Pi, "serial")):
+                               (fitted_2d(4), 4, Pi, "host")):
         got, stages = device_dp.dp_stages(A, model, W, P, device=CPU)
         assert got == plan(A, model, W, P)
         assert stages["route"] == route
-        assert set(stages) == {"route", *device_dp.STAGES}
+        counters = {"restarts", "rewalked", "folded"}
+        assert set(stages) == {"route", *counters, *device_dp.STAGES}
         assert all(stages[k] >= 0.0 for k in device_dp.STAGES)
+        # the host loop and the scan restart nothing
+        assert all(stages[k] == 0 for k in counters)
+
+
+# ---- the checked route: the checked speculative fold on fitted tables --------
+
+def synthetics():
+    """The banded, blocky and FEM matrices of the checked fold's cases."""
+    from vbcs_tpu_torch.tools.matrices import blocky_matrix, fem_matrix
+    rng = np.random.default_rng(12)
+    m, n, band = 300, 1200, 40
+    cols = np.repeat(np.arange(n), 4)
+    rows = np.clip(cols * m // n + rng.integers(-band, band + 1, cols.size), 0, m - 1)
+    banded = sp.coo_matrix((np.ones(cols.size), (rows, cols)), shape=(m, n))
+    return {"banded": csc(banded), "blocky": csc(blocky_matrix(L=150)),
+            "fem": csc(fem_matrix(k=24))}
+
+
+SYNTHETICS = synthetics()
+
+
+def fitted_table(name, W, two_d):
+    A = SYNTHETICS[name]
+    model, Pi = ((fitted_2d(W, seed=W), vt.SplitPartition.equi(A.m, 4)) if two_d
+                 else (fitted_1d(W, W), None))
+    pos, grp, wts, alpha, beta, exact = device_dp.dp_inputs(A, model, W, Pi, device=CPU)
+    assert not exact
+    return dp_ops.dp_table(pos, grp, dp_ops.prev_occurrence(pos, grp), wts, alpha,
+                           beta, W)
+
+
+def assert_serial(got, S):
+    want = dp_ops.dp_recurrence_plain(S)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("W", [1, 2, 5, 8, 16, 24, 33])
+@pytest.mark.parametrize("name", ["banded", "blocky", "fem"])
+def test_checked_plain_equals_the_serial_fold(name, W):
+    """On fitted 1-D and 2-D tables, the checked fold on the scan's back
+    pointers is the serial fold bit for bit (opt and prev)."""
+    for two_d in (False, True):
+        S = fitted_table(name, W, two_d)
+        guess = dp_ops.dp_recurrence_scan_plain(S)[0]
+        got = dp_ops.dp_recurrence_checked_plain(S, guess)
+        assert_serial(got, S)
+        assert torch.equal(dp_ops.dp_recurrence_checked(S)[2], got[2])
+        assert got[2][2] == 0 or got[2][0] == dp_ops.check_budget(S.shape[0])
+        assert got[2][0] < 10  # the scan's pointers are near-right
+
+
+@pytest.mark.parametrize("every", [97, 241])
+@pytest.mark.parametrize("W", [2, 5, 8, 16, 33])
+def test_checked_plain_restarts_on_wrong_guesses(W, every):
+    """Guesses wrong on purpose (every 97th or 241st pointer) restart the
+    walk, within the budget, and the result is still the serial fold's;
+    each restart re-walks the rest of its chunk and the next chunk."""
+    for name in SYNTHETICS:
+        S = fitted_table(name, W, False)
+        guess = corrupt_guess(dp_ops.dp_recurrence_plain(S)[0], W, every)
+        got = dp_ops.dp_recurrence_checked_plain(S, guess)
+        assert_serial(got, S)
+        restarts, rewalked, folded = got[2].tolist()
+        assert 0 < restarts < dp_ops.check_budget(S.shape[0]) and folded == 0
+        assert restarts <= rewalked <= 2 * dp_ops.CHECK_ROWS * restarts
+        assert torch.equal(dp_ops.dp_recurrence_checked(S, guess)[2], got[2])
+
+
+@pytest.mark.parametrize("W", [2, 8, 33])
+@pytest.mark.parametrize("name", ["banded", "blocky", "fem"])
+def test_checked_plain_budget_exhaustion(name, W):
+    """Past the restart budget the host-order fold finishes the rows, bit
+    for bit: every pointer wrong spends the budget within a few chunks."""
+    for two_d in (False, True):
+        S = fitted_table(name, W, two_d)
+        guess = corrupt_guess(dp_ops.dp_recurrence_plain(S)[0], W, 1)
+        got = dp_ops.dp_recurrence_checked_plain(S, guess)
+        assert_serial(got, S)
+        restarts, rewalked, folded = got[2].tolist()
+        assert restarts == dp_ops.check_budget(S.shape[0]) and folded > 0
+
+
+def test_checked_exact_guess_and_exact_tables():
+    """The serial fold's own pointers pass every check (no restart), and on
+    exact tables the checked fold equals the scan and the serial fold."""
+    S = fitted_table("fem", 8, False)
+    exact_guess = dp_ops.dp_recurrence_plain(S)[0]
+    got = dp_ops.dp_recurrence_checked_plain(S, exact_guess)
+    assert_serial(got, S)
+    assert got[2].tolist() == [0, 0, 0]
+    for W in (1, 4, 16):
+        for n in (1, 2, 63, 700):
+            T = table_like(n, W, n + W, 0.25)
+            got = dp_ops.dp_recurrence_checked(T)
+            assert_serial(got, T)
+            assert torch.equal(got[0], dp_ops.dp_recurrence_scan(T)[0])
+    empty = torch.zeros((0, 3), dtype=torch.float64)
+    prev, opt, stats = dp_ops.dp_recurrence_checked(empty)
+    assert prev.tolist() == [0] and opt.tolist() == [0.0] and stats.tolist() == [0, 0, 0]
+
+
+def test_checked_refusals():
+    S = table_like(40, 4, 1, 0.37)
+    good = dp_ops.dp_recurrence_plain(S)[0]
+    bad_width = good.clone()
+    bad_width[10] = 10 - 5  # width 5 > W = 4
+    for guess in (bad_width, good[:-1], good.to(torch.int32)):
+        with pytest.raises(ValueError):
+            dp_ops.dp_recurrence_checked(S, guess)
+    with pytest.raises(ValueError):
+        dp_ops.dp_recurrence_checked(S.float())
+
+
+@pytest.mark.parametrize("trial", range(3))
+def test_checked_plan_matches_jax_dp_partition_jit(trial):
+    """The checked fold's back pointers, backtracked, give the JAX
+    package's ``dp_partition_jit`` split points and the host DP's."""
+    S_ = sp.random(90, 260, 0.07, random_state=40 + trial, format="csc")
+    A = csc(S_)
+    for model, jmodel in ((vt.model_1dvbc_memory(8, 8), jcost.model_1dvbc_memory(8, 8)),
+                          (vt.ColumnBlockComponentCostModel(2.0, 1.5),
+                           jcost.ColumnBlockComponentCostModel(2.0, 1.5))):
+        pos, grp, wts, alpha, beta, _ = device_dp.dp_inputs(A, model, 5, device=CPU)
+        S = dp_ops.dp_table(pos, grp, dp_ops.prev_occurrence(pos, grp), wts, alpha,
+                            beta, 5)
+        guess = corrupt_guess(dp_ops.dp_recurrence_scan(S)[0], 5, 13)
+        prev = dp_ops.dp_recurrence_checked(S, guess)[0]
+        want = jax_dp.dp_partition_jit(JCSC.from_scipy(S_), jmodel, 5)
+        np.testing.assert_array_equal(device_dp.backtrack(prev).spl, want.spl)
+        np.testing.assert_array_equal(device_dp.backtrack(prev).spl,
+                                      dp_partition(A, model, 5).spl)

@@ -129,6 +129,8 @@ def load():
             lib.vbcs_dp_scan_scratch_doubles.restype = i64
             lib.vbcs_dp_scan.argtypes = [i64, i32] + [vp] * 5
             lib.vbcs_dp_scan.restype = i32
+            lib.vbcs_dp_recurrence_checked.argtypes = [i64, i32, i32, i32] + [vp] * 6
+            lib.vbcs_dp_recurrence_checked.restype = i32
             lib.vbcs_dp_chain_floor.argtypes = [i64] + [vp] * 3
             lib.vbcs_dp_chain_floor.restype = i32
             # the probes (vbcs_tpu_torch/probes)

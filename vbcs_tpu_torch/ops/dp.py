@@ -1,4 +1,4 @@
-"""The split-point DP's two kernels: the stripe-cost table and the recurrence.
+"""The split-point DP's kernels: the stripe-cost table and the recurrence.
 
 Counterpart of ``vbcs_tpu/plan/jax_dp.py``'s cores (``dp_partition_jax``,
 ``dp_partition_jax_2d``: one ``lax.scan`` over the columns).  The port
@@ -14,19 +14,23 @@ splits what the scan computes into its parallel part and its chain:
   and the back pointers ``prev``, the narrowest stripe winning ties, by one
   of two kernels: on exact cost tables (:func:`exact_tables`, decided on the
   host from the model's tables) the parallel (min,+) scan
-  :func:`dp_recurrence_scan` (``csrc/dp_scan.cu``), else the serial fold
-  (``csrc/dp.cu``), which alone reproduces the host's sums on fractional
-  tables;
-* :func:`chain_floor` (``csrc/dp.cu``): the recurrence's dependent path
+  :func:`dp_recurrence_scan` (``csrc/dp_scan.cu``), else the checked
+  speculative fold :func:`dp_recurrence_checked` (``csrc/dp_checked.cu``):
+  the scan's back pointers walked one add a row and checked, a chunk
+  behind, against the host's order of sums, which alone reproduces the
+  host's sums on fractional tables;
+* :func:`dp_recurrence_serial` (``csrc/dp.cu``): the serial fold, the
+  yardstick the checked fold is timed against (on no plan's path);
+* :func:`chain_floor` (``csrc/dp.cu``): the serial fold's dependent path
   alone, a measurement of the floor of its n steps (not on the DP's path).
 
-The table and the serial fold compute in f64 in the order of the C++ DP
-(``native/vbc_native.cpp`` ``dp_partition``); the scan regroups the sums,
-which changes no bit where every sum is exact.  So the split points are
-that DP's bit for bit.  On a CPU tensor each wrapper runs its plain version
-(:func:`dp_table_plain`, :func:`dp_recurrence_plain`,
-:func:`dp_recurrence_scan_plain`); on a CUDA tensor it launches its kernel
-or raises.
+The table, the serial fold and the checked fold compute in f64 in the
+order of the C++ DP (``native/vbc_native.cpp`` ``dp_partition``); the scan
+regroups the sums, which changes no bit where every sum is exact.  So the
+split points are that DP's bit for bit.  On a CPU tensor each wrapper runs
+its plain version (:func:`dp_table_plain`, :func:`dp_recurrence_plain`,
+:func:`dp_recurrence_scan_plain`, :func:`dp_recurrence_checked_plain`); on
+a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -40,13 +44,17 @@ import torch
 from . import _lib
 
 __all__ = ["prev_occurrence", "dp_table", "dp_table_plain", "exact_tables",
-           "dp_recurrence", "dp_recurrence_plain", "dp_recurrence_scan",
-           "dp_recurrence_scan_plain", "scan_layout", "chain_floor",
-           "chain_floor_plain"]
+           "dp_recurrence", "dp_recurrence_plain", "dp_recurrence_serial",
+           "dp_recurrence_scan", "dp_recurrence_scan_plain", "scan_layout",
+           "dp_recurrence_checked", "dp_recurrence_checked_plain", "check_budget",
+           "chain_floor", "chain_floor_plain"]
 
 INF = float("inf")
 # csrc/dp_scan.cu's kRows, kThreads, kMaxChunks and kSmallW
 SCAN_ROWS, SCAN_THREADS, SCAN_MAX_CHUNKS, SCAN_SMALL_W = 64, 512, 128, 16
+# the checked fold: rows a chunk, and the restarts it allows before the
+# host-order fold, CHECK_SPARE_RESTARTS plus one a CHECK_RESTART_ROWS rows
+CHECK_ROWS, CHECK_SPARE_RESTARTS, CHECK_RESTART_ROWS = 256, 16, 4096
 
 
 def _binary_exponent(a) -> int:
@@ -242,18 +250,38 @@ def _check_S(S: torch.Tensor) -> None:
         raise NotImplementedError(f"no DP kernel for device {S.device}")
 
 
-def dp_recurrence(S: torch.Tensor, exact: bool = False
+def dp_recurrence(S: torch.Tensor, exact: bool = False, stats: dict | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(prev, opt)``, each ``[n + 1]`` (int64, f64), from ``S`` ``[n, W]``
     f64: ``opt[0] = 0``, ``opt[jp] = min_{w <= min(W, jp)} opt[jp - w] +
     S[jp - 1, w - 1]`` and ``prev[jp]`` the ``jp - w`` of the first
     minimum over ascending ``w`` (``jp - 1`` when ``opt[jp]`` is inf).
     ``exact`` (:func:`exact_tables` of the tables that made S) routes to
-    the scan, :func:`dp_recurrence_scan`; else the serial fold, whose
-    launches ``dp_recurrence.launches`` counts."""
+    the scan, :func:`dp_recurrence_scan`; else, on a CUDA tensor, the
+    checked fold :func:`dp_recurrence_checked` on the scan's back pointers,
+    and on a CPU tensor the host loop :func:`dp_recurrence_plain`.  With
+    ``stats`` a dict, the checked fold's counters go there as ints
+    (``restarts``, ``rewalked``, ``folded``; 0 on the other routes), which
+    waits for the card."""
     _check_S(S)
+    counts = torch.zeros(3, dtype=torch.int64)
     if exact:
-        return dp_recurrence_scan(S)
+        prev, opt = dp_recurrence_scan(S)
+    elif S.device.type == "cpu":
+        prev, opt = dp_recurrence_plain(S)
+    else:
+        prev, opt, counts = dp_recurrence_checked(S)
+    if stats is not None:
+        stats.update(zip(("restarts", "rewalked", "folded"), counts.tolist()))
+    return prev, opt
+
+
+def dp_recurrence_serial(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dp_recurrence` by the serial fold (``csrc/dp.cu``), the host's
+    loop on one thread, whose launches ``dp_recurrence_serial.launches``
+    counts: the yardstick of :func:`dp_recurrence_checked`, on no plan's
+    path."""
+    _check_S(S)
     n, W = S.shape
     dev = S.device
     if dev.type == "cpu":
@@ -267,8 +295,8 @@ def dp_recurrence(S: torch.Tensor, exact: bool = False
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vbcs_dp_recurrence(n, W, S.data_ptr(), opt.data_ptr(),
                                     prev.data_ptr(), stream)
-    _lib.check(lib, rc, "dp_recurrence")
-    dp_recurrence.launches += 1
+    _lib.check(lib, rc, "dp_recurrence_serial")
+    dp_recurrence_serial.launches += 1
     return prev, opt
 
 
@@ -372,6 +400,139 @@ def dp_recurrence_scan(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return prev, opt
 
 
+def check_budget(n: int) -> int:
+    """The checked fold's restart budget on ``n`` rows:
+    ``CHECK_SPARE_RESTARTS`` and one a ``CHECK_RESTART_ROWS`` rows.  A
+    restart re-walks at most two chunks of ``CHECK_ROWS``, so restarts
+    re-walk at most about n / 8 + 8,192 rows before the host-order fold
+    takes over: the worst case stays near one fold of the n rows."""
+    return CHECK_SPARE_RESTARTS + -(-n // CHECK_RESTART_ROWS)
+
+
+def _check_guess(guess: torch.Tensor, n: int, W: int, dev) -> None:
+    if guess.dtype != torch.int64 or guess.shape != (n + 1,):
+        raise ValueError(f"guess must be int64 [{n + 1}], got {guess.dtype} "
+                         f"{tuple(guess.shape)}")
+    if guess.device != dev or not guess.is_contiguous():
+        raise ValueError(f"guess must be contiguous on {dev}")
+    jp = torch.arange(1, n + 1, device=dev)
+    if not bool(((guess[1:] >= jp - jp.clamp(max=W)) & (guess[1:] < jp)).all()):
+        raise ValueError("guess[jp] must lie in [jp - min(W, jp), jp) for jp >= 1")
+
+
+def dp_recurrence_checked_plain(S: torch.Tensor, guess: torch.Tensor
+                                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain checked fold: the kernel's walk, chunks of ``CHECK_ROWS``,
+    restarts and budget (:func:`check_budget`), the walk and the fixes on
+    Python floats (IEEE f64), each chunk's check in torch ops on the CPU;
+    ``(prev, opt, stats)`` bitwise the kernel's on any finite S and valid
+    guess (``stats``: restarts, rows re-walked, rows of the host-order
+    fold)."""
+    n, W = S.shape
+    dev = S.device
+    if n == 0:
+        return (torch.zeros(1, dtype=torch.int64, device=dev),
+                torch.zeros(1, dtype=torch.float64, device=dev),
+                torch.zeros(3, dtype=torch.int64, device=dev))
+    C, budget = CHECK_ROWS, check_budget(n)
+    We, K = min(W, n), -(-n // C)
+    Sc = S.cpu()
+    rows = torch.arange(1, n + 1)
+    width = rows - guess.cpu()[1:]
+    d = [0] + width.tolist()
+    s = [0.0] + Sc[rows - 1, width - 1].tolist()  # each row's walked entry
+    v = [0.0] * (n + 1)
+
+    def end(c):
+        return min((c + 1) * C, n)
+
+    def walk(a, b):
+        for jp in range(a, b + 1):
+            v[jp] = v[jp - d[jp]] + s[jp]
+
+    def host_row(r):  # H(v)[r] and its width, the host's order
+        best, bw = INF, 1
+        for w, x in enumerate(Sc[r - 1, :min(We, r)].tolist(), 1):
+            c = v[r - w] + x
+            if c < best:
+                best, bw = c, w
+        return best, bw
+
+    def first_fail(c):  # the first row of chunk c with v != H(v) or d != P(v)
+        lo, hi = c * C + 1, end(c)
+        base = lo - We
+        vt = torch.tensor([INF] * max(0, -base) + v[max(base, 0):hi + 1],
+                          dtype=torch.float64)
+        jp = torch.arange(lo, hi + 1)
+        cand = vt[jp[:, None] - torch.arange(1, We + 1) - base] + Sc[lo - 1:hi, :We]
+        best, arg = cand.min(1).values, cand.argmin(1)  # argmin: the first
+        bad = ((arg + 1 != torch.tensor(d[lo:hi + 1]))
+               | (vt[jp - base] != best)).nonzero()
+        return lo + int(bad[0]) if bad.numel() else None
+
+    walk(1, end(0))
+    k = restarts = rewalked = folded = 0
+    while k < K:
+        if k + 1 < K:
+            walk((k + 1) * C + 1, end(k + 1))
+        r = first_fail(k)
+        if r is None:
+            k += 1
+            continue
+        v[r], d[r] = host_row(r)
+        if restarts == budget:  # the host-order fold from r + 1
+            for jp in range(r + 1, n + 1):
+                v[jp], d[jp] = host_row(jp)
+            folded = n - r
+            break
+        restarts += 1
+        rewalked += end(k) - r + (end(k + 1) - (k + 1) * C if k + 1 < K else 0)
+        walk(r + 1, end(k))
+    prev = [0] + [jp - d[jp] for jp in range(1, n + 1)]
+    return (torch.tensor(prev, dtype=torch.int64, device=dev),
+            torch.tensor(v, dtype=torch.float64, device=dev),
+            torch.tensor([restarts, rewalked, folded], dtype=torch.int64, device=dev))
+
+
+def dp_recurrence_checked(S: torch.Tensor, guess: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`dp_recurrence` by the checked speculative fold
+    (``csrc/dp_checked.cu``): ``guess`` ``[n + 1]`` int64 back pointers
+    (``jp - min(W, jp) <= guess[jp] < jp``; None: the scan's on ``S``,
+    :func:`dp_recurrence_scan`) walked one add a row and held, a chunk of
+    ``CHECK_ROWS`` rows at a time, to the host's first minimum; the first
+    row that fails is set to it and the walk resumes there, up to
+    :func:`check_budget` restarts, then the host-order fold finishes the
+    rows in the same launch.  ``(prev, opt, stats)``: the serial fold's prev
+    and opt bit for bit on any finite S, and int64 ``stats`` (restarts, rows
+    re-walked, rows folded) on S's device."""
+    _check_S(S)
+    n, W = S.shape
+    dev = S.device
+    if n >= 1 << 30:
+        raise ValueError(f"the checked fold takes fewer than 2^30 rows, got {n}")
+    if guess is None:
+        guess = dp_recurrence_scan(S)[0]
+    else:
+        _check_guess(guess, n, W, dev)
+    if dev.type == "cpu":
+        return dp_recurrence_checked_plain(S, guess)
+    opt = torch.zeros(n + 1, dtype=torch.float64, device=dev)
+    prev = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    if n == 0:
+        return prev, opt, stats
+    lib = _lib.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vbcs_dp_recurrence_checked(
+            n, W, CHECK_ROWS, check_budget(n), S.data_ptr(), guess.data_ptr(),
+            opt.data_ptr(), prev.data_ptr(), stats.data_ptr(), stream)
+    _lib.check(lib, rc, "dp_recurrence_checked")
+    dp_recurrence_checked.launches += 1
+    return prev, opt, stats
+
+
 def chain_floor_plain(s: torch.Tensor, n: int) -> torch.Tensor:
     """Plain :func:`chain_floor`, on Python floats."""
     v, x = s.tolist(), 0.0
@@ -382,9 +543,9 @@ def chain_floor_plain(s: torch.Tensor, n: int) -> torch.Tensor:
 
 def chain_floor(s: torch.Tensor, n: int) -> torch.Tensor:
     """``[x]`` after ``n`` steps of ``x = min(s[8], x + s[i % 8])`` from 0:
-    the recurrence's dependent path alone (an add and a min on the value
+    the serial fold's dependent path alone (an add and a min on the value
     just made, nothing read from memory), whose time is the floor of
-    ``n`` steps of :func:`dp_recurrence`.  ``s`` f64 ``[9]``; ``n`` a
+    ``n`` steps of :func:`dp_recurrence_serial`.  ``s`` f64 ``[9]``; ``n`` a
     multiple of 8."""
     if s.dtype != torch.float64 or s.shape != (9,) or not s.is_contiguous():
         raise ValueError("s must be a contiguous float64 tensor of 9")
@@ -405,6 +566,7 @@ def chain_floor(s: torch.Tensor, n: int) -> torch.Tensor:
 
 
 dp_table.launches = 0
-dp_recurrence.launches = 0
+dp_recurrence_serial.launches = 0
 dp_recurrence_scan.launches = 0
+dp_recurrence_checked.launches = 0
 chain_floor.launches = 0

@@ -7,12 +7,13 @@ jit trace, without a host round trip.  Here the cores (:func:`dp_prev`)
 take the CSC's arrays as tensors already on the device and return ``prev``
 and ``opt`` there: the previous occurrence of each nonzero's group (torch
 ops), the stripe-cost table (a kernel, one thread a column, a block's
-columns staged once) and the recurrence, by one of two kernels: a parallel
+columns staged once) and the recurrence, by one of two routes: a parallel
 (min,+) scan where the model's tables are exact (every sum exact in f64:
-the memory models, binary fractions), the serial fold otherwise (fitted
-time models).  The wrappers backtrack ``prev`` on the device by pointer
-doubling and copy the split points to the host once (the JAX ones
-backtrack on the host).
+the memory models, binary fractions), otherwise (fitted time models) the
+checked fold, the scan's back pointers walked one add a row and checked
+against the host's order of sums a chunk behind.  The wrappers backtrack
+``prev`` on the device by pointer doubling and copy the split points to the
+host once (the JAX ones backtrack on the host).
 
 The split points are those of ``plan/dynamic.dp_partition`` (the C++ DP)
 bit for bit, the narrowest stripe winning ties, for the two models the
@@ -140,12 +141,12 @@ def _host_tables(A: CSC, model, W: int, Pi):
 
 
 def dp_route(A: CSC, model, W: int, Pi: SplitPartition | None = None) -> str:
-    """The recurrence kernel a plan of ``A`` under ``model`` takes:
-    ``"scan"`` where the tables are exact
-    (:func:`~vbcs_tpu_torch.ops.dp.exact_tables`), else ``"serial"``;
-    decided on the host."""
+    """The recurrence a plan of ``A`` under ``model`` takes: ``"scan"``
+    where the tables are exact (:func:`~vbcs_tpu_torch.ops.dp.exact_tables`),
+    else ``"checked"`` (on a CUDA device the checked fold on the scan's
+    back pointers, on the CPU the host loop); decided on the host."""
     _, wts, alpha, beta = _host_tables(A, model, W, Pi)
-    return "scan" if exact_tables(alpha, beta, wts, A.m, A.n) else "serial"
+    return "scan" if exact_tables(alpha, beta, wts, A.m, A.n) else "checked"
 
 
 def dp_inputs(A: CSC, model, W: int, Pi: SplitPartition | None = None, *,
@@ -171,7 +172,10 @@ def dp_inputs(A: CSC, model, W: int, Pi: SplitPartition | None = None, *,
 def _solve(A: CSC, model, W: int, Pi, device, stages=None) -> SplitPartition:
     """The plan; with ``stages`` a dict, each stage of :data:`STAGES` ends
     in a synchronize and its host ms is recorded there, with the route
-    (``"scan"`` or ``"serial"``)."""
+    that ran (``"scan"``, ``"checked"``, or ``"host"``: the host loop a CPU
+    device runs where :func:`dp_route` says ``"checked"``) and the checked
+    fold's counters (``restarts``, ``rewalked``, ``folded``: 0 on the other
+    routes)."""
     device = torch.device(device)
     t = [time.perf_counter()]
 
@@ -185,7 +189,8 @@ def _solve(A: CSC, model, W: int, Pi, device, stages=None) -> SplitPartition:
 
     pos, grp, wts, alpha, beta, exact = dp_inputs(A, model, W, Pi, device=device)
     if stages is not None:
-        stages["route"] = "scan" if exact else "serial"
+        stages["route"] = ("scan" if exact else
+                           "host" if device.type == "cpu" else "checked")
     lap("inputs")
     if A.n == 0:
         return SplitPartition.whole(0)
@@ -193,7 +198,7 @@ def _solve(A: CSC, model, W: int, Pi, device, stages=None) -> SplitPartition:
     lap("prev_occurrence")
     S = dp_table(pos, grp, prevcol, wts, alpha, beta, W)
     lap("table")
-    prev, _ = dp_recurrence(S, exact)
+    prev, _ = dp_recurrence(S, exact, stats=stages)
     lap("recurrence")
     out = backtrack(prev)
     lap("backtrack")
@@ -204,8 +209,9 @@ def dp_stages(A: CSC, model, W: int, Pi: SplitPartition | None = None, *,
               device) -> tuple[SplitPartition, dict]:
     """:func:`dp_partition_device` (``Pi`` None) or
     :func:`dp_partition_device_2d`'s plan and the host ms of each of its
-    :data:`STAGES`, each ended by a synchronize, with the recurrence's
-    route."""
+    :data:`STAGES`, each ended by a synchronize, with the route that ran
+    and the checked fold's counters (``restarts``, ``rewalked``,
+    ``folded``)."""
     stages = {}
     return _solve(A, model, W, Pi, device, stages), stages
 
