@@ -21,7 +21,8 @@ Phases (one line each; any failure raises and exits non-zero):
    boundary, a 600 x 900 rectangle, a U=W=8 default plan, a pack with a
    height-0 tile and an empty stripe, stripes wider than a warp (w = 33,
    40, 64), tiles taller than 32 / w rows and one tile per stripe; the
-   gather on a masked random permutation (bitwise);
+   gather on a masked random permutation and the tile copy on random tile
+   lists (bitwise);
 4. the main path at flagship scale: ``blocky_matrix()`` (320,000
    columns, ~2.55M nonzeros) through ``VBCOperator.from_csc(A, W=8,
    device="cuda")``, ``tr_mul`` with alpha/beta/y and ``mul``, then
@@ -63,7 +64,10 @@ Phases (one line each; any failure raises and exits non-zero):
    ``RELABEL {...}`` line);
 9. the chain at full width: ``tr_mul_chain`` on the flagship and FEM
    operators, 5 iterations against the f64 oracle, then the timed 100
-   at alpha 0.999 (the JAX bench's setting);
+   at alpha 0.999 (the JAX bench's setting); the FEM's (auto-RCM) with
+   its perm folded into the chain kernel, bitwise against and timed
+   beside the composed path it replaced (gather x, the chain, gather y:
+   a ``CHAINFOLD {...}`` line);
 10. the scatter path: ``tr_mul``/``mul`` on the scattered matrix's
     operator against the f64 product, and the route of each of the six
     packs;
@@ -103,12 +107,15 @@ Phases (one line each; any failure raises and exits non-zero):
     W=8) and a pack whose tiles straddle two ranks' x through the 2-D
     replicated and halo paths; each result against the f64 product and
     the single-device result on the card, each kernel a path runs (the
-    gather of the halo paths included) against its plain version on
+    tile copy of the halo paths included) against its plain version on
     that path's inputs on every rank, each rank's shard (columns, stored
     values, halo tiles against its own, local stripes) and the time of
     each of its kernels (CUDA events), each path's host wall; then
     ``entry()`` and
-    ``dryrun_multichip(4, backend="gloo")`` (a ``DIST {...}`` line);
+    ``dryrun_multichip(4, backend="gloo")`` (a ``DIST {...}`` line); and
+    the tile copy alone on the send lists of the flagship's and 2-D (a)'s
+    four ranks and 2-D (a)'s pools, beside its plain version and
+    ``index_select`` on the tile view (a ``TILES {...}`` line);
 17. the split-point DP on the card (``dp_partition_device``,
     ``dp_partition_device_2d``; ``csrc/dp.cu``, ``csrc/dp_scan.cu``,
     ``csrc/dp_checked.cu``): the flagship and the scrambled FEM at W=8
@@ -166,15 +173,16 @@ the SpMM calls of phases 4-6 (SpMM kernel, one a call; no gather, no
 ``index_select``), the 2-D calls of phase 7 (the tile TrSpMV or the
 stripe TrSpMV on the view, as each pack's route says, and the SpMM
 kernel on the 1-D views), the four
-``tr_mul_chain`` calls of phase 9 (one chain launch each, two gathers on
-the FEM: the gather's only path), the scattered ``tr_mul``/``mul`` of
+``tr_mul_chain`` calls of phase 9 (one chain launch each, no gather: the
+FEM's perm is in the chain kernel), the scattered ``tr_mul``/``mul`` of
 phase 10 (scatter TrSpMV, one a call, no gather),
 the relayout of phase 11, the five probes of phase 12 (the launch,
 chunk, chain-probe and FMA kernels), the autotuner of phase 14 and the
 method table of phase 15 (the routed kernels), and each distributed
 path of phase 16 on every rank (counted in the ranks, summed over them:
-the stripe, scatter, SpMM and tile TrSpMV kernels, and the gather on the
-halo paths), and the plans of phase 17 (the DP's table once a plan, the
+the stripe, scatter, SpMM and tile TrSpMV kernels, and the tile copy on
+the halo paths: one a 1-D halo or overlapped call, two a 2-D halo call,
+no element gather), and the plans of phase 17 (the DP's table once a plan, the
 scan once, and on fitted tables the checked fold once; the serial fold,
 timed as the checked fold's yardstick, on no plan).  No f32 call of phases
 4-10 enters ``ops/semiring.py`` (a spy counts), and phase 13's calls do.
@@ -182,10 +190,15 @@ Then each kernel is held against its
 plain version at the shapes those paths gave it: the stripe kernel on
 both packs of both operators (the FEM's natural views), the gather on
 the FEM operator's
-permutation and its inverse (bitwise), the SpMM kernel on both packs of
+permutation and its inverse (bitwise; on no path, the chain kernel
+taking the perm itself, and timed there as the kernels line's
+``gather``), the SpMM
+kernel on both packs of
 all five operators with their RHS, the tile kernel on the four 2-D
 packs, the chain on the flagship and FEM packs (resident, partly
-resident and streamed), the scatter kernel on
+resident and streamed; the FEM's also through its perm, as
+``tr_mul_chain`` calls it), the tile copy on the halo paths' send lists
+and pools (bitwise), the scatter kernel on
 every scatter-route pack, the relayout at R = 313 (bitwise), the
 probe kernels on their probes' inputs, and (phase 16) every kernel of a
 distributed path on the inputs that path gave it on each rank.
@@ -218,7 +231,7 @@ from vbcs_tpu_torch.ops.chain import chain_grid, chain_plan
 from vbcs_tpu_torch.ops.scatter import MAX_MEAN_WIDTH, scatter_admits
 from vbcs_tpu_torch.operator import TILE2D_MIN_HEIGHT
 from vbcs_tpu_torch.ops.trspmv2d import lanes_per_stripe
-from vbcs_tpu_torch.parallel import comm
+from vbcs_tpu_torch.parallel import comm, shard, stream
 from vbcs_tpu_torch.probes import chunk as probe_chunk
 from vbcs_tpu_torch.probes import (probe_chain, probe_kernel, probe_kernel2,
                                    probe_launch, probe_spmm4)
@@ -237,8 +250,8 @@ from vbcs_tpu_torch.tools.matrices import (blocky2d_matrix, blocky_matrix,
 # the plain version (atomics) and the f64 oracle
 TOL = 2e-5
 SPMM_K = (1, 5, 32, 128, 130)  # scalar path, float4 path, two 128-col tiles
-KERNELS = (vt.tr_spmv, vt.gather, vt.tr_spmm, vt.tr_spmv_2d, vt.tr_spmv_chain,
-           vt.tr_spmv_scatter, vt.tile_relayout)
+KERNELS = (vt.tr_spmv, vt.gather, vt.gather_tiles, vt.tr_spmm, vt.tr_spmv_2d,
+           vt.tr_spmv_chain, vt.tr_spmv_scatter, vt.tile_relayout)
 # the probes' kernel wrappers (phase 12)
 PROBES = (probe_launch.add_one, probe_chunk.chunk, probe_chain.chain,
           probe_spmm4.fma)
@@ -366,12 +379,13 @@ def chain_oracle(A, x, n_iters, alpha):
     return y
 
 
-def launch_chain(fmt, x, n_iters, alpha, blocks, budget, start=0):
+def launch_chain(fmt, x, n_iters, alpha, blocks, budget, start=0, perm=None):
     """The chain's C launcher at an explicit grid and shared-memory budget
     a block (``tr_spmv_chain`` takes the largest budget and every block
     that fits it), under ``chain_plan`` for the same pair, its grid
-    barrier's counter starting at ``start``: (return code, output).  A
-    comparison launch: it is not counted in ``tr_spmv_chain.launches``."""
+    barrier's counter starting at ``start``, x gathered and y stored
+    through ``perm`` where given (both maps): (return code, output).  A comparison
+    launch: it is not counted in ``tr_spmv_chain.launches``."""
     plan = chain_plan(fmt, blocks, budget)
     out = torch.empty(fmt.n, device=x.device)
     bufs = torch.empty(2, fmt.n, device=x.device)
@@ -381,6 +395,8 @@ def launch_chain(fmt, x, n_iters, alpha, blocks, budget, start=0):
         fmt.idx.data_ptr(), fmt.ofs.data_ptr(), fmt.col_stripe.data_ptr(),
         fmt.val.data_ptr(), x.data_ptr(), 1.0 if alpha is None else alpha,
         bufs[0].data_ptr(), bufs[1].data_ptr(), out.data_ptr(),
+        None if perm is None else perm.data_ptr(),
+        None if perm is None else perm.data_ptr(),
         count.data_ptr(), start, blocks, budget,
         torch.cuda.current_stream(x.device).cuda_stream)
     return rc, out
@@ -675,6 +691,15 @@ def phase_kernels(dev, errs):
         got, plain = vt.gather(src, perm, mk), vt.gather_plain(src, perm, mk)
         check(torch.equal(got, plain), "gather differs from its plain version")
         errs["gather"] = max(errs["gather"], float((got - plain).abs().max()))
+    n_t = (1, 5, 64, 1000)
+    for k in n_t:
+        tiles = torch.randint(0, n_g // 1024, (k,), device=dev, generator=g,
+                              dtype=torch.int32)
+        got, plain = vt.gather_tiles(src, tiles), vt.gather_tiles_plain(src, tiles)
+        check(torch.equal(got, plain), f"tile copy of {k} tiles differs from "
+                                       f"its plain version")
+        errs["gather_tiles"] = max(errs["gather_tiles"],
+                                   float((got - plain).abs().max()))
     print(f"[3 kernels] stripe TrSpMV: {n_checks} checks on {len(cases)} "
           f"matrices, worst |Δ|/max|y| {worst_plain:.3e} vs plain, "
           f"{worst_oracle:.3e} vs f64 oracle (tol {TOL}); SpMM: {n_spmm} "
@@ -682,7 +707,8 @@ def phase_kernels(dev, errs):
           f"{spmm_oracle:.3e} vs f64 oracle; tile TrSpMV: "
           f"{2 * len(tile_cases)} checks on {len(tile_cases)} 2-D packs, worst "
           f"{tile_worst[0]:.3e} vs plain, {tile_worst[1]:.3e} vs f64 oracle; "
-          f"gather: {n_g} elements, masked and unmasked, bitwise equal",
+          f"gather: {n_g} elements, masked and unmasked, bitwise equal; tile "
+          f"copy: {n_t} tiles of a {n_g}-element source, bitwise equal",
           flush=True)
 
 
@@ -1145,8 +1171,8 @@ def phase_path_shapes(flag, fem, spmm, errs):
     print(f"[4-5 kernels at the path's shapes] stripe TrSpMV on the flagship "
           f"packs and the FEM's natural views, both directions, with and "
           f"without alpha/beta/y: worst |Δ|/max|y| {worst:.3e} vs plain (tol "
-          f"{TOL}); gather of the FEM perm (x) and inverse (y), the chain "
-          f"path's: bitwise equal", flush=True)
+          f"{TOL}); gather of the FEM perm (x) and inverse (y), the composed "
+          f"chain path's: bitwise equal", flush=True)
 
     worst = 0.0
     for label, (op, Xt, Xft) in spmm.items():
@@ -1228,6 +1254,15 @@ def phase_path_shapes_slice4(chains, scat_routes, rel, errs):
             rc, got = launch_chain(op.dev_tr, x, 5, alpha, blocks, budget)
             _lib.check(_lib.load(), rc, f"{label} chain, {res}")
             runs.append((res, got))
+        if op.row_perm is not None:  # the call tr_mul_chain makes
+            mapped = vt.tr_spmv_chain(op.dev_tr, xt, 5, alpha, op.perm_t)
+            mapped_plain = vt.tr_spmv_chain_plain(op.dev_tr, xt, 5, alpha, op.perm_t)
+            e = rel_err(mapped.cpu().numpy(), mapped_plain.cpu().numpy())
+            check(e <= TOL, f"{label} chain through its perm off its plain "
+                            f"version by {e:.2e}")
+            worst = max(worst, e)
+            errs["tr_spmv_chain"] = max(errs["tr_spmv_chain"],
+                                        float((mapped - mapped_plain).abs().max()))
         for res, got in runs:
             e = rel_err(got.cpu().numpy(), plain.cpu().numpy())
             check(e <= TOL, f"{label} chain ({res}) off its plain version by "
@@ -1252,7 +1287,8 @@ def phase_path_shapes_slice4(chains, scat_routes, rel, errs):
     got, plain = vt.tile_relayout(x, R), vt.tile_relayout_plain(x, R)
     check(torch.equal(got, plain), "relayout differs from its plain version")
     print(f"[9-11 kernels at the path's shapes] chain on the flagship and FEM "
-          f"packs, 5 iterations, resident, partly resident and streamed: worst "
+          f"packs, 5 iterations, resident, partly resident and streamed, the "
+          f"FEM's also through its perm (tr_mul_chain's call): worst "
           f"|Δ|/max|y| {worst:.3e} vs plain; scatter "
           f"on the {len(scat_routes)} scatter-route formats ("
           f"{', '.join(scat_routes)}; natural views where relabeled), with and "
@@ -1472,6 +1508,104 @@ def phase_timing_relabeled(dev, fem, scat, spmm):
               flush=True)
     print("RELABEL " + json.dumps(res), flush=True)
     return res
+
+
+def phase_chain_fold(dev, chains):
+    """The auto-RCM FEM ``tr_mul_chain`` (one chain launch, its perm in a
+    gather pass before the iterations and one after) bitwise against the
+    composed path it replaced (gather x, the chain on the relabeled pack,
+    gather y: three launches) at 5 iterations and ``CHAIN_ITERS`` (alpha
+    1 / ||A||_1, so that the values stay finite), both timed in one
+    ``paired_ms`` (device) and on the host clock at 5 iterations of that
+    alpha and ``CHAIN_ITERS`` of ``CHAIN_ALPHA``.  Prints a ``CHAINFOLD
+    {...}`` line."""
+    _, op, xt, alpha = chains["FEM"]
+    perm, inv = op.perm_t, op.inv_t
+    rec = {}
+    for n_it, a in ((5, alpha), (CHAIN_ITERS, CHAIN_ALPHA)):
+        def pair(a, n_it=n_it):
+            return [lambda: op.tr_mul_chain(xt, n_it, a),
+                    lambda: vt.gather(vt.tr_spmv_chain(
+                        op.dev_tr, vt.gather(xt, perm), n_it, a), inv)]
+        folded, composed = pair(alpha)
+        same_function(f"FEM chain x{n_it}, folded and composed", composed, folded,
+                      tol=None)
+        calls = pair(a)
+        warm = paired_ms(calls, dev, iters=5)
+        wall = [host_ms(c, dev) for c in calls]
+        rec[f"x{n_it}"] = {"folded_us": warm[0] * 1e3, "composed_us": warm[1] * 1e3,
+                           "folded_wall_us": wall[0] * 1e3,
+                           "composed_wall_us": wall[1] * 1e3, "bitwise": True}
+        print(f"[9 chain fold, FEM auto-RCM x{n_it}] tr_mul_chain (1 launch, "
+              f"perm in the chain) {warm[0] * 1e3:.2f} us device / "
+              f"{wall[0] * 1e3:.2f} us host wall; composed gather, chain, gather "
+              f"(3 launches) {warm[1] * 1e3:.2f} / {wall[1] * 1e3:.2f} us; bitwise "
+              f"equal", flush=True)
+    print("CHAINFOLD " + json.dumps(rec), flush=True)
+    return rec
+
+
+def tile_lists(pack, dev, two_d):
+    """The tile copy's inputs on the halo paths of ``pack`` at
+    ``DIST_RANKS`` ranks, as each rank's ``StreamShard`` builds them:
+    ``[(label, src, tiles)]``, the send lists on the rank's own tiles (x
+    from seed 0) and, 2-D, the pools on a stage of the same length as the
+    exchange leaves (its values those of the own tiles, repeated)."""
+    ranges = shard.split_ranges(shard.stored_per_stripe(pack), DIST_RANKS)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(int(pack.m), device=dev, generator=g)
+    out = []
+    for d in range(DIST_RANKS):
+        sh = stream.StreamShard(rank=d, ndev=DIST_RANKS, pack=pack,
+                                ranges=ranges, device=dev)
+        x_own = stream.own_x(sh, x)
+        out.append((f"send {d}", x_own, sh.send_tiles))
+        if two_d:
+            stage = x_own.repeat(-(-sh.halo.stage_rows // x_own.numel()))
+            out.append((f"pool {d}", stage[:sh.halo.stage_rows].contiguous(),
+                        sh.pool_tiles))
+    return out
+
+
+def phase_timing_tiles(dev, flag, parts, errs):
+    """The tile copy on the halo paths' own tile lists (phase 16's
+    shapes): the flagship's send lists and 2-D (a)'s send lists and pools
+    at ``DIST_RANKS`` ranks, each bitwise against its plain version and
+    ``index_select`` on the tile view, and timed beside both; bound: 8
+    bytes an element (one read, one write) and 4 a tile.  The kernels
+    line's record is the flagship's rank 0 send list.  Prints a
+    ``TILES {...}`` line; returns the record."""
+    res, record = {}, None
+    for label, pack, two_d in (("flagship", flag[1].host_tr, False),
+                               ("2-D (a)", parts["a"][1].host_tr, True)):
+        for what, src, tiles in tile_lists(pack, dev, two_d):
+            def library(src=src, tiles=tiles):
+                return src.view(-1, 1024).index_select(0, tiles).reshape(-1)
+            same_function(f"{label} tile copy, {what}", library,
+                          lambda: vt.gather_tiles(src, tiles), tol=None)
+            got, plain = vt.gather_tiles(src, tiles), vt.gather_tiles_plain(src, tiles)
+            check(torch.equal(got, plain), f"{label} tile copy, {what}: differs "
+                                           f"from its plain version")
+            errs["gather_tiles"] = max(errs["gather_tiles"],
+                                       float((got - plain).abs().max()))
+            warm = paired_ms([lambda: vt.gather_tiles(src, tiles),
+                              lambda: vt.gather_tiles_plain(src, tiles), library], dev)
+            n = tiles.numel()
+            rec = entry(warm, (8 * 1024 * n + 4 * n, 0))
+            res[f"{label} {what}"] = {"tiles": n, "us": warm[0] * 1e3,
+                                      "plain_us": warm[1] * 1e3,
+                                      "library_us": warm[2] * 1e3,
+                                      "bound_us": rec["bound_ms"] * 1e3}
+            if record is None:
+                record = rec
+    for key, r in res.items():
+        print(f"[16 timing tile copy, {key}] {r['tiles']} tiles (grid {r['tiles']} "
+              f"blocks of 256 threads): kernel {r['us']:.2f} us, plain "
+              f"{r['plain_us']:.2f} us, library (index_select on the tile view) "
+              f"{r['library_us']:.2f} us, bound {r['bound_us']:.4f} us; bitwise "
+              f"equal", flush=True)
+    print("TILES " + json.dumps(res), flush=True)
+    return record
 
 
 def own_bytes(view):
@@ -2173,12 +2307,16 @@ DIST_MAT_REPS = 3  # of each k = 128 SpMM path (gloo moves ~41 MB a rank a call)
 DIST_K = 128
 # the kernels each distributed path launches on every rank with columns:
 # one of each set (spmv and spmm: none, the semiring route); the halo
-# paths' gathers are the tiles sent, the pool and (overlap) y's order
+# paths' tile copies are the tiles sent and (2-D) the pool
 DIST_KERNELS = {"tr_spmv": [{"tr_spmv", "tr_spmv_scatter"}], "tr_spmm": [{"tr_spmm"}],
                 "spmv": [], "spmm": [], "replicated": [{"tr_spmv"}],
-                "halo": [{"tr_spmv"}, {"gather"}], "overlap": [{"tr_spmv"}, {"gather"}],
+                "halo": [{"tr_spmv"}, {"gather_tiles"}],
+                "overlap": [{"tr_spmv"}, {"gather_tiles"}],
                 "stripes": [{"tr_spmv"}], "2d": [{"tr_spmv_2d"}],
-                "2d_halo": [{"tr_spmv_2d"}, {"gather"}]}
+                "2d_halo": [{"tr_spmv_2d"}, {"gather_tiles"}]}
+# the tile copies a call of a halo path makes on every rank with columns
+# (the send; 2-D also the pool); no element gather on any path
+DIST_TILE_COPIES = {"halo": 1, "overlap": 1, "2d_halo": 2}
 
 
 def straddle_ranks_pack():
@@ -2249,6 +2387,8 @@ def dist_world(backend, world, device, jobs, errs):
         check(y.shape == want.shape and np.isfinite(y).all(),
               f"DIST {backend} {name}: wrong shape or non-finite values")
         err, vs = rel_err(y, want), rel_err(y, single)
+        check(job["path"] not in DIST_TILE_COPIES or np.array_equal(y, single),
+              f"DIST {backend} {name}: y is not bitwise the single-device y")
         check(err <= TOL and vs <= TOL,
               f"DIST {backend} {name}: |Δ|/max {err:.2e} against f64, {vs:.2e} "
               f"against the single-device result (tolerance {TOL})")
@@ -2260,6 +2400,13 @@ def dist_world(backend, world, device, jobs, errs):
             for r in recs),
               f"DIST {backend} {name}: launches {[r['launches'] for r in recs]}, "
               f"want one of each of {groups or 'none'} on every rank with columns")
+        want_tiles = DIST_TILE_COPIES.get(job["path"], 0)
+        check(all(r["launches"].get("gather_tiles", 0) == want_tiles
+                  and "gather" not in r["launches"]
+                  for r in recs if r["stats"]["columns"]),
+              f"DIST {backend} {name}: tile copies and gathers a rank "
+              f"{[r['launches'] for r in recs]}, want {want_tiles} tile "
+              f"copies and no gather on every rank with columns")
         check({k for r in recs for k in r["plain"]} == names,
               f"DIST {backend} {name}: kernels held against their plain "
               f"versions {[sorted(r['plain']) for r in recs]}, launched {names}")
@@ -2328,6 +2475,13 @@ def phase_dist(dev, flag, parts, smi, errs):
                   f"|Δ|/max {p['err_f64']:.2e} (f64), {p['err_single']:.2e} (one "
                   f"device, bitwise {p['bitwise_single']}), against plain {plain}",
                   flush=True)
+            tiles_us = [t["gather_tiles"] * 1e3 for t in p["kernel_ms"]
+                        if t and "gather_tiles" in t]
+            if tiles_us:
+                print(f"[16 dist {backend} x{world}] {name}: all its gathers (tile "
+                      f"copies) a call {min(tiles_us):.2f}-{max(tiles_us):.2f} us "
+                      f"over the ranks, host wall {p['wall_ms'] * 1e3:.1f} us",
+                      flush=True)
     fn, args = vt_entry.entry(dev)
     A, _ = vt_entry._flagship()
     y = fn(*args)
@@ -2869,13 +3023,13 @@ def main():
     reset_launches()
     chains = phase_chain(flag, fem)
     launches["tr_spmv_chain"] = vt.tr_spmv_chain.launches
-    launches["gather"] = vt.gather.launches  # the gather's one path now
-    others = {k.__name__: k.launches for k in KERNELS
-              if k not in (vt.tr_spmv_chain, vt.gather)}
-    check(launches["tr_spmv_chain"] == 4 and vt.gather.launches == 4
-          and not any(others.values()),
+    # the auto-RCM chain's perm is in the chain kernel: no path gathers now
+    launches["gather"] = vt.gather.launches
+    launches["gather_tiles"] = 0  # the halo paths' (phase 16)
+    others = {k.__name__: k.launches for k in KERNELS if k is not vt.tr_spmv_chain}
+    check(launches["tr_spmv_chain"] == 4 and not any(others.values()),
           f"chain path: chain {launches['tr_spmv_chain']} launches (want 4, "
-          f"one per call), gather {vt.gather.launches} (want 4), others {others}")
+          f"one per call), others {others} (want none: no gather)")
     print(f"[9 launches] tr_mul_chain path, 4 calls: chain kernel "
           f"{launches['tr_spmv_chain']}, gather {vt.gather.launches}", flush=True)
 
@@ -2913,6 +3067,8 @@ def main():
     ms.update(ms_2d)
     ms.update(phase_timing_slice4(dev, chains, scat, rel, pairs_2d))
     phase_timing_relabeled(dev, fem, scat, spmm)
+    phase_chain_fold(dev, chains)
+    ms["gather_tiles"] = phase_timing_tiles(dev, flag, parts, errs)
     p_launches, p_errs, p_ms = phase_probes(
         dev, ms["tr_spmv_chain"]["barrier_floor_ms"])
     launches.update(p_launches)
@@ -2953,6 +3109,8 @@ def main():
         ("tr_spmv_stripe", "tr_spmv", "trspmv.cu",
          "vbcs_tpu/ops/pallas_trspmv3.py:1145"),
         ("gather", "gather", "gather.cu", "vbcs_tpu/ops/windowed_gather.py:184"),
+        ("gather_tiles", "gather_tiles", "gather.cu",
+         "vbcs_tpu/ops/windowed_gather.py:184 (the halo paths' tile maps)"),
         ("tr_spmm", "tr_spmm", "spmm.cu",
          "vbcs_tpu/ops/pallas_spmm4.py:209, vbcs_tpu/ops/pallas_spmm3.py:42, "
          "vbcs_tpu/ops/pallas_spmm.py:33, vbcs_tpu/ops/pallas_trspmv.py:215"),
@@ -2982,6 +3140,11 @@ def main():
             "source": f"vbcs_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": launches[key], "max_abs_err": errs[key], **ms[key]}
            for name, key, src, replaces in meta]
+    idle = sorted(r["name"] for r in rec if r["launches"] == 0)
+    check(idle == ["dp_recurrence", "gather"],
+          f"kernels launched no time on their paths: {idle} (only the serial "
+          f"fold and the element gather, each timed as a yardstick, run on no "
+          f"path)")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all, the build "
           f"included", flush=True)
     print(smi)

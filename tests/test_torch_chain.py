@@ -7,7 +7,9 @@ runs its fused chain kernel (Pallas in interpret mode) on its own
 port's wrapper runs its plain version, a loop of the plain TrSpMV; the
 persistent CUDA kernel is held against that loop on the card in
 ``test_torch_cuda.py``.  Then ``VBCOperator.tr_mul_chain`` against the
-JAX operator's, natural and auto-RCM.
+JAX operator's, natural and auto-RCM, and the auto-RCM chain with its
+``perm`` folded in (one launch) bitwise against the composed path it
+replaces (gather x, the chain, gather y), also split across launches.
 
 Tolerance: ``|Δ| / max|y| <= 2e-5`` against the JAX kernel and the f64
 oracle iterated on the host — f32 sums in other orders, as
@@ -116,6 +118,71 @@ def test_operator_chain_matches_jax(matrix):
     assert yt.dtype == np.float32 and yt.shape == (A.shape[1],)
     assert rel_err(yt, yj) <= TOL
     assert rel_err(yt, oracle(A, x, 3, 0.5)) <= TOL
+
+
+def relabeled_fmt():
+    """The FEM k=80 operator's relabeled pack (auto-RCM), its perm and its
+    inverse, on the CPU."""
+    A = fem_matrix(k=80).astype(np.float32)
+    op = vt.VBCOperator.from_csc(A, W=8, directions="transposed", device="cpu")
+    assert op.row_perm is not None
+    return A, op
+
+
+def composed_chain(fmt, x, n_iters, alpha, perm, inv):
+    """The path the mapped chain replaces: gather x into permuted space,
+    the chain there, gather y out."""
+    return vt.gather_plain(vt.tr_spmv_chain_plain(
+        fmt, vt.gather_plain(x, perm), n_iters, alpha), inv)
+
+
+@pytest.mark.parametrize("n_iters", [1, 2, 7])
+def test_mapped_chain_is_the_composed_path(n_iters):
+    """``perm`` folds the auto-RCM operator's two gathers into the chain:
+    the plain version and the wrapper's CPU path are bitwise the composed
+    path, and the operator's ``tr_mul_chain`` is that call."""
+    A, op = relabeled_fmt()
+    x = torch.from_numpy(np.random.default_rng(n_iters).standard_normal(
+        A.shape[0]).astype(np.float32))
+    want = composed_chain(op.dev_tr, x, n_iters, 0.25, op.perm_t, op.inv_t)
+    assert torch.equal(vt.tr_spmv_chain_plain(op.dev_tr, x, n_iters, 0.25,
+                                              op.perm_t), want)
+    assert torch.equal(vt.tr_spmv_chain(op.dev_tr, x, n_iters, 0.25, op.perm_t), want)
+    assert torch.equal(op.tr_mul_chain(x, n_iters, 0.25), want)
+    assert rel_err(want.numpy(), oracle(A, x.numpy(), n_iters, 0.25)) <= TOL
+
+
+def test_mapped_chain_split_into_launches(monkeypatch):
+    """Across a split (a cap of 3 iterations a launch), the first launch
+    gathers x through ``perm`` and the last stores through it: bitwise the
+    composed path, the launches in between in permuted space."""
+    from vbcs_tpu_torch.ops import chain
+
+    monkeypatch.setattr(chain, "MAX_LAUNCH_ITERS", 3)
+    A, op = relabeled_fmt()
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        A.shape[0]).astype(np.float32))
+    runs = []
+    plain = chain.tr_spmv_chain_plain
+    monkeypatch.setattr(chain, "tr_spmv_chain_plain",
+                        lambda f, xx, k, a=None: runs.append(k) or plain(f, xx, k, a))
+    for n_iters, launches in ((7, [3, 3, 1]), (3, [3]), (1, [1])):
+        runs.clear()
+        got = chain.tr_spmv_chain(op.dev_tr, x, n_iters, 0.5, op.perm_t)
+        assert runs == launches
+        assert torch.equal(got, composed_chain(op.dev_tr, x, n_iters, 0.5,
+                                               op.perm_t, op.inv_t))
+
+
+def test_chain_refuses_a_bad_perm():
+    _, op = relabeled_fmt()
+    x = torch.zeros(op.m)
+    with pytest.raises(TypeError):
+        vt.tr_spmv_chain(op.dev_tr, x, 2, None, op.perm_t.long())
+    with pytest.raises(ValueError):
+        vt.tr_spmv_chain(op.dev_tr, x, 2, None, op.perm_t[:-1].contiguous())
+    with pytest.raises(ValueError):
+        vt.tr_spmv_chain_plain(op.dev_tr, x, 2, None, op.perm_t[:-1].contiguous())
 
 
 def test_zero_iterations_return_x():

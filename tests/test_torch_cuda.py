@@ -198,6 +198,25 @@ def test_gather_kernel_matches_plain(masked, cuda_device):
     assert torch.equal(got, vt.gather_plain(src, perm, mask))
 
 
+@pytest.mark.parametrize("n_tiles", [1, 7, 48, 300])
+def test_gather_tiles_kernel_matches_plain(n_tiles, cuda_device):
+    """The tile copy against its plain version, bitwise: random tiles of a
+    64-tile source, repeats and tile 0 (the halo's padding) among them."""
+    g = torch.Generator(device=cuda_device).manual_seed(n_tiles)
+    src = torch.randn(64 * 1024, device=cuda_device, generator=g)
+    tiles = torch.randint(0, 64, (n_tiles,), device=cuda_device, generator=g,
+                          dtype=torch.int32)
+    tiles[::3] = 0
+    before = vt.gather_tiles.launches
+    got = vt.gather_tiles(src, tiles)
+    assert vt.gather_tiles.launches == before + 1
+    assert torch.equal(got, vt.gather_tiles_plain(src, tiles))
+    assert torch.equal(got, vt.gather(src, (tiles.long()[:, None] * 1024 + torch.arange(
+        1024, device=cuda_device)).reshape(-1).int()))
+    with pytest.raises(ValueError, match="16 bytes"):
+        vt.gather_tiles(torch.zeros(3 * 1024 + 1, device=cuda_device)[1:], tiles[:1])
+
+
 def test_wrappers_refuse_mixed_devices(cuda_device):
     fmt = vt.VBC1DDevice.from_host(vt.vbc1d(banded(64, 64, 3, 8, 1), 8),
                                    cuda_device)
@@ -489,8 +508,12 @@ def test_operator_chain_on_card(k, cuda_device):
     chains, gathers = vt.tr_spmv_chain.launches, vt.gather.launches
     got = op.tr_mul_chain(x, 5, 0.125)
     assert vt.tr_spmv_chain.launches == chains + 1
-    assert vt.gather.launches == gathers + (2 if k >= 80 else 0)
+    assert vt.gather.launches == gathers  # the auto-RCM maps are in the chain
     assert rel_err(got, oracle_chain(A, x, 5, 0.125)) <= TOL
+    if op.row_perm is not None:
+        composed = vt.gather(vt.tr_spmv_chain(op.dev_tr, vt.gather(x, op.perm_t),
+                                              5, 0.125), op.inv_t)
+        assert torch.equal(got, composed)
     assert torch.equal(op.tr_mul_chain(x, 0), x)
     with pytest.raises(ValueError, match="square"):
         vt.VBCOperator.from_csc(A[:, :100].tocsc(), device=cuda_device
@@ -689,6 +712,87 @@ def test_tr_spmv_chain_split_across_launches(cuda_device, monkeypatch):
         assert vt.tr_spmv_chain.launches == before + launches
         assert rel_err(got, vt.tr_spmv_chain_plain(fmt, x, n_iters, 0.5)) <= TOL
         assert rel_err(got, oracle_chain(A, x, n_iters, 0.5)) <= TOL
+
+
+def relabeled_pack(device):
+    """The FEM k=80 operator's relabeled pack (auto-RCM) and perm."""
+    A = fem_matrix(k=80).astype(np.float32)
+    op = vt.VBCOperator.from_csc(A, W=8, directions="transposed", device=device)
+    assert op.row_perm is not None
+    return A, op
+
+
+@pytest.mark.parametrize("n_iters", [1, 2, 5])
+@pytest.mark.parametrize("residency", ["resident", "partly resident", "streamed"])
+def test_tr_spmv_chain_mapped_is_composed(residency, n_iters, cuda_device):
+    """The chain with the auto-RCM perm folded in (x gathered through it
+    before iteration 0, which reads it from its staged window or from L2;
+    y stored through it after the last) is bitwise the unmapped chain
+    between two gathers, at each residency of the pack."""
+    A, op = relabeled_pack(cuda_device)
+    fmt, perm = op.dev_tr, op.perm_t
+    x = torch.randn(A.shape[0], device=cuda_device)
+    runs = {r: (b, bud) for r, b, bud in chain_residencies(fmt, cuda_device)}
+    blocks, budget = runs[residency]
+    rc, got = launch_chain(fmt, x, n_iters, 0.5, blocks, budget, perm=perm)
+    assert rc == 0
+    rc, inner = launch_chain(fmt, vt.gather(x, perm), n_iters, 0.5, blocks, budget)
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got, vt.gather(inner, op.inv_t))
+    assert rel_err(got, oracle_chain(A, x, n_iters, 0.5)) <= TOL
+
+
+def test_tr_spmv_chain_mapped_split_across_launches(cuda_device, monkeypatch):
+    """At a cap of 3 iterations a launch, the mapped chain reads x through
+    perm in its first launch and stores through it in its last: bitwise
+    the composed path over the same split, one launch a piece."""
+    from vbcs_tpu_torch.ops import chain
+
+    monkeypatch.setattr(chain, "MAX_LAUNCH_ITERS", 3)
+    A, op = relabeled_pack(cuda_device)
+    x = torch.randn(A.shape[0], device=cuda_device)
+    for n_iters, launches in ((10, 4), (4, 2), (3, 1), (1, 1)):
+        before, gathers = vt.tr_spmv_chain.launches, vt.gather.launches
+        got = vt.tr_spmv_chain(op.dev_tr, x, n_iters, 0.5, op.perm_t)
+        assert vt.tr_spmv_chain.launches == before + launches
+        assert vt.gather.launches == gathers
+        want = vt.gather(vt.tr_spmv_chain(op.dev_tr, vt.gather(x, op.perm_t),
+                                          n_iters, 0.5), op.inv_t)
+        assert torch.equal(got, want)
+
+
+def test_halo_paths_on_card(cuda_device):
+    """The halo paths in two gloo ranks sharing the card: each rank's
+    launches (1-D halo: one tile copy and one stripe launch; overlap: one
+    tile copy and two stripe launches into one buffer; 2-D halo: two tile
+    copies and the tile kernel; no element gather), every kernel within
+    TOL of its plain version on the path's inputs (the tile copy
+    bitwise), and y bitwise the replicated path's."""
+    from vbcs_tpu_torch import entry
+    from vbcs_tpu_torch.parallel import comm
+
+    A1 = blocky_matrix(L=4096, band=400)
+    B1 = vt.vbc1d(A1, 8)
+    x1 = np.random.default_rng(3).standard_normal(A1.shape[0]).astype(np.float32)
+    B2 = straddle_pack()
+    x2 = np.random.default_rng(4).standard_normal(B2.m).astype(np.float32)
+    jobs = [{"path": p, "B": B1, "x": x1} for p in ("replicated", "halo", "overlap")]
+    jobs += [{"path": p, "B": B2, "x": x2} for p in ("2d", "2d_halo")]
+    want = {"halo": {"tr_spmv": 1, "gather_tiles": 1},
+            "overlap": {"tr_spmv": 2, "gather_tiles": 1},
+            "2d_halo": {"tr_spmv_2d": 1, "gather_tiles": 2}}
+    ranks = comm.run_ranks(entry.rank_paths, 2, "gloo", "cuda:0", jobs)
+    for rank in ranks:
+        for rec in rank:
+            if rec["path"] in want and rec["stats"]["columns"]:
+                assert rec["launches"] == want[rec["path"]], rec
+            for kernel, (_, rel) in rec["plain"].items():
+                assert rel == 0.0 if kernel == "gather_tiles" else rel <= TOL
+    y = {rec["path"]: rec["y"] for rec in ranks[0]}
+    np.testing.assert_array_equal(y["halo"], y["replicated"])
+    np.testing.assert_array_equal(y["overlap"], y["replicated"])
+    np.testing.assert_array_equal(y["2d_halo"], y["2d"])
 
 
 def test_probe_add_one_kernel(cuda_device):

@@ -5,12 +5,15 @@ The JAX package applies a static map through windowed Pallas kernels:
 ladder routed, optionally masked) and ``multipass.apply_multipass`` for
 maps the single-pass router refuses.  Both run here in interpret mode on
 the same inputs as the port's ``gather``.  A gather moves values without
-arithmetic, so the results must be bitwise equal.
+arithmetic, so the results must be bitwise equal.  The tile copy
+(``gather_tiles``, the halo paths' map of whole 1,024-element tiles) is
+held bitwise to the element gather on the halo plans' own tile lists.
 """
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
+import scipy.sparse as sp
 import torch
 
 import vbcs_tpu_torch as vt
@@ -94,3 +97,63 @@ def test_gather_checks():
         vt.gather(src.double(), perm)
     with pytest.raises(ValueError):
         vt.gather(src, perm, torch.ones(2, dtype=torch.bool))
+
+
+def tile_elements(tiles):
+    """The element map of whole tiles ``tiles``, tile by tile."""
+    tiles = np.asarray(tiles, dtype=np.int64)
+    return (tiles[:, None] * vt.ops.gather.TILE
+            + np.arange(vt.ops.gather.TILE)[None, :]).reshape(-1)
+
+
+def halo_tile_lists():
+    """The tile lists of the halo paths on a banded 1-D pack of 9,000 rows
+    at 4 ranks: each rank's send list (``hmax`` a destination, padded with
+    tile 0) and its pool's places in its stage."""
+    from vbcs_tpu_torch.parallel import shard
+
+    rng = np.random.default_rng(2)
+    n = 9000
+    rows = np.clip(np.arange(n)[:, None] + rng.integers(-1500, 1500, (n, 4)), 0, n - 1)
+    A = sp.coo_matrix((rng.standard_normal(4 * n), (rows.reshape(-1),
+                                                     np.repeat(np.arange(n), 4))),
+                      shape=(n, n)).tocsc()
+    halo = shard.plan_halo(vt.vbc1d(A, 8), 4)
+    own = halo.tiles_per_dev * vt.ops.gather.TILE
+    stage = (halo.tiles_per_dev + 4 * halo.hmax) * vt.ops.gather.TILE
+    out = []
+    for d in range(4):
+        assert (halo.counts[d] < halo.hmax).any()  # padding tiles are sent
+        out.append((own, halo.send[d].reshape(-1)))
+        out.append((stage, halo.pool_src(d)))
+    return out
+
+
+@pytest.mark.parametrize("which", range(8))
+def test_gather_tiles_matches_element_gather(which):
+    """The tile copy's plain version is the element gather on the tiles'
+    element maps, bitwise, on each halo tile list (padding tiles
+    included)."""
+    size, tiles = halo_tile_lists()[which]
+    src = np.random.default_rng(which).standard_normal(size).astype(np.float32)
+    t = torch.from_numpy(np.asarray(tiles, dtype=np.int32))
+    got = vt.gather_tiles(torch.from_numpy(src), t)
+    assert got.shape == (tiles.size * vt.ops.gather.TILE,)
+    np.testing.assert_array_equal(got.numpy(), port_gather(src, tile_elements(tiles)))
+    np.testing.assert_array_equal(got.numpy(),
+                                  vt.gather_tiles_plain(torch.from_numpy(src), t).numpy())
+
+
+def test_gather_tiles_checks():
+    src = torch.arange(3 * 1024, dtype=torch.float32)
+    tiles = torch.tensor([2, 0], dtype=torch.int32)
+    assert torch.equal(vt.gather_tiles(src, tiles)[:2], torch.tensor([2048.0, 2049.0]))
+    assert vt.gather_tiles(src, tiles[:0]).shape == (0,)
+    with pytest.raises(TypeError):
+        vt.gather_tiles(src, tiles.long())
+    with pytest.raises(TypeError):
+        vt.gather_tiles(src.double(), tiles)
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        vt.gather_tiles(src[:1000], tiles)
+    with pytest.raises(ValueError, match="contiguous"):
+        vt.gather_tiles(src, tiles.repeat(2)[::2])

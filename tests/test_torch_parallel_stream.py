@@ -153,8 +153,9 @@ def test_path_holds_its_kernels(worlds, case, path, ndev):
     """Every rank holds the kernels its path runs against their plain
     versions on the path's own inputs (equal on the CPU, where a wrapper
     runs its plain version): the stripe kernel, and on the halo paths the
-    gather (the tiles sent, the pool, and on the overlap y's order)."""
-    want = {"tr_spmv"} if path == "replicated" else {"tr_spmv", "gather"}
+    tile copy of the tiles sent (the stripe kernel reads the stage, and
+    the overlap's two launches write y in column order: no gather)."""
+    want = {"tr_spmv"} if path == "replicated" else {"tr_spmv", "gather_tiles"}
     for rank in worlds[ndev]:
         plain = rank[(case, path)]["plain"]
         assert set(plain) == want
@@ -167,38 +168,51 @@ def shards(B, ndev):
                                device=torch.device("cpu")) for d in range(ndev)]
 
 
+def triples(fmt, x) -> set:
+    """(row, column, value) of every stored value of ``fmt``, its rows
+    read through ``x`` (which holds each row's global index) and its
+    columns at their output places."""
+    row, col = fmt.value_coords
+    return set(zip(x[row].long().tolist(), col.tolist(), fmt.val.tolist()))
+
+
 @pytest.mark.parametrize("ndev", NDEVS)
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_gather_maps_move_tiles_and_columns(case, ndev):
-    """The gather maps of the halo paths, with the exchange done by hand:
-    each rank's pool is x at the tiles it reads, in global tile order, and
-    the overlap's ``y_map_overlap`` puts the slices, each in its rank's
-    overlap order, back in column order (x and y hold their own indices,
-    so the comparisons are exact)."""
+    """The halo paths' maps, with the exchange done by hand on an x that
+    holds its own indices (so the comparisons are exact): the tile copy of
+    each rank's send list fills every stage so that the halo format's
+    block rows (stage coordinates) read the rows of the slice, the 2-D
+    path's pool copy gives x at the tiles the rank reads in global tile
+    order, and the overlap's two formats read their rows from the rank's
+    own tiles and its stage and put every column of the slice at its
+    place in it once (``col_out``)."""
     B = CASES[case][1]
     shs = shards(B, ndev)
     halo = shs[0].halo
     x = torch.arange(B.m, dtype=torch.float32)
     x_own = [stream.own_x(sh, x) for sh in shs]
-    sent = [stream.gather(xo, sh.send_map).view(ndev, -1)
+    sent = [vt.gather_tiles(xo, sh.send_tiles).view(ndev, -1)
             for sh, xo in zip(shs, x_own)]
     x_pad = torch.zeros(ndev * halo.tiles_per_dev * shard.TILE)
     x_pad[:B.m] = x
     for d, sh in enumerate(shs):
         stage = torch.cat([x_own[d]] + [sent[s][d] for s in range(ndev)])
-        pool = stream.gather(stage, sh.pool_map).view(-1, shard.TILE)
+        assert stage.numel() == halo.stage_rows
+        pool = vt.gather_tiles(stage, sh.pool_tiles).view(-1, shard.TILE)
         assert pool.shape[0] == halo.needed[d].size
         want = x_pad.view(-1, shard.TILE)[torch.from_numpy(halo.needed[d])]
         assert torch.equal(pool, want)
-    slices = []
-    for sh in shs:
-        order, _ = sh.overlap
-        cols = shard.stripe_columns(B, order + sh.ranges[sh.rank][0])
-        buf = torch.zeros(sh.width)
-        buf[:cols.size] = torch.from_numpy(cols.astype(np.float32))
-        slices.append(buf)
-    y = stream.gather(torch.cat(slices), shs[0].y_map_overlap)
-    assert torch.equal(y, torch.arange(B.n, dtype=torch.float32))
+        slice_ = triples(sh.fmt, x)
+        assert triples(sh.halo_fmt, stage) == slice_
+        local, rest = sh.overlap_fmts
+        assert triples(local, x_own[d]) | triples(rest, stage) == slice_
+        places = torch.cat([local.col_out, rest.col_out])
+        assert torch.equal(places.sort().values, torch.arange(sh.host.n, dtype=torch.int32))
+        y = torch.full((sh.host.n,), -1.0)
+        vt.tr_spmv(local, x_own[d], out=y)
+        vt.tr_spmv(rest, stage, out=y)
+        assert torch.equal(y, vt.tr_spmv(sh.fmt, x))
 
 
 def test_shard_stream_refuses_an_unknown_balance():

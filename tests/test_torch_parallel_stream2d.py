@@ -182,8 +182,8 @@ def test_straddle_reads_two_other_ranks(worlds):
 def test_2d_path_holds_its_kernels(worlds, case, path, ndev):
     """Every rank holds the kernels its path runs against their plain
     versions on the path's own inputs (equal on the CPU): the tile kernel,
-    and on the halo path the gather (the tiles sent and the pool)."""
-    want = {"tr_spmv_2d"} if path == "2d" else {"tr_spmv_2d", "gather"}
+    and on the halo path the tile copy (the tiles sent and the pool)."""
+    want = {"tr_spmv_2d"} if path == "2d" else {"tr_spmv_2d", "gather_tiles"}
     for rank in worlds[ndev]:
         plain = rank[(case, path)]["plain"]
         assert set(plain) == want

@@ -8,8 +8,9 @@ the scrambled FEM k=80 grid (relabeled under ``reorder="auto"``) and the
 k=40 grid under ``reorder="always"`` each call, with and without
 alpha/beta/y, must agree with the JAX operator, with the composed path
 it replaces (gather x, the plain kernel on the relabeled pack, gather y,
-``beta * y``) and with the f64 product, and call neither the operator's
-``gather`` nor ``index_select``; ``tr_mul_chain`` still gathers twice.
+``beta * y``) and with the f64 product, and call neither ``gather`` nor
+``index_select``; ``tr_mul_chain`` neither (its ``perm`` is folded into
+the chain kernel, a gather pass before its iterations and one after).
 The JAX operator runs its Pallas kernels in interpret mode for the FEM
 k=80 ``tr_mul`` with alpha, beta and y (~12 s a call;
 ``test_torch_operator.py`` holds both operators' ``tr_mul``/``mul`` with
@@ -34,7 +35,7 @@ import torch
 
 import vbcs_tpu as v
 import vbcs_tpu_torch as vt
-import vbcs_tpu_torch.operator as op_mod
+import vbcs_tpu_torch.ops.gather as gather_mod
 from vbcs_tpu.ops import pallas_trspmv3 as pk3
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
@@ -81,7 +82,8 @@ def operators(case):
 
 @contextlib.contextmanager
 def spy():
-    """Counts the operator's ``gather`` calls and every ``index_select``
+    """Counts the gathers (``ops.gather.gather`` runs its plain version on
+    a CPU tensor, looked up at each call) and every ``index_select``
     inside the block."""
     calls = {"gather": 0, "index_select": 0}
 
@@ -92,7 +94,7 @@ def spy():
         return wrapped
 
     with contextlib.ExitStack() as stack:
-        for owner, name, key in ((op_mod, "gather", "gather"),
+        for owner, name, key in ((gather_mod, "gather_plain", "gather"),
                                  (torch.Tensor, "index_select", "index_select"),
                                  (torch, "index_select", "index_select")):
             stack.enter_context(mock.patch.object(
@@ -167,11 +169,17 @@ def test_routes_take_natural_views(case):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_tr_mul_chain_still_gathers_twice(case):
+    """The chain's two gathers (x in, y out) are folded into it, its
+    ``perm`` (the test's name is older than the fold): no gather is
+    called, and the result is bitwise the composed gather path's."""
     A, opt, _, _ = operators(case)
     x = np.random.default_rng(8).standard_normal(A.shape[0]).astype(np.float32)
     with spy() as calls:
         got = opt.tr_mul_chain(torch.from_numpy(x), 3, 0.25).numpy()
-    assert calls["gather"] == 2
+    assert calls == {"gather": 0, "index_select": 0}, calls
+    composed_y = vt.gather(vt.tr_spmv_chain_plain(
+        opt.dev_tr, vt.gather(torch.from_numpy(x), opt.perm_t), 3, 0.25), opt.inv_t)
+    np.testing.assert_array_equal(got, composed_y.numpy())
     want = x.astype(np.float64)
     for _ in range(3):
         want = 0.25 * (A.T.astype(np.float64) @ want)

@@ -37,6 +37,22 @@
 // or y_out at the last iteration; alpha is fused into every store.  One
 // barrier per iteration is enough: the buffer iteration i + 1 overwrites
 // was last read in iteration i - 1, before the barrier that ended it.
+//
+// An auto-RCM operator runs its chain on the relabeled pack, in permuted
+// space, where its x windows are short (the RCM's locality); the two
+// gathers around it (x into permuted space, y out of it: the JAX
+// operator's windowed_gather._permute_kernel on each side) are folded into
+// this launch as a pass before the first iteration and one after the last,
+// each a grid-strided loop behind one more grid barrier: with x_map the
+// grid writes buf1[r] = x[x_map[r]] and iteration 0 reads buf1 (iteration
+// 1 is the first to write it, after a barrier); with y_map the last
+// iteration writes buf[(n_iters - 1) % 2] and the grid then stores its
+// column j at y_out[y_map[j]].  Both maps are the relabeling perm (y[perm[j]]
+// = out[j]), so a chain split over launches passes x_map to its first and
+// y_map to its last; null means natural order.  The passes stay out of the
+// iterations: a design that read x and stored y through the map inside the
+// first and last iterations slowed every iteration on an H100 (PERF.md),
+// the kernel being held to 64 registers a thread at 1,024 threads.
 // The barrier is grid_barrier (barrier.cuh), not cooperative_groups'
 // grid.sync(): the same arrive-and-wait on one counter, with a release add
 // and acquire loads instead of two full fences, which ran the flagship's
@@ -205,6 +221,7 @@ __global__ void __launch_bounds__(kThreads, 1) tr_spmv_chain_kernel(
     const int* __restrict__ idx, const int* __restrict__ ofs,
     const int* __restrict__ col_stripe, const float* __restrict__ val,
     const float* x, float alpha, float* buf0, float* buf1, float* y_out,
+    const int* __restrict__ x_map, const int* __restrict__ y_map,
     unsigned* count, unsigned start, int smem_bytes) {
   extern __shared__ float4 smem[];  // float4: 16-byte alignment
   const Plan p(plan_buf, gridDim.x, L);
@@ -240,13 +257,25 @@ __global__ void __launch_bounds__(kThreads, 1) tr_spmv_chain_kernel(
   }
   __syncthreads();
 
+  // the auto-RCM gather of x into permuted space, before iteration 0
+  const int n = __ldg(spl + L);
+  const int tid = blockIdx.x * kThreads + threadIdx.x;
+  const int stride = gridDim.x * kThreads;
+  if (x_map != nullptr) {
+    for (int j = tid; j < n; j += stride) buf1[j] = __ldg(x + __ldg(x_map + j));
+    grid_barrier(count, start + gridDim.x);
+    x = buf1;
+  }
+  const unsigned round0 = start + (x_map != nullptr ? gridDim.x : 0u);
+
   // the thread's first group's metadata stays in registers
   const int g0 = g_lo + threadIdx.x;
   const Group mine = g0 < g_hi ? locate(g0, r, p.gcol, spl, pos, ofs, col_stripe)
                                : Group{};
   for (int i = 0; i < n_iters; ++i) {
     const float* src = i == 0 ? x : ((i - 1) % 2 == 0 ? buf0 : buf1);
-    float* dst = i == n_iters - 1 ? y_out : (i % 2 == 0 ? buf0 : buf1);
+    float* dst = i == n_iters - 1 && y_map == nullptr ? y_out
+                                                      : (i % 2 == 0 ? buf0 : buf1);
     const Source xs{src, win_len > 0 ? swin : nullptr, win_lo};
     if (win_len > 0) {
       // one coalesced read of the rows this block's stripes gather
@@ -265,8 +294,15 @@ __global__ void __launch_bounds__(kThreads, 1) tr_spmv_chain_kernel(
       run(locate(g, r, p.gcol, spl, pos, ofs, col_stripe));
     }
     if (i + 1 < n_iters) {
-      grid_barrier(count, start + static_cast<unsigned>(i + 1) * gridDim.x);
+      grid_barrier(count, round0 + static_cast<unsigned>(i + 1) * gridDim.x);
     }
+  }
+
+  // the auto-RCM gather of y out of permuted space, after the last iteration
+  if (y_map != nullptr) {
+    const float* last = (n_iters - 1) % 2 == 0 ? buf0 : buf1;
+    grid_barrier(count, round0 + static_cast<unsigned>(n_iters) * gridDim.x);
+    for (int j = tid; j < n; j += stride) y_out[__ldg(y_map + j)] = __ldcg(last + j);
   }
 }
 
@@ -311,11 +347,15 @@ int vbcs_chain_grid(int* budget, int* blocks) {
 // wrapper passes 0; a test starts it near 2^32 to cross the wrap).
 // Returns the first error (0 = launched; cudaErrorCooperativeLaunchTooLarge
 // when the grid cannot be resident).  buf0/buf1 hold n floats each and may
-// be null when n_iters == 1; n_iters >= 1.
+// be null when n_iters == 1 and there is no map; n_iters >= 1.  x_map
+// (iteration 0 reads x[x_map[row]], gathered into buf1 first) and y_map
+// (column j of the result lands at y_out[y_map[j]]): int32 permutations of
+// [0, n), or null for natural order; each adds a pass and a grid barrier.
 int vbcs_tr_spmv_chain(int n_iters, int L, const void* plan, const void* spl,
                        const void* pos, const void* idx, const void* ofs,
                        const void* col_stripe, const void* val, const void* x,
                        float alpha, void* buf0, void* buf1, void* y_out,
+                       const void* x_map, const void* y_map,
                        void* count, unsigned start, int blocks, int budget,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -340,10 +380,12 @@ int vbcs_tr_spmv_chain(int n_iters, int L, const void* plan, const void* spl,
   float* a_b0 = static_cast<float*>(buf0);
   float* a_b1 = static_cast<float*>(buf1);
   float* a_y = static_cast<float*>(y_out);
+  const int* a_xm = static_cast<const int*>(x_map);
+  const int* a_ym = static_cast<const int*>(y_map);
   void* args[] = {&n_iters, &L,     &a_plan, &a_spl,   &a_pos,
                   &a_idx,    &a_ofs, &a_cs,   &a_val,   &a_x,
-                  &alpha,    &a_b0,  &a_b1,   &a_y,     &a_count,
-                  &start,    &budget};
+                  &alpha,    &a_b0,  &a_b1,   &a_y,     &a_xm,
+                  &a_ym,     &a_count, &start, &budget};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(tr_spmv_chain_kernel), dim3(blocks),
       dim3(kThreads), args, static_cast<size_t>(budget), st);

@@ -14,7 +14,11 @@
 // rows and y lands at col_out[j] (y_in is read there too), so the gathers
 // the JAX operator runs around its kernel for a relabeled matrix
 // (windowed_gather._permute_kernel, on x and on y) fold into this one
-// launch; col_out is null in natural order.
+// launch; col_out is null in natural order.  col_out may also put the
+// columns of a format at places in a longer y_out, so that two launches
+// on two formats fill one buffer (parallel/stream.py's overlapped halo
+// path: its local and its remote stripes, each at its natural place in
+// the rank's slice).
 //
 // Design: one thread per output column j.  Stripes own disjoint columns
 // (the reference's stripe scheduler, multiply_1DVBC.jl:169-177), so no
@@ -69,7 +73,10 @@ extern "C" {
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 // y_in may be null (then beta is unused), col_out null (natural order;
-// else a permutation of [0, n)).  n > 0.
+// else an injection of the n columns into y_out's entries: a natural
+// view's permutation, or the overlapped halo path's places of two
+// formats' columns in one buffer; y_in is read at the same places).
+// n > 0.
 int vbcs_tr_spmv(int n, const void* spl, const void* pos, const void* idx,
                  const void* ofs, const void* col_stripe, const void* col_out,
                  const void* val, const void* x, const void* y_in, float alpha,

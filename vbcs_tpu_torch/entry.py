@@ -44,7 +44,7 @@ import torch.distributed as dist
 from .api import vbc1d, vbc2d
 from .formats.partition import SplitPartition
 from .operator import route_tr_spmv
-from .ops.gather import gather, gather_plain
+from .ops.gather import gather, gather_plain, gather_tiles, gather_tiles_plain
 from .ops.scatter import tr_spmv_scatter
 from .ops.spmm import tr_spmm, tr_spmm_plain
 from .ops.trspmv import tr_spmv, tr_spmv_plain
@@ -64,9 +64,12 @@ CORPUS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = "HB__can_292"
 # |y - y_f64| / max|y_f64| for every path (f32 sums in another order)
 TOL = 2e-5
-# the kernel wrappers a distributed path can launch, each with its plain version
+# the kernel wrappers counted on a distributed path, each with its plain
+# version (no path launches the element gather since the halo tiles move
+# by tile copy; it stays counted, so that a launch of it would show)
 PLAIN = {tr_spmv: tr_spmv_plain, tr_spmv_scatter: tr_spmv_plain,
-         tr_spmm: tr_spmm_plain, tr_spmv_2d: tr_spmv_2d_plain, gather: gather_plain}
+         tr_spmm: tr_spmm_plain, tr_spmv_2d: tr_spmv_2d_plain, gather: gather_plain,
+         gather_tiles: gather_tiles_plain}
 KERNELS = tuple(PLAIN)
 
 
@@ -136,23 +139,31 @@ def kernel_calls(path, sh, arg, options) -> list:
         x = comm.all_gather_x(arg, sh.m, sh.group)
         return [(sh.kernel, (sh.fmt, x, options.get("alpha")))]
     stage, _ = stream._exchange(sh, arg)
-    pool = gather(stage, sh.pool_map)
-    calls = [(gather, (arg, sh.send_map)), (gather, (stage, sh.pool_map))]
+    calls = [(gather_tiles, (arg, sh.send_tiles))]
     if path != "overlap":
-        return calls + [(sh.kernel, (sh.pool_fmt, pool))]
+        if sh.is_2d:
+            calls.append((gather_tiles, (stage, sh.pool_tiles)))
+        return calls + [(sh.kernel, (sh.halo_fmt, stream._halo_x(sh, stage)))]
+    # both launches write one buffer, each its columns (tr_spmv's out)
     local, rest = sh.overlap_fmts
-    y = torch.cat([tr_spmv(local, arg), tr_spmv(rest, pool)])
-    stack = comm.gather_stack(y, sh.width, sh.group)
-    return calls + [(tr_spmv, (local, arg)), (tr_spmv, (rest, pool)),
-                    (gather, (stack, sh.y_map_overlap))]
+    y = arg.new_zeros(sh.host.n)
+    return calls + [(tr_spmv, (local, arg, None, None, None, y)),
+                    (tr_spmv, (rest, stage, None, None, None, y))]
+
+
+def _own(args) -> tuple:
+    """``args`` with each tensor copied, so that a call writing into one
+    (``tr_spmv``'s ``out``) writes a buffer of its own."""
+    return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
 
 
 def against_plain(calls) -> dict:
     """``{kernel name: (max |Δ|, max |Δ| / max |plain|)}`` of each kernel
-    against its plain version on the same inputs, the worst of its calls."""
+    against its plain version on the same inputs (copies of them), the
+    worst of its calls."""
     out = {}
     for kernel, args in calls:
-        got, want = kernel(*args), PLAIN[kernel](*args)
+        got, want = kernel(*_own(args)), PLAIN[kernel](*_own(args))
         diff = float((got - want).abs().max()) if got.numel() else 0.0
         scale = float(want.abs().max()) if want.numel() else 0.0
         old = out.get(kernel.__name__, (0.0, 0.0))

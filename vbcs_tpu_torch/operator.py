@@ -20,8 +20,10 @@ decision — then copies the packs to an explicit torch ``device``:
   ``mul``, ``tr_mul_mat`` and ``mul_mat`` on its natural views
   (``natural_view``: rows ``perm[idx]``, output column ``j`` at
   ``perm[j]``), one launch a call with no gather; ``tr_mul_chain`` runs
-  the relabeled pack between two gathers (``ops/gather.py``), where its
-  shared-memory x window relies on the RCM's locality.
+  the relabeled pack, where its shared-memory x window relies on the
+  RCM's locality, with ``perm`` folded into the chain kernel (a gather of
+  x before its first iteration, one of y after its last: one launch, no
+  gather kernel either).
 
 ``VBC2DOperator.from_csc`` plans and packs the 2-D format (the
 alternating planner and ``pack_vbc2d``) of ``A`` and of ``A.T`` with U
@@ -56,7 +58,6 @@ from .formats.device import SemiringDevice, VBC1DDevice, VBC2DDevice
 from .formats.vbc1d import VBC1D, pack_1dvbc
 from .ops import semiring
 from .ops.chain import tr_spmv_chain
-from .ops.gather import gather
 from .ops.scatter import pack_scatter, scatter_admits, tr_spmv_scatter
 from .ops.spmm import tr_spmm
 from .ops.trspmv import _check_vec, tr_spmv
@@ -245,7 +246,8 @@ class VBCOperator(_Directions):
     dev_fw: VBC1DDevice | None
     row_perm: np.ndarray | None = None  # symmetric relabeling (auto-RCM)
     perm_t: torch.Tensor | None = None  # int32 perm on device
-    inv_t: torch.Tensor | None = None  # int32 inverse perm on device
+    inv_t: torch.Tensor | None = None  # int32 inverse perm on device (read by
+    # no call: the composed gather path's, which the checks compare against)
 
     # ---- construction ----------------------------------------------------
 
@@ -397,8 +399,9 @@ class VBCOperator(_Directions):
 
         The operator must be square (``ValueError`` otherwise).
         ``n_iters == 0`` returns a copy of ``x``.  An auto-RCM operator
-        gathers x into permuted space once, runs the whole chain there
-        and gathers y out once.  A non-f32 matrix or x runs the JAX
+        runs the whole chain in permuted space, the chain kernel gathering
+        x through ``perm`` before it and y after it (``tr_spmv_chain``'s
+        ``perm``: one launch, no gather kernel).  A non-f32 matrix or x runs the JAX
         operators' loop instead (``tr_mul``, then alpha rounded to f32,
         each iteration)."""
         self._host("tr")  # raises when that direction was not packed
@@ -413,10 +416,7 @@ class VBCOperator(_Directions):
         _check_vec("x", x, self.m, self.device)
         if n_iters == 0:
             return x.clone()
-        if self.row_perm is None:
-            return tr_spmv_chain(fmt, x, n_iters, alpha)
-        out = tr_spmv_chain(fmt, gather(x, self.perm_t), n_iters, alpha)
-        return gather(out, self.inv_t)
+        return tr_spmv_chain(fmt, x, n_iters, alpha, self.perm_t)
 
     def _semiring_chain(self, x, n_iters: int, alpha):
         """The JAX operators' ``fori_loop`` of ``tr_mul`` and ``* alpha``

@@ -108,11 +108,13 @@ def load():
             lib.vbcs_tr_spmm.restype = i32
             lib.vbcs_gather.argtypes = [i32, vp, vp, vp, vp, vp]
             lib.vbcs_gather.restype = i32
+            lib.vbcs_gather_tiles.argtypes = [i32, vp, vp, vp, vp]
+            lib.vbcs_gather_tiles.restype = i32
             lib.vbcs_tr_spmv_scatter.argtypes = [i32, i32] + [vp] * 9 + [
                 f32, f32, vp, vp]
             lib.vbcs_tr_spmv_scatter.restype = i32
             lib.vbcs_tr_spmv_chain.argtypes = [i32, i32] + [vp] * 8 + [
-                f32, vp, vp, vp, vp, u32, i32, i32, vp]
+                f32, vp, vp, vp, vp, vp, vp, u32, i32, i32, vp]
             lib.vbcs_tr_spmv_chain.restype = i32
             lib.vbcs_chain_grid.argtypes = [ctypes.POINTER(i32)] * 2
             lib.vbcs_chain_grid.restype = i32

@@ -14,6 +14,13 @@ of the plain TrSpMV.
 A chain longer than ``MAX_LAUNCH_ITERS`` iterations (the C launcher's
 ``int``) runs as several launches, each applying ``alpha``, so any
 ``n_iters`` gives the JAX operator's result.
+
+``perm`` runs an auto-RCM operator's chain (a pack of ``A[perm][:,
+perm]``) from a natural x to a natural y in the same launches: the first
+gathers ``x[perm]`` before its first iteration, the last stores column
+``j`` at ``y[perm[j]]`` after its last (each a pass of the grid behind a
+grid barrier), so the chain itself stays in permuted space, where the
+RCM keeps its x windows short.
 """
 
 from __future__ import annotations
@@ -179,34 +186,62 @@ def chain_grid(device, budget: int = -1) -> tuple[int, int]:
     return n.value, b.value
 
 
+def _check_perm(perm, fmt) -> None:
+    if perm is None:
+        return
+    if not isinstance(perm, torch.Tensor) or perm.dtype != torch.int32:
+        raise TypeError("perm must be an int32 tensor")
+    if perm.shape != (fmt.n,) or perm.device != fmt.device or not perm.is_contiguous():
+        raise ValueError(f"perm must be a contiguous [{fmt.n}] tensor on {fmt.device}")
+
+
+def _unpermute(y: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """``out[perm[j]] = y[j]``: a result in permuted space, in natural order."""
+    out = torch.empty_like(y)
+    out[perm.long()] = y
+    return out
+
+
 def tr_spmv_chain_plain(fmt: VBC1DDevice, x: torch.Tensor, n_iters: int,
-                        alpha=None) -> torch.Tensor:
+                        alpha=None, perm=None) -> torch.Tensor:
     """Plain PyTorch chain: ``n_iters`` calls of :func:`tr_spmv_plain`,
-    each scaled by ``alpha``."""
-    for _ in range(_check_chain(fmt, n_iters)):
+    each scaled by ``alpha``; with ``perm``, from ``x[perm]`` and out to
+    ``y[perm] = chain``."""
+    n_iters = _check_chain(fmt, n_iters)
+    _check_perm(perm, fmt)
+    if perm is not None:
+        x = x[perm.long()]
+    for _ in range(n_iters):
         x = tr_spmv_plain(fmt, x, alpha)
-    return x
+    return x if perm is None else _unpermute(x, perm)
 
 
 def tr_spmv_chain(fmt: VBC1DDevice, x: torch.Tensor, n_iters: int,
-                  alpha=None) -> torch.Tensor:
+                  alpha=None, perm=None) -> torch.Tensor:
     """``(alpha * A.T)^n_iters @ x`` in natural order, shape ``[n]``, for a
-    square ``fmt`` and ``n_iters >= 1``.
+    square ``fmt`` and ``n_iters >= 1``; with ``perm`` (int32 ``[n]``, a
+    permutation: unchecked on the card), the chain of an operator of
+    ``A`` whose ``fmt`` packs ``A[perm][:, perm]``:
+    ``y[perm] = (alpha * fmt.T)^n_iters @ x[perm]``.
 
     CUDA tensors run the persistent chain kernel in one cooperative launch
     for every ``MAX_LAUNCH_ITERS`` iterations (:func:`launch_iters`), over
     every block the card holds at the largest shared-memory size (a
     refused launch raises ``RuntimeError``); each launch reads the last
     one's output and writes the other of two hand-over buffers, so the
-    last launch writes the result.  CPU tensors run
+    last launch writes the result; the first launch gathers x through
+    ``perm`` and the last stores through it.  CPU tensors run
     :func:`tr_spmv_chain_plain` over the same split."""
     n_iters = _check_chain(fmt, n_iters)
     dev = fmt.device
     _check_vec("x", x, fmt.m, dev)
+    _check_perm(perm, fmt)
     if dev.type == "cpu":
+        if perm is not None:
+            x = x[perm.long()]  # the first launch's gather pass
         for k in launch_iters(n_iters):
             x = tr_spmv_chain_plain(fmt, x, k, alpha)
-        return x
+        return x if perm is None else _unpermute(x, perm)  # the last's store pass
     if dev.type != "cuda":
         raise NotImplementedError(f"no chain kernel for device {dev}")
     out = torch.empty(fmt.n, dtype=torch.float32, device=dev)
@@ -218,7 +253,7 @@ def tr_spmv_chain(fmt: VBC1DDevice, x: torch.Tensor, n_iters: int,
     blocks, budget = _grids[dev.index]
     plan = chain_plan(fmt, blocks, budget)
     bufs = (torch.empty(2, fmt.n, dtype=torch.float32, device=dev)
-            if n_iters > 1 else None)
+            if n_iters > 1 or perm is not None else None)
     n_launches = -(-n_iters // MAX_LAUNCH_ITERS)
     # launch j writes ends[(n_launches - 1 - j) % 2]: the last one, out
     ends = (out, torch.empty_like(out) if n_launches > 1 else None)
@@ -226,6 +261,8 @@ def tr_spmv_chain(fmt: VBC1DDevice, x: torch.Tensor, n_iters: int,
     src = x
     for j, k in enumerate(launch_iters(n_iters)):
         dst = ends[(n_launches - 1 - j) % 2]
+        x_map = perm if j == 0 else None
+        y_map = perm if j == n_launches - 1 else None
         with torch.cuda.device(dev):
             rc = lib.vbcs_tr_spmv_chain(
                 k, fmt.L, plan.buf.data_ptr(), fmt.spl.data_ptr(), fmt.pos.data_ptr(),
@@ -234,6 +271,8 @@ def tr_spmv_chain(fmt: VBC1DDevice, x: torch.Tensor, n_iters: int,
                 1.0 if alpha is None else float(alpha),
                 None if bufs is None else bufs[0].data_ptr(),
                 None if bufs is None else bufs[1].data_ptr(), dst.data_ptr(),
+                None if x_map is None else x_map.data_ptr(),
+                None if y_map is None else y_map.data_ptr(),
                 count.data_ptr(), 0, blocks, budget,
                 torch.cuda.current_stream(dev).cuda_stream)
         _lib.check(lib, rc, "tr_spmv_chain")

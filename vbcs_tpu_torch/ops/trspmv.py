@@ -8,6 +8,11 @@ plain PyTorch version of the same function.
 
 Alpha/beta follow the JAX kernel: ``alpha=None`` is 1; ``beta * y`` is
 added only when both ``beta`` and ``y`` are given.
+
+``out=`` writes into a given buffer through the format's ``col_out``, an
+injection into ``[0, out.numel())``: two launches on two formats whose
+``col_out`` are disjoint fill one buffer (the overlapped halo path's
+local and remote stripes, ``parallel/stream.py``).
 """
 
 from __future__ import annotations
@@ -43,36 +48,59 @@ def _check_vec(name: str, t: torch.Tensor, size: int, device) -> None:
 
 
 def tr_spmv_plain(fmt, x: torch.Tensor, alpha=None, beta=None,
-                  y=None) -> torch.Tensor:
+                  y=None, out=None) -> torch.Tensor:
     """Plain PyTorch TrSpMV: ``index_add_`` of ``val * x[row]`` into the
     value's column.  ``fmt`` is any device format with ``n``, ``val`` and
-    ``value_coords`` (computed once per format)."""
+    ``value_coords`` (computed once per format); with ``out``, the
+    columns land in it at ``col_out`` and its other entries are kept."""
     row, col = fmt.value_coords
-    out = torch.zeros(fmt.n, dtype=torch.float32, device=x.device)
-    out.index_add_(0, col, fmt.val * x[row])
+    acc = torch.zeros(fmt.n if out is None else out.numel(), dtype=torch.float32,
+                      device=x.device)
+    acc.index_add_(0, col, fmt.val * x[row])
     if alpha is not None:
-        out = out * alpha
+        acc = acc * alpha
     if y is not None and beta is not None:
-        out = out + beta * y
+        acc = acc + beta * y
+    if out is None:
+        return acc
+    place = (torch.arange(fmt.n, device=out.device) if fmt.col_out is None
+             else fmt.col_out.long())
+    out[place] = acc[place]
     return out
 
 
-def _run_tr_spmv(kernel, plain, fmt, x, alpha, beta, y, launch) -> torch.Tensor:
+def _check_out(fmt, out) -> None:
+    """``out`` must hold every output column: ``n`` entries in natural
+    order, at least ``n`` under ``col_out`` (an injection into them)."""
+    _check_tensor("out", out, (None,), fmt.device)
+    if out.numel() < fmt.n or (fmt.col_out is None and out.numel() != fmt.n):
+        raise ValueError(f"out has {out.numel()} entries for {fmt.n} columns "
+                         f"({'placed by col_out' if fmt.col_out is not None else 'in order'})")
+
+
+def _run_tr_spmv(kernel, plain, fmt, x, alpha, beta, y, launch,
+                 out=None) -> torch.Tensor:
     """The body every TrSpMV wrapper shares.  Checks ``x`` (and ``y`` when
-    ``beta`` is given), runs ``plain`` on a CPU tensor, and on a CUDA
-    tensor allocates the output and calls ``launch(lib, y_in, alpha,
-    beta, out, stream)`` (device pointers and the stream as ints), raises
-    if the launch failed, and counts it in ``kernel.launches``."""
+    ``beta`` is given; shaped like the output), runs ``plain`` on a CPU
+    tensor, and on a CUDA tensor allocates the output (unless ``out`` is
+    given: only :func:`tr_spmv` takes one) and calls ``launch(lib, y_in,
+    alpha, beta, out, stream)`` (device pointers and the stream as ints),
+    raises if the launch failed, and counts it in ``kernel.launches``."""
     dev = fmt.device
     _check_vec("x", x, fmt.m, dev)
+    if out is not None:
+        _check_out(fmt, out)
     with_y = y is not None and beta is not None
     if with_y:
-        _check_vec("y", y, fmt.n, dev)
+        _check_vec("y", y, fmt.n if out is None else out.numel(), dev)
     if dev.type == "cpu":
-        return plain(fmt, x, alpha, beta, y)
+        if out is None:
+            return plain(fmt, x, alpha, beta, y)
+        return plain(fmt, x, alpha, beta, y, out)
     if dev.type != "cuda":
         raise NotImplementedError(f"no {kernel.__name__} kernel for device {dev}")
-    out = torch.empty(fmt.n, dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty(fmt.n, dtype=torch.float32, device=dev)
     if fmt.n == 0:
         return out
     lib = _lib.load()
@@ -87,9 +115,13 @@ def _run_tr_spmv(kernel, plain, fmt, x, alpha, beta, y, launch) -> torch.Tensor:
 
 
 def tr_spmv(fmt: VBC1DDevice, x: torch.Tensor, alpha=None, beta=None,
-            y=None) -> torch.Tensor:
+            y=None, out=None) -> torch.Tensor:
     """``alpha * A.T @ x (+ beta * y)`` in natural order, shape ``[n]``
     (on a natural view, output column ``j`` lands at ``col_out[j]``).
+    With ``out`` (f32, ``[k]``), column ``j`` lands at ``out[col_out[j]]``
+    (``col_out`` an injection into ``[0, k)``, unchecked on the card;
+    ``k = n`` without one) and ``out`` is returned; ``y``, where given,
+    is shaped like it.
 
     CUDA tensors run the stripe kernel (or raise); CPU tensors run
     :func:`tr_spmv_plain`."""
@@ -99,7 +131,7 @@ def tr_spmv(fmt: VBC1DDevice, x: torch.Tensor, alpha=None, beta=None,
             fmt.n, fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(),
             fmt.ofs.data_ptr(), fmt.col_stripe.data_ptr(),
             None if fmt.col_out is None else fmt.col_out.data_ptr(),
-            fmt.val.data_ptr(), x.data_ptr(), *rest))
+            fmt.val.data_ptr(), x.data_ptr(), *rest), out)
 
 
 tr_spmv.launches = 0

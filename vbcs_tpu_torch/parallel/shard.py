@@ -19,10 +19,13 @@ the tiles its stored rows fall in (for a 2-D pack every row of each
 tile, ``tile_row .. tile_row + u - 1``).  Every (source, dest) pair
 sends the tiles dest needs from source, padded to the worst pair
 ``hmax``, so one ``all_to_all_single`` of equal splits moves the halo.
-The rank's *pool* holds the tiles it needs in global tile order, and its
-shard's rows are rewritten into pool coordinates (:meth:`HaloPlan.to_pool`):
-a 2-D tile whose rows straddle two x tiles finds both next to each other
-in the pool, wherever they came from.
+The rank's *pool* holds the tiles it needs in global tile order, and a
+2-D shard's rows are rewritten into pool coordinates
+(:meth:`HaloPlan.to_pool`): a tile whose rows straddle two x tiles finds
+both next to each other in the pool, wherever they came from.  A 1-D
+shard's block rows are rewritten into the stage's coordinates
+(:meth:`HaloPlan.to_stage`), so its kernel reads the stage as the
+exchange left it.
 """
 
 from __future__ import annotations
@@ -167,7 +170,9 @@ class HaloPlan:
     of each row of ``hmax`` is padding (tile 0), and ``counts[d, d]`` is 0.
     After the exchange rank ``d`` holds a *stage*, its own tiles then
     ``ndev * hmax`` received ones by source; its pool is the tiles in
-    ``needed[d]`` in global order, ``stage[pool_src(d)]``."""
+    ``needed[d]`` in global order, ``stage[pool_src(d)]``.  A 1-D shard
+    reads the stage itself (:meth:`to_stage`), a 2-D one the pool
+    (:meth:`to_pool`)."""
 
     m: int
     ndev: int
@@ -186,6 +191,11 @@ class HaloPlan:
         less than ``tiles_per_dev * TILE`` at the end of x, or 0)."""
         lo = min(self.m, rank * self.tiles_per_dev * TILE)
         return lo, min(self.m, lo + self.tiles_per_dev * TILE)
+
+    @property
+    def stage_rows(self) -> int:
+        """Rows of a rank's stage: its own tiles, then ``ndev * hmax``."""
+        return (self.tiles_per_dev + self.ndev * self.hmax) * TILE
 
     def pool_src(self, rank: int) -> np.ndarray:
         """Where each pool tile of rank ``rank`` sits in its stage."""
@@ -209,6 +219,12 @@ class HaloPlan:
                           or not np.array_equal(pool[p], t)):
             raise ValueError("a row outside the rank's pool")
         return p * TILE + rows % TILE
+
+    def to_stage(self, rank: int, rows: np.ndarray) -> np.ndarray:
+        """Rows of x (each in a tile rank ``rank`` needs) at their place in
+        its stage (``pool_src``); raises as :meth:`to_pool`."""
+        p = self.to_pool(rank, rows)
+        return self.pool_src(rank)[p // TILE] * TILE + p % TILE
 
 
 def plan_halo(B, ndev: int, ranges=None) -> HaloPlan:

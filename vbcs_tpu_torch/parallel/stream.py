@@ -22,26 +22,29 @@ one padded all-gather and a cut put them in column order.
 ``x`` arrives sharded: each rank passes its own ``tiles_per_dev`` aligned
 tiles (:func:`own_x`).  The replicated path all-gathers them; the halo
 paths move only the tiles each rank reads, with one ``all_to_all_single``
-(``shard.HaloPlan``), into a pool in global tile order on which the
-kernel runs with its block rows (tile rows) rewritten into pool
-coordinates.  The tile kernel reads ``u`` consecutive x rows from a
-tile's first row, so a tile whose rows straddle two x tiles owned by two
-ranks reads them next to each other in the pool.  The stripe kernel
-reads x by block row, so a shard whose rows span everything needs no v1
-fallback class: its halo is every tile, which is replication; and the
-tile kernel takes tiles of any height, so a mixed-height pack shards as
-any other (the JAX 2-D version raises ``NotImplementedError`` there).
-
-The three permutations of the halo paths (the tiles a rank sends, its
-pool, and on the overlapped path ``y`` out of each rank's overlap order)
-run the gather kernel (``ops/gather.py``, the port of the windowed
-gather that puts ``y`` in order on the JAX paths), each through an int32
-element map built once per shard.
+(``shard.HaloPlan``), into the rank's *stage* (its own tiles, then the
+received ones by source).  The tiles a rank sends are one tile copy
+(``ops/gather.gather_tiles``) of its own tiles on the plan's send list.
+The stripe kernel reads x by block row, so a 1-D shard's block rows are
+rewritten into stage coordinates on the host (``HaloPlan.to_stage``) and
+the kernel reads the stage as it lies.  The tile kernel reads ``u``
+consecutive x rows from a tile's first row, and a tile whose rows
+straddle two x tiles finds them apart in the stage, so the 2-D path
+copies the stage's tiles into a pool in global tile order (a second tile
+copy) and runs on tile rows in pool coordinates.  The stripe kernel
+needs no v1 fallback class: a shard whose rows span everything has every
+tile for its halo, which is replication; and the tile kernel takes tiles
+of any height, so a mixed-height pack shards as any other (the JAX 2-D
+version raises ``NotImplementedError`` there).
 
 The overlapped path orders the rank's stripes with the local ones first
 (rows only in its own tiles, ``shard.plan_overlap``), launches them on
 its own tiles while the exchange is in flight, then the rest on the
-pool.
+stage.  Each of its two formats carries a ``col_out`` that puts its
+columns at their natural place in the rank's slice, so both launches
+write one buffer (``tr_spmv``'s ``out``) in column order and ``y`` is
+assembled as on the halo path, with no gather (the JAX path's
+``windowed_gather`` exit permute).
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ import numpy as np
 import torch
 
 from ..formats.device import VBC1DDevice, VBC2DDevice
-from ..ops.gather import gather
+from ..ops.gather import gather_tiles
 from ..ops.trspmv import tr_spmv
 from ..ops.trspmv2d import tr_spmv_2d
 from . import comm
@@ -63,12 +66,6 @@ from .shard import (TILE, HaloPlan, even_ranges, permute_stripes,
 
 __all__ = ["StreamShard", "shard_stream", "own_x", "dist_tr_spmv_replicated",
            "dist_tr_spmv_halo", "dist_tr_spmv_halo_overlap"]
-
-
-def _tile_elements(tiles) -> np.ndarray:
-    """The element ids of whole 1,024-row tiles ``tiles``, tile by tile."""
-    tiles = np.asarray(tiles, dtype=np.int64)
-    return (tiles[:, None] * TILE + np.arange(TILE)[None, :]).reshape(-1)
 
 
 @dataclasses.dataclass(eq=False)
@@ -121,11 +118,6 @@ class StreamShard:
         return [int(w) for w in np.diff(self.col_starts)]
 
     @property
-    def width(self) -> int:
-        """The widest slice: each rank's y is padded to it for the gather."""
-        return max(1, *self.widths)
-
-    @property
     def kernel(self):
         return tr_spmv_2d if self.is_2d else tr_spmv
 
@@ -134,7 +126,7 @@ class StreamShard:
         return cls.from_host(host, self.device)
 
     def _map(self, a) -> torch.Tensor:
-        """An int32 map for the gather kernel, on the device."""
+        """An int32 map (tiles or columns) on the device."""
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(self.device)
 
     @functools.cached_property
@@ -143,22 +135,24 @@ class StreamShard:
         return self._device_format(self.host)
 
     @functools.cached_property
-    def send_map(self) -> torch.Tensor:
-        """Elements of the rank's own x tiles it sends: ``hmax`` tiles for
-        each destination in turn."""
-        return self._map(_tile_elements(self.halo.send[self.rank].reshape(-1)))
+    def send_tiles(self) -> torch.Tensor:
+        """The rank's own x tiles it sends, its own tile ids: ``hmax`` for
+        each destination in turn (padding: tile 0); the tile copy's map."""
+        return self._map(self.halo.send[self.rank].reshape(-1))
 
     @functools.cached_property
-    def pool_map(self) -> torch.Tensor:
-        """Where each element of the rank's pool sits in its stage (own
-        tiles, then the received ones: ``_exchange``)."""
-        return self._map(_tile_elements(self.halo.pool_src(self.rank)))
+    def pool_tiles(self) -> torch.Tensor:
+        """Where each tile of the rank's pool sits in its stage (own tiles,
+        then the received ones: ``_exchange``); the 2-D path's tile copy's
+        map."""
+        return self._map(self.halo.pool_src(self.rank))
 
     @functools.cached_property
-    def pool_fmt(self):
-        """The slice on the device, rows in pool coordinates (the halo path)."""
+    def halo_fmt(self):
+        """The slice on the device as the halo path's kernel reads it: 1-D
+        block rows in stage coordinates, 2-D tile rows in pool coordinates."""
         if not self.is_2d:
-            return self._device_format(self._pooled(self.host))
+            return self._device_format(self._staged(self.host))
         rspl = np.asarray(self.pack.Pi.spl, dtype=np.int64)
         k = np.asarray(self.host.idx, dtype=np.int64)
         row, tall = rspl[k], rspl[k + 1] > rspl[k]
@@ -172,9 +166,10 @@ class StreamShard:
     def pool_rows(self) -> int:
         return int(self.halo.needed[self.rank].size) * TILE
 
-    def _pooled(self, host):
-        return dataclasses.replace(host, m=self.pool_rows,
-                                   idx=self.halo.to_pool(self.rank, host.idx))
+    def _staged(self, host):
+        """A 1-D ``host`` with its block rows at their place in the stage."""
+        return dataclasses.replace(host, m=self.halo.stage_rows,
+                                   idx=self.halo.to_stage(self.rank, host.idx))
 
     @functools.cached_property
     def overlap(self) -> tuple[np.ndarray, int]:
@@ -184,28 +179,22 @@ class StreamShard:
     @functools.cached_property
     def overlap_fmts(self):
         """(local stripes, rows in own-tile coordinates; the rest, rows in
-        pool coordinates) on the device."""
+        stage coordinates) on the device, each with a ``col_out`` that puts
+        its columns at their place in the rank's slice."""
         order, k = self.overlap
         lo, _ = self.halo.own_rows(self.rank)
         local = permute_stripes(self.host, order[:k])
         local = dataclasses.replace(
             local, m=self.halo.tiles_per_dev * TILE,
             idx=np.asarray(local.idx, dtype=np.int64) - lo)
-        rest = self._pooled(permute_stripes(self.host, order[k:]))
-        return self._device_format(local), self._device_format(rest)
-
-    @functools.cached_property
-    def y_map_overlap(self) -> torch.Tensor:
-        """Element of the gathered ``[ndev * width]`` stack holding
-        each output column, the slices holding their columns in each
-        rank's overlap order."""
-        width = self.width
-        out = np.empty(self.n, dtype=np.int64)
-        for d, (s0, _) in enumerate(self.ranges):
-            order, _ = plan_overlap(self.pack, self.halo, d, self.ranges)
-            cols = stripe_columns(self.pack, order + s0)
-            out[cols] = d * width + np.arange(cols.size)
-        return self._map(out)
+        rest = self._staged(permute_stripes(self.host, order[k:]))
+        places = [stripe_columns(self.host, order[:k]),
+                  stripe_columns(self.host, order[k:])]
+        if not np.array_equal(np.sort(np.concatenate(places)),
+                              np.arange(self.host.n)):
+            raise ValueError("the overlap order does not place every column once")
+        return tuple(dataclasses.replace(self._device_format(h), col_out=self._map(c))
+                     for h, c in zip((local, rest), places))
 
 
 def shard_stream(B, *, device, group=None, balance: str = "stored") -> StreamShard:
@@ -238,13 +227,13 @@ def own_x(sh: StreamShard, x: torch.Tensor) -> torch.Tensor:
 
 def _exchange(sh: StreamShard, x_own, async_op=False):
     """Start the halo exchange into the rank's stage (its own tiles, then
-    ``ndev * hmax`` received ones by source): ``(stage, work handle or
-    None)``."""
+    ``ndev * hmax`` received ones by source), the tiles sent one tile
+    copy: ``(stage, work handle or None)``."""
     own = x_own.numel()
-    stage = x_own.new_empty(own + sh.send_map.numel())
+    stage = x_own.new_empty(sh.halo.stage_rows)
     stage[:own] = x_own
-    work = comm.all_to_all(stage[own:], gather(x_own, sh.send_map), sh.group,
-                           async_op=async_op)
+    work = comm.all_to_all(stage[own:], gather_tiles(x_own, sh.send_tiles),
+                           sh.group, async_op=async_op)
     return stage, work
 
 
@@ -257,22 +246,29 @@ def dist_tr_spmv_replicated(sh: StreamShard, x_own: torch.Tensor,
     return comm.gather_y(sh.kernel(sh.fmt, x, alpha), sh.widths, sh.group)
 
 
+def _halo_x(sh: StreamShard, stage: torch.Tensor) -> torch.Tensor:
+    """The x the halo path's kernel reads: the stage (1-D), or its tiles
+    copied into the pool (2-D)."""
+    return gather_tiles(stage, sh.pool_tiles) if sh.is_2d else stage
+
+
 def dist_tr_spmv_halo(sh: StreamShard, x_own: torch.Tensor) -> torch.Tensor:
     """``y = A.T @ x`` with one ``all_to_all_single`` of the halo tiles, the
-    stripe or tile kernel on the rank's pool."""
+    stripe kernel on the rank's stage or the tile kernel on its pool."""
     stage, _ = _exchange(sh, x_own)
-    y = sh.kernel(sh.pool_fmt, gather(stage, sh.pool_map))
+    y = sh.kernel(sh.halo_fmt, _halo_x(sh, stage))
     return comm.gather_y(y, sh.widths, sh.group)
 
 
 def dist_tr_spmv_halo_overlap(sh: StreamShard, x_own: torch.Tensor) -> torch.Tensor:
     """:func:`dist_tr_spmv_halo` with the exchange in flight while the
     stripe kernel runs the rank's local stripes on its own tiles; the rest
-    run on the pool once it has arrived (1-D packs)."""
+    run on the stage once it has arrived, into the same buffer (1-D
+    packs)."""
     local, rest = sh.overlap_fmts
     stage, work = _exchange(sh, x_own, async_op=True)
-    y_local = tr_spmv(local, x_own)
+    y = x_own.new_empty(sh.host.n)
+    tr_spmv(local, x_own, out=y)
     work.wait()
-    y_rest = tr_spmv(rest, gather(stage, sh.pool_map))
-    stack = comm.gather_stack(torch.cat([y_local, y_rest]), sh.width, sh.group)
-    return gather(stack, sh.y_map_overlap)
+    tr_spmv(rest, stage, out=y)
+    return comm.gather_y(y, sh.widths, sh.group)
