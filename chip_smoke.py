@@ -47,7 +47,12 @@ Phases (one line each; any failure raises and exits non-zero):
    port), each kernel's bound (the larger of its bytes over 3.35 TB/s and
    its f32 operations over 67 TFLOP/s, computed from this run's inputs:
    the matrix's nonzeros, their index arrays, the vectors; a pack's stored
-   fill is not counted),
+   fill is not counted), the stripe kernel on the flagship warm and
+   L2-flushed and on ``blocky_matrix(**BLOCKY_ABOVE_L2)`` (16x its
+   stripes, ~250 MB a call, built through ``VBCOperator.from_csc``, held
+   against the f64 product, its plain version and the library first;
+   back-to-back and flushed: the ``x16_*`` fields of its ``kernels``
+   entry),
    the tile kernel also beside the stripe kernel on the same matrix's 1-D
    view and beside itself on a one-tile pack (its launch floor), the
    chain beside ``CHAIN_ITERS`` stripe-kernel launches and as many
@@ -243,8 +248,9 @@ from vbcs_tpu_torch.plan.dynamic import dp_partition
 from vbcs_tpu_torch.tools import method_table, weak_scaling
 from vbcs_tpu_torch.utils.timing import flushed_ms, host_ms, paired_ms
 
-from vbcs_tpu_torch.tools.matrices import (blocky2d_matrix, blocky_matrix,
-                                           fem_matrix, scattered_matrix)
+from vbcs_tpu_torch.tools.matrices import (BLOCKY_ABOVE_L2, blocky2d_matrix,
+                                           blocky_matrix, fem_matrix,
+                                           scattered_matrix)
 
 # |kernel - reference| / max|reference|: f32 sums in another order than
 # the plain version (atomics) and the f64 oracle
@@ -1402,6 +1408,7 @@ def phase_timing(dev, flag, fem, spmm):
     out = {"tr_spmv": entry(warm, work)}
     cold_ms = flushed_ms(lambda: vt.tr_spmv(fmt, xt, 0.5, 0.25, yt), dev)
     cold_plain = flushed_ms(lambda: vt.tr_spmv_plain(fmt, xt, 0.5, 0.25, yt), dev)
+    out["tr_spmv"]["flushed_ms"] = cold_ms
     nbytes = work[0]
     k_ms = warm[0]
     print(f"[8 timing tr_spmv, flagship] kernel {k_ms * 1e3:.2f} us/call "
@@ -1463,6 +1470,68 @@ def phase_timing(dev, flag, fem, spmm):
           f"/ host wall per call: {e2e_mat * 1e3:.2f} / {wall_mat * 1e3:.2f} us",
           flush=True)
     return out
+
+
+def phase_timing_above_l2(dev, errs):
+    """The stripe kernel on ``blocky_matrix(**BLOCKY_ABOVE_L2)``: 16x the
+    flagship's stripes, a call of ~250 MB that no L2 holds, built through
+    the operator's entry point.  Held against the f64 product, its plain
+    version and the library call first, then timed back-to-back (kernel,
+    plain, library) and L2-flushed.  Returns the ``x16_*`` fields of the
+    kernels line's ``tr_spmv`` entry."""
+    t0 = time.perf_counter()
+    A = blocky_matrix(**BLOCKY_ABOVE_L2)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = vt.VBCOperator.from_csc(A, W=8, directions="transposed", device=dev)
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t0
+    name, fmt, _ = op.route_tr
+    check(name == "stripe" and op.row_perm is None,
+          f"the large blocky matrix took the {name} route "
+          f"(relabeled: {op.row_perm is not None})")
+    rng = np.random.default_rng(15)
+    x = rng.standard_normal(op.m).astype(np.float32)
+    y = rng.standard_normal(op.n).astype(np.float32)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    AT = csr_of_transpose(A, dev)
+    calls = [lambda: vt.tr_spmv(fmt, xt, 0.5, 0.25, yt),
+             lambda: vt.tr_spmv_plain(fmt, xt, 0.5, 0.25, yt),
+             lambda: torch.addmv(yt, AT, xt, beta=0.25, alpha=0.5)]
+    got, ref = calls[0](), calls[1]()
+    twice = calls[0]()
+    torch.cuda.synchronize()
+    want = 0.5 * (A.T @ x.astype(np.float64)) + 0.25 * y.astype(np.float64)
+    got_np = got.cpu().numpy()
+    e_p, e_o = rel_err(got_np, ref.cpu().numpy()), rel_err(got_np, want)
+    check(got_np.shape == (op.n,) and np.isfinite(got_np).all()
+          and e_p <= TOL and e_o <= TOL and torch.equal(got, twice),
+          f"the large blocky matrix: kernel off by {e_p:.2e} (plain), "
+          f"{e_o:.2e} (f64), or two launches differ")
+    errs["tr_spmv"] = max(errs["tr_spmv"], float((got - ref).abs().max()))
+    same_function("large blocky SpMV", calls[2], calls[0])
+    warm = paired_ms(calls, dev)
+    cold = [flushed_ms(c, dev) for c in calls]
+    nnz = nonzeros(A)
+    work = tr_spmv_work(fmt, nnz, True)
+    rec, nbytes = entry(warm, work), work[0]
+    cols = "four columns" if fmt.quad_widths else "a column"
+    print(f"[8 timing tr_spmv, blocky_matrix({BLOCKY_ABOVE_L2}): {op.m}x{op.n}, "
+          f"nnz {nnz}, {fmt.L} stripes, {fmt.idx.numel()} blocks; generated in "
+          f"{t_gen:.2f} s, from_csc (transposed, to device) {t_op:.2f} s] "
+          f"kernel ({cols} a thread) {warm[0] * 1e3:.2f} us/call back-to-back, "
+          f"{cold[0] * 1e3:.2f} us flushed ({nbytes / 1e6:.1f} MB per call: "
+          f"{nbytes / (warm[0] * 1e6):.1f} GB/s back-to-back, "
+          f"{nbytes / (cold[0] * 1e6):.1f} flushed; bound "
+          f"{rec['bound_ms'] * 1e3:.2f} us, {rec['bound_ms'] / warm[0]:.3f} of it "
+          f"back-to-back, {rec['bound_ms'] / cold[0]:.3f} flushed); plain "
+          f"{warm[1] * 1e3:.2f} / {cold[1] * 1e3:.2f} us; library (torch.addmv, "
+          f"CSR) {warm[2] * 1e3:.2f} / {cold[2] * 1e3:.2f} us; |Δ|/max "
+          f"{e_p:.3e} (plain), {e_o:.3e} (f64); two launches bitwise equal",
+          flush=True)
+    return {"x16_ms": warm[0], "x16_flushed_ms": cold[0],
+            "x16_bound_ms": rec["bound_ms"], "x16_plain_ms": warm[1],
+            "x16_library_ms": warm[2], "x16_library_flushed_ms": cold[2]}
 
 
 def phase_timing_relabeled(dev, fem, scat, spmm):
@@ -3063,6 +3132,7 @@ def main():
                    if route[0] == "scatter"}
     phase_path_shapes_slice4(chains, scat_routes, rel, errs)
     ms = phase_timing(dev, flag, fem, spmm)
+    ms["tr_spmv"].update(phase_timing_above_l2(dev, errs))
     ms_2d, pairs_2d = phase_timing_2d(dev, parts)
     ms.update(ms_2d)
     ms.update(phase_timing_slice4(dev, chains, scat, rel, pairs_2d))

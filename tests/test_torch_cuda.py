@@ -13,6 +13,7 @@ and the relayout move values without arithmetic and must be bitwise
 equal.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -114,6 +115,175 @@ def test_tr_spmv_basis_vectors_exact(cuda_device):
     D = torch.from_numpy(B.to_dense().astype(np.float32))
     for i in list(range(0, 256, 37)) + [255]:
         e = torch.zeros(256, device=cuda_device)
+        e[i] = 1.0
+        assert torch.equal(vt.tr_spmv(fmt, e).cpu(), D[i, :])
+
+
+def zero_width_pack(splits=(0, 3, 3, 8, 13)):
+    """A 1-D pack of 40 rows under ``splits``, a zero-width stripe among
+    them, the columns from 8 on with no block (the default: stripes [0,
+    3), [3, 3), [3, 8), [8, 13); (0, 8, 8, 12, 20): widths that are
+    multiples of 4, four columns a thread)."""
+    D = np.zeros((40, splits[-1]), np.float32)
+    D[::3, 0:8] = np.random.default_rng(6).standard_normal((14, 8))
+    Phi = vt.SplitPartition(np.array(splits))
+    return vt.pack_1dvbc(vt.CSC.from_scipy(sp.csc_matrix(D)), Phi, 8)
+
+
+def empty_stripes_matrix():
+    """Uniform width 8, the stripes of columns 16-47 and 88-95 with no
+    block."""
+    A = banded(300, 128, 12, 60, 21).tolil()
+    A[:, 16:48] = 0
+    A[:, 88:96] = 0
+    A = A.tocsc()
+    A.eliminate_zeros()
+    return A
+
+
+# the stripe kernel's lane layouts: (block slot, column) for widths up to
+# 16, 32-column chunks above; empty, zero-width and long stripes, both
+# rectangles; pack -> a host VBC1D
+STRIPE_CASES = {
+    **{f"width_{w}": (lambda w=w: vt.vbc1d(banded(256, 8 * w, 40, 100, w), w,
+                                          vt.EquiChunker(w)))
+       for w in (1, 2, 3, 5, 7, 8, 16, 40)},
+    "empty_stripes": lambda: vt.vbc1d(empty_stripes_matrix(), 8, vt.EquiChunker(8)),
+    "zero_width_stripe": zero_width_pack,
+    "zero_width_stripe_in_quads": lambda: zero_width_pack((0, 8, 8, 12, 20)),
+    "stripe_of_1600_blocks": lambda: vt.vbc1d(long_stripes(), 8, vt.EquiChunker(8)),
+    "tall_900x600": lambda: vt.vbc1d(banded(900, 600, 5, 60, 22), 8),
+    "wide_90x700": lambda: vt.vbc1d(banded(90, 700, 4, 20, 23), 8),
+}
+
+
+@pytest.mark.parametrize("with_y", [False, True])
+@pytest.mark.parametrize("case", sorted(STRIPE_CASES))
+def test_tr_spmv_stripe_layouts(case, with_y, cuda_device):
+    """Each layout against the plain version; two launches bitwise."""
+    B = STRIPE_CASES[case]()
+    fmt = vt.VBC1DDevice.from_host(B, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(B.m, device=cuda_device, generator=g)
+    y = torch.randn(B.n, device=cuda_device, generator=g)
+    args = (0.5, 0.25, y) if with_y else (None, None, None)
+    got, again = vt.tr_spmv(fmt, x, *args), vt.tr_spmv(fmt, x, *args)
+    want = vt.tr_spmv_plain(fmt, x, *args)
+    torch.cuda.synchronize()
+    assert got.shape == (B.n,) and torch.isfinite(got).all()
+    assert rel_err(got, want) <= TOL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("chunker", ["default", "equi8"])
+def test_tr_spmv_natural_view_and_out_injection(chunker, cuda_device):
+    """``col_out`` as a natural view's permutation, and as an injection of
+    two formats' columns into one longer ``out=`` buffer (the overlapped
+    halo path's shape): y_in read and y written at the places, the other
+    entries kept; on mixed widths (a thread a column) and on widths of 8
+    (four columns a thread)."""
+    from vbcs_tpu_torch.parallel.shard import permute_stripes, stripe_columns
+
+    rng = np.random.default_rng(8)
+    A = banded(704, 704, 6, 40, 24)
+    B = vt.vbc1d(A, 8, vt.EquiChunker(8) if chunker == "equi8" else None)
+    assert vt.VBC1DDevice.from_host(B, "cpu").quad_widths is (chunker == "equi8")
+    dev = cuda_device
+    perm = torch.from_numpy(rng.permutation(704).astype(np.int32)).to(dev)
+    view = vt.VBC1DDevice.from_host(B, dev).natural_view(perm)
+    x = torch.from_numpy(rng.standard_normal(704).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.standard_normal(704).astype(np.float32)).to(dev)
+    assert rel_err(vt.tr_spmv(view, x, 0.5, 0.25, y),
+                   vt.tr_spmv_plain(view, x, 0.5, 0.25, y)) <= TOL
+    # stripes split in two formats, each placed at 1 + 2 * column of a
+    # buffer of 2 * n + 1 entries
+    order = rng.permutation(B.L)
+    k = B.L // 3
+    buf = torch.full((2 * B.n + 1,), 7.0, device=dev)
+    yb = torch.from_numpy(rng.standard_normal(2 * B.n + 1).astype(np.float32)).to(dev)
+    for part in (order[:k], order[k:]):
+        fmt = vt.VBC1DDevice.from_host(permute_stripes(B, part), dev)
+        place = 1 + 2 * stripe_columns(B, part)
+        fmt = dataclasses.replace(fmt, col_out=torch.from_numpy(
+            place.astype(np.int32)).to(dev))
+        assert vt.tr_spmv(fmt, x, 0.5, 0.25, yb, out=buf) is buf
+    want = 0.5 * (A.T.astype(np.float64) @ x.double().cpu().numpy())
+    want += 0.25 * yb.double().cpu().numpy()[1::2]
+    got = buf.cpu()
+    assert rel_err(got[1::2], torch.from_numpy(want)) <= TOL
+    assert torch.equal(got[0::2], torch.full((B.n + 1,), 7.0))
+
+
+def test_tr_spmv_cut_at_stripe_boundaries_is_bitwise(cuda_device):
+    """A column's sum order is its stripe's own: each rank's slice of a
+    pack (the distributed paths' shards), the same slice with its stripes
+    reordered, and the whole pack read from a stage (block rows remapped,
+    the halo paths' shape) give the whole format's bits."""
+    from vbcs_tpu_torch.parallel.shard import permute_stripes, shard_1d, split_ranges
+
+    rng = np.random.default_rng(9)
+    A = blocky_matrix(L=1000)
+    B = vt.vbc1d(A, 8)
+    dev = cuda_device
+    x = torch.from_numpy(rng.standard_normal(B.m).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.standard_normal(B.n).astype(np.float32)).to(dev)
+    whole = vt.tr_spmv(vt.VBC1DDevice.from_host(B, dev), x, 0.5, 0.25, y)
+    ranges = split_ranges(np.diff(np.asarray(B.ofs, dtype=np.int64)), 5)
+    spl = np.asarray(B.Phi.spl)
+    for rank, (s0, s1) in enumerate(ranges):
+        cut = vt.VBC1DDevice.from_host(shard_1d(B, 5, rank, ranges), dev)
+        c0, c1 = int(spl[s0]), int(spl[s1])
+        assert torch.equal(vt.tr_spmv(cut, x, 0.5, 0.25, y[c0:c1]), whole[c0:c1])
+    order = rng.permutation(B.L)
+    moved = vt.VBC1DDevice.from_host(permute_stripes(B, order), dev)
+    cols = torch.from_numpy(np.concatenate(
+        [np.arange(spl[s], spl[s + 1]) for s in order])).to(dev)
+    assert torch.equal(vt.tr_spmv(moved, x, 0.5, 0.25, y[cols]), whole[cols])
+    stage_of = rng.permutation(B.m)  # row r lies at stage_of[r]
+    stage = torch.empty_like(x)
+    stage[torch.from_numpy(stage_of).to(dev)] = x
+    staged = dataclasses.replace(B, idx=stage_of[np.asarray(B.idx)])
+    got = vt.tr_spmv(vt.VBC1DDevice.from_host(staged, dev), stage, 0.5, 0.25, y)
+    assert torch.equal(got, whole)
+
+
+def test_tr_spmv_maps_agree_bitwise(cuda_device):
+    """Four columns a thread (widths of 8) and a thread a column (the same
+    format with ``quad_widths`` off, or its values 4 bytes off a 16-byte
+    boundary) add each column's blocks in one order: the same bits; and y
+    in and out 4 bytes off a 16-byte boundary (no float4 of y) too."""
+    B = vt.vbc1d(blocky_matrix(L=2048), 8)
+    dev = cuda_device
+    fmt = vt.VBC1DDevice.from_host(B, dev)
+    assert fmt.quad_widths
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal(B.m).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.standard_normal(B.n).astype(np.float32)).to(dev)
+    want = vt.tr_spmv(fmt, x, 0.5, 0.25, y)
+    assert rel_err(want, vt.tr_spmv_plain(fmt, x, 0.5, 0.25, y)) <= TOL
+    columns = dataclasses.replace(fmt, quad_widths=False)
+    assert torch.equal(vt.tr_spmv(columns, x, 0.5, 0.25, y), want)
+    shifted = torch.empty(fmt.val.numel() + 1, device=dev)
+    shifted[1:] = fmt.val
+    assert shifted[1:].data_ptr() % 16 == 4
+    off = dataclasses.replace(fmt, val=shifted[1:])
+    assert torch.equal(vt.tr_spmv(off, x, 0.5, 0.25, y), want)
+    y_off = torch.empty(B.n + 1, device=dev)
+    y_off[1:] = y
+    out = torch.full((B.n + 1,), 3.0, device=dev)
+    assert vt.tr_spmv(fmt, x, 0.5, 0.25, y_off[1:], out=out[1:]).data_ptr() % 16 == 4
+    assert torch.equal(out[1:], want) and out[0].item() == 3.0
+
+
+@pytest.mark.parametrize("W", [3, 40])
+def test_tr_spmv_basis_vectors_exact_other_layouts(W, cuda_device):
+    """Exact on basis vectors where a column's blocks spread over slots
+    (w = 3: 8 slots a step) and over 32-column chunks (w = 40)."""
+    B = vt.vbc1d(banded(200, 8 * W, 4, 20, W), W, vt.EquiChunker(W))
+    fmt = vt.VBC1DDevice.from_host(B, cuda_device)
+    D = torch.from_numpy(B.to_dense().astype(np.float32))
+    for i in list(range(0, 200, 23)) + [199]:
+        e = torch.zeros(200, device=cuda_device)
         e[i] = 1.0
         assert torch.equal(vt.tr_spmv(fmt, e).cpu(), D[i, :])
 

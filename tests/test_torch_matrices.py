@@ -23,6 +23,9 @@ BANNED = {"jax", "jaxlib", "vbcs_tpu", "bench", "bench_tools"}
 
 @pytest.mark.parametrize("name,kw", [
     ("blocky_matrix", {}),
+    # the above-L2 case's generator (BLOCKY_ABOVE_L2) at scaled L
+    ("blocky_matrix", dict(L=640)),
+    ("blocky_matrix", dict(L=6400, seed=3)),
     ("blocky2d_matrix", {}),
     ("blocky2d_matrix", dict(K=300, u=3, w=5, d=4, band=30, seed=4)),
     ("fem_matrix", dict(k=320)),
@@ -72,7 +75,8 @@ def test_no_port_source_imports_the_jax_side():
 
 def test_chip_smoke_and_the_new_tools_load_nothing_of_the_jax_side():
     code = ("import sys; import chip_smoke; "
-            "import vbcs_tpu_torch.probes.probe_pack, vbcs_tpu_torch.tools.weak_scaling; "
+            "import vbcs_tpu_torch.probes.probe_pack, vbcs_tpu_torch.tools.weak_scaling, "
+            "vbcs_tpu_torch.tools.stripe_ab; "
             f"bad = {sorted(BANNED)!r}; "
             "hit = [m for m in sys.modules if m.split('.')[0] in bad]; "
             "assert not hit, hit")

@@ -118,6 +118,9 @@ class VBC1DDevice:
     val: torch.Tensor  # [total_vals] f32 block values
     col_stripe: torch.Tensor  # [n] int32 stripe of each column
     col_out: torch.Tensor | None = None  # [n] int32 output place (natural view)
+    # every stripe width a multiple of 4: the stripe kernel then gives a
+    # thread four columns, a float4 of values a block (csrc/trspmv.cu)
+    quad_widths: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -167,6 +170,7 @@ class VBC1DDevice:
             ofs=_i32(ofs, "ofs", device),
             val=torch.from_numpy(np.ascontiguousarray(val, dtype=np.float32)).to(device),
             col_stripe=_i32(col_stripe, "col_stripe", device),
+            quad_widths=bool(np.all(np.diff(spl) % 4 == 0)),
         )
 
     @functools.cached_property
@@ -362,7 +366,8 @@ class VBC2DDevice:
         return VBC1DDevice(
             m=self.m, n=self.n, W=self.W, spl=self.spl, pos=pos.int(),
             idx=idx.int(), ofs=self.ofs, val=self.val,
-            col_stripe=self.col_stripe)
+            col_stripe=self.col_stripe,
+            quad_widths=bool(((self.spl[1:] - self.spl[:-1]) % 4 == 0).all()))
 
 
 class ScatterTiles(NamedTuple):

@@ -100,7 +100,7 @@ def load():
             vp, i32, u32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                                       ctypes.c_uint32, ctypes.c_int64,
                                       ctypes.c_float)
-            lib.vbcs_tr_spmv.argtypes = [i32] + [vp] * 9 + [f32, f32, vp, vp]
+            lib.vbcs_tr_spmv.argtypes = [i32] * 3 + [vp] * 9 + [f32, f32, vp, vp]
             lib.vbcs_tr_spmv.restype = i32
             lib.vbcs_tr_spmv_2d.argtypes = [i32, i32] + [vp] * 7 + [f32, f32, vp, vp]
             lib.vbcs_tr_spmv_2d.restype = i32

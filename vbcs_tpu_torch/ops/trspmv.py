@@ -128,8 +128,9 @@ def tr_spmv(fmt: VBC1DDevice, x: torch.Tensor, alpha=None, beta=None,
     return _run_tr_spmv(
         tr_spmv, tr_spmv_plain, fmt, x, alpha, beta, y,
         lambda lib, *rest: lib.vbcs_tr_spmv(
-            fmt.n, fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(),
-            fmt.ofs.data_ptr(), fmt.col_stripe.data_ptr(),
+            fmt.n, fmt.L, int(fmt.quad_widths), fmt.spl.data_ptr(),
+            fmt.pos.data_ptr(), fmt.idx.data_ptr(), fmt.ofs.data_ptr(),
+            fmt.col_stripe.data_ptr(),
             None if fmt.col_out is None else fmt.col_out.data_ptr(),
             fmt.val.data_ptr(), x.data_ptr(), *rest), out)
 

@@ -11,10 +11,17 @@ import os
 import numpy as np
 import scipy.sparse as sp
 
-__all__ = ["blocky_matrix", "blocky2d_matrix", "fem_matrix", "scattered_matrix"]
+__all__ = ["blocky_matrix", "blocky2d_matrix", "fem_matrix", "scattered_matrix",
+           "BLOCKY_ABOVE_L2"]
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "data")
+
+
+# ``blocky_matrix``'s arguments for a TrSpMV whose operands do not fit a
+# 50 MB L2: 16x the flagship's stripes (5,120,000 columns, ~40.8M
+# nonzeros, ~250 MB a call with y), every other argument at its default
+BLOCKY_ABOVE_L2 = dict(L=640_000)
 
 
 def blocky_matrix(L=40000, w=8, d=8, band=400, seed=0):
