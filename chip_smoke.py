@@ -555,6 +555,14 @@ def tr_spmv_work(fmt, nnz, with_y, n_iters=1):
     return nbytes, flops
 
 
+def tr_spmm_work(fmt, nnz, k):
+    """(bytes, flops) that ``Y = M @ X`` needs at ``k`` RHS columns on the
+    matrix ``M`` of ``fmt`` with ``nnz`` nonzeros: each nonzero's value and
+    index (:func:`index_bytes`), X and Y once; an FMA a nonzero and RHS
+    column.  The X rows the blocks re-read are not counted."""
+    return 4 * nnz + index_bytes(fmt, nnz) + 4 * k * (fmt.m + fmt.n), 2 * nnz * k
+
+
 def same_function(label, library, kernel, tol=TOL):
     """Check, once before timing, that a library yardstick computes what
     the kernel computes (``tol`` None: bitwise)."""
@@ -1439,30 +1447,6 @@ def phase_timing(dev, flag, fem, spmm):
           f"({op.route_fw[0]} route) {e2e[1] * 1e3:.2f} / {wall[1] * 1e3:.2f} us",
           flush=True)
 
-    for label, A_s in (("flagship", A), ("scattered", None)):
-        op_s, Xt, _ = spmm[label]
-        if A_s is None:
-            A_s = scattered_matrix().astype(np.float32)
-        fmt, k = op_s.nat_tr, Xt.shape[1]  # natural order: x and Y as given
-        AT_s = AT if label == "flagship" else csr_of_transpose(A_s, dev)
-        same_function(f"{label} SpMM", lambda: AT_s @ Xt, lambda: vt.tr_spmm(fmt, Xt))
-        warm = paired_ms([lambda: vt.tr_spmm(fmt, Xt),
-                          lambda: vt.tr_spmm_plain(fmt, Xt),
-                          lambda: AT_s @ Xt], dev)
-        nnz = nonzeros(A_s)
-        work = (4 * nnz + index_bytes(fmt, nnz) + 4 * k * (fmt.m + fmt.n),
-                2 * nnz * k)
-        rec = entry(warm, work)
-        # the X rows the blocks read and the Y written, beside the format
-        nbytes = fmt.nbytes + 4 * k * (fmt.idx.numel() + fmt.n)
-        print(f"[8 timing tr_spmm, {label} k={k}] kernel {warm[0] * 1e3:.2f} "
-              f"us/call, plain {warm[1] * 1e3:.2f} us, library (CSR @ X) "
-              f"{warm[2] * 1e3:.2f} us, bound {rec['bound_ms'] * 1e3:.2f} us; "
-              f"{nbytes / 1e6:.1f} MB per call, "
-              f"{nbytes / (warm[0] * 1e6):.1f} GB/s effective, "
-              f"{nnz * k / (warm[0] * 1e6):.2f} Gnnz*k/s", flush=True)
-        if label == "flagship":
-            out["tr_spmm"] = rec
     op_f, Xt, _ = spmm["flagship"]
     e2e_mat = paired_ms([lambda: op_f.tr_mul_mat(Xt)], dev)[0]
     wall_mat = host_ms(lambda: op_f.tr_mul_mat(Xt), dev)
@@ -1470,6 +1454,70 @@ def phase_timing(dev, flag, fem, spmm):
           f"/ host wall per call: {e2e_mat * 1e3:.2f} / {wall_mat * 1e3:.2f} us",
           flush=True)
     return out
+
+
+L2_BYTES = 50 << 20  # flushed SpMM times where X and Y exceed the L2
+
+
+def spmm_shapes(flag, fem, spmm, parts):
+    """Every shape an operator runs the SpMM at on phases 4-7, and the
+    flagship's at k = 130: (label, its format, the matrix M with ``Y = M @
+    X`` in natural order, the operator's matrix (M's nonzeros), X on the
+    card), as ``tools/spmm_ab.py`` runs them."""
+    A_s = scattered_matrix().astype(np.float32)
+    shapes = []
+    for label, A, (op, Xt, Xft) in (("flagship", flag[0], spmm["flagship"]),
+                                    ("FEM", fem[0], spmm["FEM"]),
+                                    ("scattered", A_s, spmm["scattered"])):
+        shapes.append((f"{label} tr_mul_mat", op.nat_tr, A.T, A, Xt))
+        if label == "flagship":  # past the JAX v4 SpMM's k <= 128: its v3
+            gen = torch.Generator(device=Xt.device).manual_seed(130)
+            X130 = torch.randn(Xt.shape[0], 130, generator=gen, device=Xt.device)
+            shapes.append((f"{label} tr_mul_mat", op.nat_tr, A.T, A, X130))
+        if Xft is not None:
+            shapes.append((f"{label} mul_mat", op.nat_fw, A, A, Xft))
+    for part, (A, op, _, _, _, Xt, Xft) in parts.items():
+        shapes.append((f"2-D ({part}) tr_mul_mat", op.view_tr, A.T, A, Xt))
+        shapes.append((f"2-D ({part}) mul_mat", op.view_fw, A, A, Xft))
+    return shapes
+
+
+def phase_timing_spmm(dev, flag, fem, spmm, parts):
+    """The SpMM at each of :func:`spmm_shapes`: kernel, plain version and
+    the library call (``CSR @ X`` on the same matrix) back-to-back in one
+    paired set, L2-flushed where X and Y exceed the L2, beside the bound
+    (:func:`tr_spmm_work`).  Returns the kernels line's ``tr_spmm`` entry:
+    the flagship's ``tr_mul_mat`` at k = 128, and every shape's record
+    under ``shapes``."""
+    recs = []
+    for label, fmt, M, A, X in spmm_shapes(flag, fem, spmm, parts):
+        k = X.shape[1]
+        lib = csr_of_transpose(sp.csc_matrix(M.T), dev)
+        same_function(f"{label} SpMM", lambda: lib @ X, lambda: vt.tr_spmm(fmt, X))
+        calls = [lambda: vt.tr_spmm(fmt, X), lambda: vt.tr_spmm_plain(fmt, X),
+                 lambda: lib @ X]
+        warm = paired_ms(calls, dev)
+        cold = ([flushed_ms(calls[0], dev), flushed_ms(calls[2], dev)]
+                if 4 * k * (fmt.m + fmt.n) > L2_BYTES else [None, None])
+        rec = {"shape": label, "k": k, **entry(warm, tr_spmm_work(fmt, nonzeros(A), k)),
+               "flushed_ms": cold[0], "library_flushed_ms": cold[1],
+               "width_class": fmt.width_class, "stripes": fmt.L,
+               "blocks": fmt.idx.numel(), "long_stripes": fmt.long_stripes.numel()}
+        recs.append(rec)
+        flushed = ("" if cold[0] is None else
+                   f", {cold[0] * 1e3:.2f} / {cold[1] * 1e3:.2f} us L2-flushed")
+        print(f"[8 timing tr_spmm, {label} k={k}] {fmt.L} stripes (mean width "
+              f"{fmt.n / fmt.L:.3f}, class {fmt.width_class}), {fmt.idx.numel()} "
+              f"blocks, {rec['long_stripes']} long; kernel {warm[0] * 1e3:.2f} us, "
+              f"plain {warm[1] * 1e3:.2f} us, library (CSR @ X) {warm[2] * 1e3:.2f} "
+              f"us{flushed} (kernel / library); bound {rec['bound_ms'] * 1e3:.2f} "
+              f"us ({rec['bound_by']}), {rec['bound_ms'] / warm[0]:.3f} of it",
+              flush=True)
+    head = next(r for r in recs if r["shape"] == "flagship tr_mul_mat"
+                and r["k"] == 128)
+    return {**{key: head[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                          "bound_by", "flushed_ms")},
+            "shapes": recs}
 
 
 def phase_timing_above_l2(dev, errs):
@@ -1977,9 +2025,25 @@ def phase_probes(dev, floor_ms):
 
     # the kernels line: the full v3 chunk (probe_kernel2 d), the chain
     # probe's full body (B) an iteration, the FMA
+    # the chunk's library yardstick: torch.addmv on the sparse matrix a
+    # *_red variant applies to x (probe_kernel2 d, row 15; probe_kernel 4,
+    # row 14)
     inp = built[probe_kernel2, ()]
+    inp4 = built[probe_kernel, ()]
+    libs = {}
+    for var, i in (("take2_red", inp), ("ladder_red", inp4)):
+        M = probe_chunk.library_matrix(var, i)
+        xf, z = i.x.reshape(-1), torch.zeros(M.shape[0], device=dev)
+        libs[var] = lambda M=M, xf=xf, z=z: torch.addmv(z, M, xf, beta=0.0)
+        same_function(f"probe chunk {var}",
+                      lambda var=var, i=i: libs[var]().view(8, -1),
+                      lambda var=var, i=i: probe_chunk.chunk(var, i))
     d = paired_ms([lambda: probe_chunk.chunk("take2_red", inp),
-                   lambda: probe_chunk.chunk_plain("take2_red", inp)], dev)
+                   lambda: probe_chunk.chunk_plain("take2_red", inp),
+                   libs["take2_red"]], dev)
+    d4 = paired_ms([lambda: probe_chunk.chunk("ladder_red", inp4),
+                    lambda: probe_chunk.chunk_plain("ladder_red", inp4),
+                    libs["ladder_red"]], dev)
     b_inp = probe_chain.inputs().to(dev)
     plain_it = marginal_ms(lambda n: probe_chain.chain_plain("B", b_inp, n), 1, 4,
                            dev, iters=1)
@@ -1989,14 +2053,19 @@ def phase_probes(dev, floor_ms):
     b = next(r for r in chains if r["variant"] == "B")
     ms = {
         "add_one": entry([a["ms"], a["plain_ms"], a["library_ms"]], (a["bytes"], 0)),
-        "chunk": entry([d[0], d[1], None], (probe_chunk.needed_bytes("take2_red", inp),
-                                            2 * inp.val.numel())),
+        "chunk": {**entry(d, (probe_chunk.needed_bytes("take2_red", inp),
+                              2 * inp.val.numel())),
+                  **{f"ladder_red_{key}": v for key, v in entry(
+                      d4, (probe_chunk.needed_bytes("ladder_red", inp4),
+                           2 * inp4.val.numel())).items()}},
         "chain": entry([b["ms"], plain_it, None], (b["bytes"], b["flops"])),
         "fma": entry([spmm4["fma_ms"], fma_plain, spmm4["library_ms"]],
                      (spmm4["fma_bytes"], spmm4["fma_flops"])),
     }
     print(f"[12 probes, records] chunk (probe_kernel2 d) {d[0] * 1e3:.2f} us, plain "
-          f"{d[1] * 1e3:.2f} us; chain probe B plain {plain_it * 1e3:.2f} us an "
+          f"{d[1] * 1e3:.2f} us, library (torch.addmv, CSR) {d[2] * 1e3:.2f} us; "
+          f"probe_kernel 4 {d4[0] * 1e3:.2f} us, plain {d4[1] * 1e3:.2f} us, library "
+          f"{d4[2] * 1e3:.2f} us; chain probe B plain {plain_it * 1e3:.2f} us an "
           f"iteration; FMA plain {fma_plain * 1e3:.2f} us; phase 12 in "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, errs, ms
@@ -3085,6 +3154,7 @@ def main():
           f"2-D path: tile TrSpMV {launches['tr_spmv_2d']}, SpMM {spmm_2d} "
           f"(want 4), stripe TrSpMV {vt.tr_spmv.launches} launches")
     launches["tr_spmv"] += vt.tr_spmv.launches  # the view route's
+    launches["tr_spmm"] += spmm_2d
     print(f"[7 launches] 2-D path: tile TrSpMV {launches['tr_spmv_2d']}, stripe "
           f"TrSpMV on the view route {vt.tr_spmv.launches}, SpMM on the 1-D "
           f"views {spmm_2d}", flush=True)
@@ -3132,6 +3202,7 @@ def main():
                    if route[0] == "scatter"}
     phase_path_shapes_slice4(chains, scat_routes, rel, errs)
     ms = phase_timing(dev, flag, fem, spmm)
+    ms["tr_spmm"] = phase_timing_spmm(dev, flag, fem, spmm, parts)
     ms["tr_spmv"].update(phase_timing_above_l2(dev, errs))
     ms_2d, pairs_2d = phase_timing_2d(dev, parts)
     ms.update(ms_2d)

@@ -316,6 +316,101 @@ def test_tr_spmm_misaligned_x_takes_scalar_path(cuda_device):
     assert rel_err(vt.tr_spmm(fmt, X), vt.tr_spmm_plain(fmt, X)) <= TOL
 
 
+SPMM_KS = (1, 3, 4, 5, 31, 32, 33, 128, 130)
+
+
+def spmm_long_matrix(w, n=None, seed=8):
+    """330 x n (8 stripes of width w by default), the first two stripes
+    dense over 330 and 300 rows: more than SPMM_LONG_BLOCKS blocks each."""
+    A = banded(330, n or 8 * w, 4, 20, seed).tolil()
+    rng = np.random.default_rng(seed)
+    A[:, :w] = rng.standard_normal((330, w)).astype(np.float32)
+    A[30:, w:2 * w] = rng.standard_normal((300, w)).astype(np.float32)
+    A = A.tocsc()
+    A.eliminate_zeros()
+    return A
+
+
+SPMM_WALKS = {
+    **{f"width_{w}": (lambda w=w: vt.vbc1d(banded(90, 3 * w, 30, 40, w), w,
+                                          vt.EquiChunker(w))) for w in (1, 2, 3, 5, 8, 16, 40)},
+    "long_w3": lambda: vt.vbc1d(spmm_long_matrix(3), 3, vt.EquiChunker(3)),
+    "long_w8": lambda: vt.vbc1d(spmm_long_matrix(8), 8, vt.EquiChunker(8)),
+    "empty_stripes": lambda: vt.vbc1d(empty_stripes_matrix(), 8, vt.EquiChunker(8)),
+    "natural_view": lambda: vt.vbc1d(spmm_long_matrix(3, n=330), 3, vt.EquiChunker(3)),
+}
+
+
+def launch_spmm(fmt, X, width, blocks, longs=True):
+    """The SpMM launcher with an explicit width class, block count (the
+    launcher pipes class 8 from a mean of 16 blocks a stripe) and long
+    stripes (or none: the lanes take every stripe)."""
+    ls = fmt.long_stripes if longs else None
+    Y = torch.empty(fmt.n, X.shape[1], device=X.device)
+    rc = _lib.load().vbcs_tr_spmm(
+        fmt.L, X.shape[1], width, int(fmt.quad_widths), blocks,
+        vt.formats.device.SPMM_LONG_BLOCKS if longs else 2**31 - 1,
+        0 if ls is None else ls.numel(), None if ls is None else ls.data_ptr(),
+        fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(), fmt.ofs.data_ptr(),
+        None if fmt.col_out is None else fmt.col_out.data_ptr(), fmt.val.data_ptr(),
+        X.data_ptr(), Y.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return Y
+
+
+@pytest.mark.parametrize("k", SPMM_KS)
+@pytest.mark.parametrize("case", sorted(SPMM_WALKS))
+def test_tr_spmm_walks_agree_bitwise(case, k, cuda_device):
+    """Every width class, the piped and two-trip walks, the long path on or
+    off, the float4 and scalar paths (an X 4 bytes off 16) and two
+    launches give one Y, bit for bit (each output's blocks in order with
+    fmaf: the slice-2 kernel's order), within TOL of the plain version."""
+    fmt = vt.VBC1DDevice.from_host(SPMM_WALKS[case](), cuda_device)
+    if case == "natural_view":
+        g = torch.Generator().manual_seed(3)
+        fmt = fmt.natural_view(torch.randperm(fmt.n, generator=g).int().to(cuda_device))
+    assert fmt.long_stripes.numel() == (2 if case.startswith(("long", "natural")) else 0)
+    g = torch.Generator(device=cuda_device).manual_seed(k)
+    X = torch.randn(fmt.m, k, device=cuda_device, generator=g)
+    before = vt.tr_spmm.launches
+    want = vt.tr_spmm(fmt, X)
+    assert vt.tr_spmm.launches == before + 1
+    assert rel_err(want, vt.tr_spmm_plain(fmt, X)) <= TOL
+    assert torch.equal(vt.tr_spmm(fmt, X), want)
+    for width in (1, 2, 4, 8):
+        for blocks in (0, 16 * fmt.L):
+            assert torch.equal(launch_spmm(fmt, X, width, blocks), want), (width, blocks)
+    assert torch.equal(launch_spmm(fmt, X, fmt.width_class, fmt.idx.numel(), False), want)
+    buf = torch.empty(fmt.m * k + 1, device=cuda_device)
+    Xu = buf[1:].view(fmt.m, k)
+    Xu.copy_(X)
+    assert Xu.data_ptr() % 16 != 0
+    assert torch.equal(vt.tr_spmm(fmt, Xu), want)
+
+
+def test_dist_tr_spmm_bitwise_on_card(cuda_device):
+    """``dist_tr_spmm`` in two gloo ranks sharing the card, on a pack with
+    long stripes and on the narrow A.T pack of a blocky matrix: one SpMM
+    launch a rank, Y bitwise the single device's."""
+    from vbcs_tpu_torch import entry
+    from vbcs_tpu_torch.parallel import comm
+
+    rng = np.random.default_rng(5)
+    packs = [vt.vbc1d(spmm_long_matrix(4, n=330), 4, vt.EquiChunker(4)),
+             vt.vbc1d(blocky_matrix(L=2048, band=400).T.tocsc(), 8)]
+    jobs = [{"path": "tr_spmm", "B": B,
+             "x": rng.standard_normal((B.m, 32)).astype(np.float32)} for B in packs]
+    ranks = comm.run_ranks(entry.rank_paths, 2, "gloo", "cuda:0", jobs)
+    for rank in ranks:
+        for rec in rank:
+            if rec["stats"]["columns"]:
+                assert rec["launches"] == {"tr_spmm": 1}, rec
+    for job, rec in zip(jobs, ranks[0]):
+        fmt = vt.VBC1DDevice.from_host(job["B"], cuda_device)
+        want = vt.tr_spmm(fmt, torch.from_numpy(job["x"]).to(cuda_device)).cpu().numpy()
+        np.testing.assert_array_equal(rec["y"], want)
+
+
 def test_tr_spmm_64bit_offsets(cuda_device):
     """Rows and columns 128-129 at k = 2^24: idx[b]*k and j*k reach 2^31
     (an int32 offset would wrap); every other column is an empty stripe

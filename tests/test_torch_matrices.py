@@ -76,7 +76,7 @@ def test_no_port_source_imports_the_jax_side():
 def test_chip_smoke_and_the_new_tools_load_nothing_of_the_jax_side():
     code = ("import sys; import chip_smoke; "
             "import vbcs_tpu_torch.probes.probe_pack, vbcs_tpu_torch.tools.weak_scaling, "
-            "vbcs_tpu_torch.tools.stripe_ab; "
+            "vbcs_tpu_torch.tools.stripe_ab, vbcs_tpu_torch.tools.spmm_ab; "
             f"bad = {sorted(BANNED)!r}; "
             "hit = [m for m in sys.modules if m.split('.')[0] in bad]; "
             "assert not hit, hit")

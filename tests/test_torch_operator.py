@@ -165,14 +165,16 @@ def test_refusals():
         op64.tr_mul(torch.zeros(A.shape[0], dtype=torch.bool))
     with pytest.raises(TypeError):
         op64.route_tr  # the kernels' route is for f32 matrices
-    with pytest.raises(TypeError):
-        vt.VBCOperator.from_csc(A)  # no implicit device
+    if not torch.cuda.is_available():  # the default device is the card: no CPU fallback
+        with pytest.raises((AssertionError, RuntimeError)):
+            vt.VBCOperator.from_csc(A)
     op = vt.VBCOperator.from_csc(A[:, :200].tocsc(), device="cpu")
     x = torch.zeros(A.shape[0])
     with pytest.raises(ValueError, match="square"):
         op.tr_mul_chain(x, 2)
-    with pytest.raises(TypeError):
-        vt.VBC2DOperator.from_csc(A, 4, 8)  # no implicit device
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            vt.VBC2DOperator.from_csc(A, 4, 8)
     op = vt.VBCOperator.from_csc(fem_matrix(k=40).astype(np.float32),
                                  reorder="always", directions="transposed",
                                  device="cpu")

@@ -105,3 +105,19 @@ def test_bounds_count_what_the_function_needs():
         15.34, 14.06, 18.25)
     a = tpk2.inputs()
     assert ck.streamed_bytes("stream", a) == d - a.x.numel() * 4 - a.tab.numel() * 4
+
+
+@pytest.mark.parametrize("probe, variant", [("kernel2", "take2_red"), ("kernel", "ladder_red"),
+                                            ("kernel", "sub3_red"), ("kernel", "const_red")])
+def test_library_matrix_applies_the_variant(probe, variant):
+    """``chunk.library_matrix``, the matrix ``chip_smoke.py`` times
+    ``torch.addmv`` on beside the chunk kernel, applies the ``*_red``
+    variant to x (f32 sums in another order: 2e-5)."""
+    from vbcs_tpu_torch.probes import probe_kernel as tpk
+    inp = (tpk2.inputs(T) if probe == "kernel2" else tpk.inputs(T))
+    M = ck.library_matrix(variant, inp)
+    got = (M @ inp.x.reshape(-1)).view(8, -1).numpy()
+    want = ck.chunk_plain(variant, inp).numpy()
+    assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
+    with pytest.raises(ValueError):
+        ck.library_matrix("take2", inp)

@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 __all__ = ["VBC1DDevice", "VBC2DDevice", "ScatterDevice", "ScatterTiles",
-           "SemiringDevice", "SCATTER_LANE_ENTRIES", "SCATTER_TILE"]
+           "SemiringDevice", "SCATTER_LANE_ENTRIES", "SCATTER_TILE",
+           "SPMM_LONG_BLOCKS", "WIDTH_CLASSES", "width_class"]
 
 _I32_MAX = np.iinfo(np.int32).max
 
@@ -90,6 +91,28 @@ def _vbc1d_arrays(host):
     return m, n, spl, pos, idx, ofs, val
 
 
+# the SpMM kernel's accumulator widths (csrc/spmm.cu: its width classes)
+WIDTH_CLASSES = (1, 2, 4, 8)
+# a stripe of more blocks is a long stripe, walked by a whole thread block
+# of the SpMM kernel (VBC1DDevice.long_stripes)
+SPMM_LONG_BLOCKS = 128
+
+
+def width_class(widths, nblk) -> int:
+    """The SpMM kernel's width class of a pack with stripe ``widths`` and
+    block counts ``nblk`` (NumPy arrays): the narrowest of
+    :data:`WIDTH_CLASSES` whose passes over the wider stripes (a stripe of
+    width ``w`` is walked ``ceil(w / c)`` times, each pass reading its
+    blocks' X rows) read at most 1/16 more blocks than one pass does."""
+    widths = np.asarray(widths, dtype=np.int64)
+    nblk = np.asarray(nblk, dtype=np.int64)
+    total = int(nblk.sum())
+    for c in WIDTH_CLASSES[:-1]:
+        if 16 * int((((widths + c - 1) // c - 1).clip(0) * nblk).sum()) <= total:
+            return c
+    return WIDTH_CLASSES[-1]
+
+
 def _coords_1d(spl, pos, idx, ofs, nvals: int):
     """(row, col) of every stored value of a 1D-VBC, int64, from its
     ``spl``/``pos``/``idx``/``ofs`` as tensors on one device."""
@@ -121,6 +144,12 @@ class VBC1DDevice:
     # every stripe width a multiple of 4: the stripe kernel then gives a
     # thread four columns, a float4 of values a block (csrc/trspmv.cu)
     quad_widths: bool = False
+    # the SpMM kernel's accumulator width (csrc/spmm.cu; :func:`width_class`)
+    width_class: int = 8
+    # int32 ids of the stripes of more than SPMM_LONG_BLOCKS blocks, which
+    # the SpMM kernel walks a thread block each; None: the kernel takes
+    # every stripe by its lanes
+    long_stripes: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -134,7 +163,7 @@ class VBC1DDevice:
     def nbytes(self) -> int:
         """Bytes of the format arrays (each read at most once per call)."""
         return _tensor_bytes(self.spl, self.pos, self.idx, self.ofs, self.val,
-                             self.col_stripe, self.col_out)
+                             self.col_stripe, self.col_out, self.long_stripes)
 
     def natural_view(self, perm: torch.Tensor) -> "VBC1DDevice":
         """The natural view of this pack of ``A[perm][:, perm]``: block rows
@@ -171,6 +200,9 @@ class VBC1DDevice:
             val=torch.from_numpy(np.ascontiguousarray(val, dtype=np.float32)).to(device),
             col_stripe=_i32(col_stripe, "col_stripe", device),
             quad_widths=bool(np.all(np.diff(spl) % 4 == 0)),
+            width_class=width_class(np.diff(spl), np.diff(pos)),
+            long_stripes=_i32(np.flatnonzero(np.diff(pos) > SPMM_LONG_BLOCKS),
+                              "long_stripes", device),
         )
 
     @functools.cached_property
@@ -363,11 +395,14 @@ class VBC2DDevice:
             torch.arange(self.idx.numel(), device=dev), u, output_size=total)
         idx = (self.tile_row.long()[tile]
                + torch.arange(total, device=dev) - (torch.cumsum(u, 0) - u)[tile])
+        widths = (self.spl[1:] - self.spl[:-1]).cpu().numpy()
         return VBC1DDevice(
             m=self.m, n=self.n, W=self.W, spl=self.spl, pos=pos.int(),
             idx=idx.int(), ofs=self.ofs, val=self.val,
             col_stripe=self.col_stripe,
-            quad_widths=bool(((self.spl[1:] - self.spl[:-1]) % 4 == 0).all()))
+            quad_widths=bool(np.all(widths % 4 == 0)),
+            width_class=width_class(widths, rows.cpu().numpy()),
+            long_stripes=torch.nonzero(rows > SPMM_LONG_BLOCKS).flatten().int())
 
 
 class ScatterTiles(NamedTuple):

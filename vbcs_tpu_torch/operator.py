@@ -3,7 +3,8 @@
 Port of ``vbcs_tpu/operator.py``.  ``from_csc``
 plans and packs ``A`` (and ``A.T``) on the host exactly as the JAX
 operator does — the min-memory DP, ``pack_1dvbc`` and the auto-RCM
-decision — then copies the packs to an explicit torch ``device``:
+decision — then copies the packs to a torch ``device`` (the card,
+``"cuda"``, unless the caller asks for another):
 
 * ``tr_mul``: ``y = alpha * A.T @ x + beta * y`` through the kernel
   :func:`route_tr_spmv` picks for the pack — the stripe kernel
@@ -260,7 +261,7 @@ class VBCOperator(_Directions):
         directions: str = "both",
         reorder: str = "auto",
         *,
-        device,
+        device="cuda",
     ) -> "VBCOperator":
         """Plan + pack ``A`` (and/or ``A.T``) and copy the packs to ``device``.
 
@@ -305,7 +306,7 @@ class VBCOperator(_Directions):
         return VBCOperator.from_host(host_tr, host_fw, row_perm, device)
 
     @staticmethod
-    def from_host(host_tr, host_fw, row_perm, device) -> "VBCOperator":
+    def from_host(host_tr, host_fw, row_perm, device="cuda") -> "VBCOperator":
         """Operator over existing packs (this port's or the JAX package's
         ``VBC1D``): ``host_tr`` packs A, ``host_fw`` packs A.T, either may
         be None; ``row_perm`` is the symmetric relabeling the packs were
@@ -494,7 +495,7 @@ class VBC2DOperator(_Directions):
         method_forward=None,
         directions: str = "both",
         *,
-        device,
+        device="cuda",
     ) -> "VBC2DOperator":
         """Plan + pack ``A`` (and/or ``A.T``) into 2-D VBC and copy the
         packs to ``device``.
@@ -518,7 +519,7 @@ class VBC2DOperator(_Directions):
         return VBC2DOperator.from_host(host_tr, host_fw, device)
 
     @staticmethod
-    def from_host(host_tr, host_fw, device) -> "VBC2DOperator":
+    def from_host(host_tr, host_fw, device="cuda") -> "VBC2DOperator":
         """Operator over existing packs (this port's or the JAX package's
         ``VBC2D``): ``host_tr`` packs A, ``host_fw`` packs A.T, either may
         be None."""

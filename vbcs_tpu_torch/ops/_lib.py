@@ -104,7 +104,7 @@ def load():
             lib.vbcs_tr_spmv.restype = i32
             lib.vbcs_tr_spmv_2d.argtypes = [i32, i32] + [vp] * 7 + [f32, f32, vp, vp]
             lib.vbcs_tr_spmv_2d.restype = i32
-            lib.vbcs_tr_spmm.argtypes = [i32, i64] + [vp] * 9
+            lib.vbcs_tr_spmm.argtypes = [i32, i64, i32, i32, i64, i32, i32] + [vp] * 10
             lib.vbcs_tr_spmm.restype = i32
             lib.vbcs_gather.argtypes = [i32, vp, vp, vp, vp, vp]
             lib.vbcs_gather.restype = i32

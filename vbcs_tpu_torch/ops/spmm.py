@@ -7,14 +7,17 @@ Port of the JAX package's SpMM kernels, one kernel for all of them:
 and the XLA ``vbcs_tpu/ops/xla.py:tr_spmm``.  On a CUDA tensor
 :func:`tr_spmm` launches the hand-written kernel in ``csrc/spmm.cu``; on
 a CPU tensor it runs :func:`tr_spmm_plain`, the plain PyTorch version of
-the same function.
+the same function.  The kernel's accumulator is sized by the pack's
+:attr:`VBC1DDevice.width_class`, and its stripes of more than
+``SPMM_LONG_BLOCKS`` blocks (:attr:`VBC1DDevice.long_stripes`) are walked
+by whole thread blocks; both are computed once with the pack.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..formats.device import VBC1DDevice
+from ..formats.device import SPMM_LONG_BLOCKS, VBC1DDevice
 from . import _lib
 from .trspmv import _check_tensor
 
@@ -53,10 +56,14 @@ def tr_spmm(fmt: VBC1DDevice, X: torch.Tensor) -> torch.Tensor:
     if fmt.n == 0 or k == 0:
         return Y
     lib = _lib.load()
+    longs = fmt.long_stripes  # None: the lanes take every stripe
+    n_long = 0 if longs is None else longs.numel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vbcs_tr_spmm(
-            fmt.L, k, fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(),
+            fmt.L, k, fmt.width_class, int(fmt.quad_widths), fmt.idx.numel(),
+            SPMM_LONG_BLOCKS, n_long, longs.data_ptr() if n_long else None,
+            fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(),
             fmt.ofs.data_ptr(),
             None if fmt.col_out is None else fmt.col_out.data_ptr(),
             fmt.val.data_ptr(), X.data_ptr(), Y.data_ptr(), stream)

@@ -217,7 +217,7 @@ def dp_stages(A: CSC, model, W: int, Pi: SplitPartition | None = None, *,
 
 
 def dp_partition_device(A: CSC, model: ColumnBlockComponentCostModel, W: int,
-                        *, device) -> SplitPartition:
+                        *, device="cuda") -> SplitPartition:
     """The optimal 1-D column partition (stripes of width <= ``W``) under
     ``model``, planned on ``device``: ``plan/dynamic.dp_partition``'s."""
     if not isinstance(model, ColumnBlockComponentCostModel):
@@ -228,7 +228,7 @@ def dp_partition_device(A: CSC, model: ColumnBlockComponentCostModel, W: int,
 
 def dp_partition_device_2d(A: CSC, model: BlockComponentCostModel, W: int,
                            Pi: SplitPartition | None = None, *,
-                           device) -> SplitPartition:
+                           device="cuda") -> SplitPartition:
     """The 2-D column pass on ``device``: the optimal column partition
     under ``model`` with the row partition ``Pi`` fixed (default: every row
     a block), ``plan/dynamic.dp_partition``'s with ``row_partition=Pi``."""

@@ -50,7 +50,8 @@ from ..utils.timing import flushed_ms, paired_ms
 from ._common import report
 
 __all__ = ["ChunkInputs", "VARIANTS", "chunk", "chunk_plain", "needed_bytes",
-           "streamed_bytes", "BITWISE", "time_variants", "print_records"]
+           "streamed_bytes", "BITWISE", "time_variants", "print_records",
+           "library_matrix"]
 
 NG = 1024  # columns of a chunk
 W = 8  # stripe width: 8 * W value rows
@@ -250,6 +251,32 @@ def chunk_plain(variant: str, inp: ChunkInputs) -> torch.Tensor:
     if variant.endswith("_red"):
         return (val.view(W, 8, n) * xg.unsqueeze(0)).sum(1)
     return xg
+
+
+def library_matrix(variant: str, inp: ChunkInputs) -> torch.Tensor:
+    """A ``*_red`` variant as the sparse matrix it applies to x: ``M`` (f32
+    CSR, ``[8 N, x.numel()]``) with ``M @ x.reshape(-1)`` equal to
+    ``chunk(variant, inp).reshape(-1)`` up to the order of each sum (an
+    output's reads of one x entry are one summed value).  The library
+    yardstick (``torch.addmv`` on it), built on ``inp``'s device; the port
+    never calls it."""
+    if not variant.endswith("_red"):
+        raise ValueError(f"{variant} is not a product of val and a gather of x")
+    x, n = inp.x, inp.val.shape[1]
+    if x.numel() >= 1 << 24:
+        raise ValueError("x too large for f32 positions")
+    dev = x.device
+    # the gather of x's positions + 1 (exact in f32): the x entry each
+    # (row, column) reads, 0 where it reads none
+    pos = torch.arange(1, x.numel() + 1, dtype=torch.float32, device=dev).view_as(x)
+    col = _gather(variant, inp._replace(x=pos)).long() - 1
+    rows = (torch.arange(W, device=dev)[:, None, None] * n
+            + torch.arange(n, device=dev)[None, None, :]).expand(W, 8, n)
+    cols = col.unsqueeze(0).expand(W, 8, n)
+    keep = cols >= 0
+    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
+                                  inp.val.view(W, 8, n)[keep], (W * n, x.numel()))
+    return coo.coalesce().to_sparse_csr()
 
 
 def time_variants(device, variants, inputs) -> list[dict]:
