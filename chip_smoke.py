@@ -246,6 +246,7 @@ from vbcs_tpu_torch.ops import dp as dp_ops
 from vbcs_tpu_torch.plan.device_dp import STAGES, dp_inputs, dp_route, dp_stages
 from vbcs_tpu_torch.plan.dynamic import dp_partition
 from vbcs_tpu_torch.tools import method_table, weak_scaling
+from vbcs_tpu_torch.tools.spmm_ab import work as tr_spmm_work
 from vbcs_tpu_torch.utils.timing import flushed_ms, host_ms, paired_ms
 
 from vbcs_tpu_torch.tools.matrices import (BLOCKY_ABOVE_L2, blocky2d_matrix,
@@ -553,14 +554,6 @@ def tr_spmv_work(fmt, nnz, with_y, n_iters=1):
         fmt.m + fmt.n * (2 if with_y else 1))
     flops = n_iters * (2 * nnz + fmt.n * (3 if with_y else 1))
     return nbytes, flops
-
-
-def tr_spmm_work(fmt, nnz, k):
-    """(bytes, flops) that ``Y = M @ X`` needs at ``k`` RHS columns on the
-    matrix ``M`` of ``fmt`` with ``nnz`` nonzeros: each nonzero's value and
-    index (:func:`index_bytes`), X and Y once; an FMA a nonzero and RHS
-    column.  The X rows the blocks re-read are not counted."""
-    return 4 * nnz + index_bytes(fmt, nnz) + 4 * k * (fmt.m + fmt.n), 2 * nnz * k
 
 
 def same_function(label, library, kernel, tol=TOL):
@@ -1486,7 +1479,7 @@ def phase_timing_spmm(dev, flag, fem, spmm, parts):
     """The SpMM at each of :func:`spmm_shapes`: kernel, plain version and
     the library call (``CSR @ X`` on the same matrix) back-to-back in one
     paired set, L2-flushed where X and Y exceed the L2, beside the bound
-    (:func:`tr_spmm_work`).  Returns the kernels line's ``tr_spmm`` entry:
+    (``tools.spmm_ab.work``).  Returns the kernels line's ``tr_spmm`` entry:
     the flagship's ``tr_mul_mat`` at k = 128, and every shape's record
     under ``shapes``."""
     recs = []
@@ -2044,9 +2037,17 @@ def phase_probes(dev, floor_ms):
     d4 = paired_ms([lambda: probe_chunk.chunk("ladder_red", inp4),
                     lambda: probe_chunk.chunk_plain("ladder_red", inp4),
                     libs["ladder_red"]], dev)
+    # the chain probe's library yardstick: an iteration of its full body
+    # (B) as torch.addmv on the CSR of the matrix it applies to x
     b_inp = probe_chain.inputs().to(dev)
     plain_it = marginal_ms(lambda n: probe_chain.chain_plain("B", b_inp, n), 1, 4,
                            dev, iters=1)
+    Mb = probe_chain.library_matrix("B", b_inp)
+    xb, zb = b_inp.xin.reshape(-1), torch.zeros(Mb.shape[0], device=dev)
+    lib_b = lambda: torch.addmv(zb, Mb, xb, beta=0.0, alpha=0.999)  # noqa: E731
+    same_function("probe chain B, an iteration", lambda: lib_b().view(probe_chain.W, -1),
+                  lambda: probe_chain.chain_plain("B", b_inp, 1))
+    lib_it = paired_ms([lib_b], dev)[0]
     fma_plain = paired_ms([lambda: probe_spmm4.fma_plain(sp4.Xg, sp4.Vl)], dev,
                           iters=3)[0]
     a = launch["add_one"]
@@ -2058,7 +2059,7 @@ def phase_probes(dev, floor_ms):
                   **{f"ladder_red_{key}": v for key, v in entry(
                       d4, (probe_chunk.needed_bytes("ladder_red", inp4),
                            2 * inp4.val.numel())).items()}},
-        "chain": entry([b["ms"], plain_it, None], (b["bytes"], b["flops"])),
+        "chain": entry([b["ms"], plain_it, lib_it], (b["bytes"], b["flops"])),
         "fma": entry([spmm4["fma_ms"], fma_plain, spmm4["library_ms"]],
                      (spmm4["fma_bytes"], spmm4["fma_flops"])),
     }
@@ -2066,6 +2067,7 @@ def phase_probes(dev, floor_ms):
           f"{d[1] * 1e3:.2f} us, library (torch.addmv, CSR) {d[2] * 1e3:.2f} us; "
           f"probe_kernel 4 {d4[0] * 1e3:.2f} us, plain {d4[1] * 1e3:.2f} us, library "
           f"{d4[2] * 1e3:.2f} us; chain probe B plain {plain_it * 1e3:.2f} us an "
+          f"iteration, library (torch.addmv, CSR) {lib_it * 1e3:.2f} us an "
           f"iteration; FMA plain {fma_plain * 1e3:.2f} us; phase 12 in "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, errs, ms

@@ -349,7 +349,7 @@ def launch_spmm(fmt, X, width, blocks, longs=True):
     Y = torch.empty(fmt.n, X.shape[1], device=X.device)
     rc = _lib.load().vbcs_tr_spmm(
         fmt.L, X.shape[1], width, int(fmt.quad_widths), blocks,
-        vt.formats.device.SPMM_LONG_BLOCKS if longs else 2**31 - 1,
+        vt.formats.device.SPMM_LONG_BLOCKS,
         0 if ls is None else ls.numel(), None if ls is None else ls.data_ptr(),
         fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(), fmt.ofs.data_ptr(),
         None if fmt.col_out is None else fmt.col_out.data_ptr(), fmt.val.data_ptr(),

@@ -116,3 +116,21 @@ def test_refusals():
         tpc.chain("B", inp._replace(meta=inp.meta.long()), 1)
     with pytest.raises(ValueError, match="wbase"):
         tpc.chain("B", inp._replace(wbase=inp.wbase[:3]), 1)
+
+
+@pytest.mark.parametrize("variant, wblk", [("B", 2), ("C", 1)])
+def test_library_matrix_is_one_iteration(variant, wblk):
+    """``library_matrix``, the matrix ``chip_smoke.py`` times
+    ``torch.addmv`` on beside the chain kernel's marginal iteration,
+    applies one iteration of the full body to x (f32 sums in another
+    order: TOL); ``A`` and ``D`` are no such product."""
+    inp = tpc.inputs(3, wblk)
+    M = tpc.library_matrix(variant, inp)
+    assert M.shape == (8 * 3 * 1024, 8 * 3 * 1024)
+    z = torch.zeros(M.shape[0])
+    got = torch.addmv(z, M, inp.xin.reshape(-1), beta=0.0, alpha=0.999)
+    want = tpc.chain_plain(variant, inp, 1).reshape(-1)
+    assert (got - want).abs().max() <= TOL * want.abs().max()
+    for other in ("A", "D"):
+        with pytest.raises(ValueError):
+            tpc.library_matrix(other, inp)

@@ -1,7 +1,7 @@
 """``tools/spmm_ab.py`` on the CPU: its shapes are ``chip_smoke.py``'s, its
-bound counts the bytes and operations ``chip_smoke.tr_spmm_work`` counts,
-it checks the sources it is given, and it refuses to run without a card
-(a CPU clock is no device metric)."""
+bound (``work``, which ``chip_smoke.py`` also uses) counts the bytes and
+operations the SpMM needs, it checks the sources it is given, and it
+refuses to run without a card (a CPU clock is no device metric)."""
 
 import os
 import sys
@@ -26,7 +26,10 @@ def test_work_is_chip_smokes(direction, k):
     op = vt.VBCOperator.from_csc(A, W=8, device="cpu")
     fmt = getattr(op, f"nat_{direction}")
     nnz = chip_smoke.nonzeros(A)
-    assert spmm_ab.work(fmt, nnz, k) == chip_smoke.tr_spmm_work(fmt, nnz, k)
+    assert chip_smoke.tr_spmm_work is spmm_ab.work  # one bound formula
+    index = 4 * (2 * (fmt.L + 1) + fmt.idx.numel())  # int32 spl, pos, idx
+    assert spmm_ab.work(fmt, nnz, k) == (4 * nnz + index + 4 * k * (fmt.m + fmt.n),
+                                         2 * nnz * k)
 
 
 def test_shapes_are_chip_smokes():

@@ -41,8 +41,8 @@ import torch
 from ..ops import _lib
 from ._common import card, cuda_device, marginal_ms, report, warm_up
 
-__all__ = ["ChainInputs", "inputs", "VARIANTS", "chain", "chain_plain", "run",
-           "main"]
+__all__ = ["ChainInputs", "inputs", "VARIANTS", "chain", "chain_plain",
+           "library_matrix", "run", "main"]
 
 NG = NS = 1024  # columns of a chunk (the TPU probe's NG and NS)
 W = 8
@@ -147,24 +147,33 @@ def chain(variant: str, inp: ChainInputs, n_iters: int) -> torch.Tensor:
 chain.launches = 0
 
 
-def _step(variant: str, inp: ChainInputs, x: torch.Tensor) -> torch.Tensor:
-    """One iteration of the plain chain: ``res [W, X]`` from ``x [8, X]``."""
-    val, meta, _, wbase = inp[:4]
-    dev, X = val.device, val.shape[1]
+def _gather(inp: ChainInputs) -> tuple[torch.Tensor, torch.Tensor]:
+    """The full body's gather: ``xg[s, c] = x.reshape(-1)[pos[s, c]]`` where
+    ``keep[s, c]``, else 0 (``pos``, ``keep``: ``[8, X]``)."""
+    meta, wbase = inp.meta, inp.wbase.long()
+    dev, X = meta.device, meta.shape[1]
     c = torch.arange(X, device=dev)
-    t, v, l = c // NS, (c % NS) // 128, c % 128
-    xf, wb = x.reshape(-1), wbase.long()
-    if variant == "A":
-        red = val.view(W, 8, X).sum(1)
-        lane = wb[t * NV * 2] + l
-        return red + x[:W, lane] * 0.0
+    t, v = c // NS, (c % NS) // 128
     m = meta.long() & 0xFFFFFFFF
     lo = m & 127
     d = torch.zeros_like(m) if inp.wblk == 1 else (m >> 7) & 3
     dc = d.clamp(max=inp.wblk - 1)
-    b = wb[(t * NV + v) * inp.wblk + dc]
+    b = wbase[(t * NV + v) * inp.wblk + dc]
     a = (m.gather(1, t * NG + v * 128 + lo) >> (16 + 3 * dc)) & 7
-    xg = torch.where(d < inp.wblk, xf[a * X + b + lo], torch.zeros((), device=dev))
+    return a * X + b + lo, d < inp.wblk
+
+
+def _step(variant: str, inp: ChainInputs, x: torch.Tensor) -> torch.Tensor:
+    """One iteration of the plain chain: ``res [W, X]`` from ``x [8, X]``."""
+    val = inp.val
+    dev, X = val.device, val.shape[1]
+    if variant == "A":
+        c = torch.arange(X, device=dev)
+        red = val.view(W, 8, X).sum(1)
+        lane = inp.wbase.long()[(c // NS) * NV * 2] + c % 128
+        return red + x[:W, lane] * 0.0
+    pos, keep = _gather(inp)
+    xg = torch.where(keep, x.reshape(-1)[pos], torch.zeros((), device=dev))
     red = (val.view(W, 8, X) * xg.unsqueeze(0)).sum(1) * 0.999
     if variant == "D":
         red[:, NS::NS] = red[:, NS::NS] + red[:, NS - 1:X - 1:NS]
@@ -178,6 +187,28 @@ def chain_plain(variant: str, inp: ChainInputs, n_iters: int) -> torch.Tensor:
     for _ in range(n_iters):
         x = _step(variant, inp, x)
     return x
+
+
+def library_matrix(variant: str, inp: ChainInputs) -> torch.Tensor:
+    """An iteration of the full body (``B``, or ``C`` at ``wblk = 1``) as
+    the sparse matrix it applies to x: ``M`` (f32 CSR, ``[W X, 8 X]``) with
+    ``0.999 * M @ x.reshape(-1)`` equal to one iteration's ``res``,
+    flattened, up to the order of each sum.  The library yardstick
+    (``torch.addmv(z, M, x, beta=0, alpha=0.999)`` an iteration), built on
+    ``inp``'s device; the port never calls it.  ``A`` adds a constant and
+    ``D`` a carry, so neither is this one product."""
+    if variant not in ("B", "C"):
+        raise ValueError(f"variant {variant} is not a product of val and a gather of x")
+    val = inp.val
+    dev, X = val.device, val.shape[1]
+    pos, keep = _gather(inp)
+    rows = (torch.arange(W, device=dev)[:, None, None] * X
+            + torch.arange(X, device=dev)[None, None, :]).expand(W, 8, X)
+    keep = keep.unsqueeze(0).expand(W, 8, X)
+    cols = pos.unsqueeze(0).expand(W, 8, X)
+    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
+                                  val.view(W, 8, X)[keep], (W * X, 8 * X))
+    return coo.coalesce().to_sparse_csr()
 
 
 def run(device) -> list[dict]:

@@ -18,7 +18,7 @@ of each must agree bitwise, and each record says which builds' ``Y`` it
 equals bitwise.
 
     python -m vbcs_tpu_torch.tools.spmm_ab [--variant NAME=SRC.cu ...]
-        [--earlier NAME=SRC.cu ...] [--long-blocks T] [--json FILE]
+        [--earlier NAME=SRC.cu ...] [--json FILE]
 
 A ``--variant`` source exports ``vbcs_tr_spmm`` with the package's
 interface (given the package's width class and long stripes); an
@@ -67,10 +67,11 @@ SHAPES = (("flagship tr_mul_mat", "flagship", "tr", 128),
 
 
 def work(fmt, nnz: int, k: int) -> tuple[int, int]:
-    """(bytes, flops) of ``Y = M @ X`` at ``k`` RHS columns on ``fmt``'s
-    matrix ``M`` with ``nnz`` nonzeros, as ``chip_smoke.tr_spmm_work``
-    counts them: each nonzero's value, the stripe splits, block pointers
-    and block rows, X and Y once; an FMA a nonzero and RHS column."""
+    """(bytes, flops) that ``Y = M @ X`` needs at ``k`` RHS columns on
+    ``fmt``'s matrix ``M`` with ``nnz`` nonzeros, the SpMM's bound here and
+    in ``chip_smoke.py``: each nonzero's value, the stripe splits, block
+    pointers and block rows, X and Y once; an FMA a nonzero and RHS
+    column.  The X rows the blocks re-read are not counted."""
     index = sum(t.numel() * t.element_size() for t in (fmt.spl, fmt.pos, fmt.idx))
     return 4 * nnz + index + 4 * k * (fmt.m + fmt.n), 2 * nnz * k
 
@@ -126,20 +127,18 @@ def _build(named: list[tuple[str, str, str]]) -> dict:
     return loaded
 
 
-def _call(kind, fn, fmt, X, long_blocks=SPMM_LONG_BLOCKS):
+def _call(kind, fn, fmt, X):
     """A closure launching another build on ``fmt`` (a new Y each call);
-    a variant takes the stripes of more than ``long_blocks`` blocks as
-    long."""
+    a variant is given the package's long stripes."""
     longs = fmt.long_stripes
-    if long_blocks != SPMM_LONG_BLOCKS:
-        longs = torch.nonzero(fmt.pos[1:] - fmt.pos[:-1] > long_blocks).flatten().int()
+    n_long = 0 if longs is None else longs.numel()
 
     def run():
         Y = torch.empty(fmt.n, X.shape[1], dtype=torch.float32, device=X.device)
         head = [fmt.L, X.shape[1]]
         if kind == "variant":
             head += [fmt.width_class, int(fmt.quad_widths), fmt.idx.numel(),
-                     long_blocks, longs.numel(), longs.data_ptr()]
+                     SPMM_LONG_BLOCKS, n_long, longs.data_ptr() if n_long else None]
         rc = fn(*head, fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(),
                 fmt.ofs.data_ptr(),
                 None if fmt.col_out is None else fmt.col_out.data_ptr(),
@@ -156,12 +155,12 @@ def _rel(a, b) -> float:
     return float((a - b).abs().max() / max(1e-6, float(b.abs().max())))
 
 
-def _shape(label, fmt, M, nnz, k, builds, dev, long_blocks=SPMM_LONG_BLOCKS) -> dict:
+def _shape(label, fmt, M, nnz, k, builds, dev) -> dict:
     rng = np.random.default_rng(16)
     X = torch.from_numpy(rng.standard_normal((fmt.m, k)).astype(np.float32)).to(dev)
     lib_M = csr(M, dev)
     cands = {"package": lambda: tr_spmm(fmt, X)}
-    cands.update({n: _call(kind, fn, fmt, X, long_blocks)
+    cands.update({n: _call(kind, fn, fmt, X)
                   for n, (kind, fn) in builds.items()})
     plain = tr_spmm_plain(fmt, X)
     library = lambda: lib_M @ X  # noqa: E731
@@ -232,9 +231,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--earlier", action="append",
                     help="NAME=SRC.cu, the interface without width, quads and "
                          "long stripes")
-    ap.add_argument("--long-blocks", type=int, default=SPMM_LONG_BLOCKS,
-                    help="the variants' long-stripe threshold (default the "
-                         f"package's, {SPMM_LONG_BLOCKS})")
     ap.add_argument("--json", help="also write the record to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -246,14 +242,13 @@ def main(argv=None) -> dict:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     _lib.load()
     builds = _build(_named(args.variant, "variant") + _named(args.earlier, "earlier"))
-    rec = {"card": smi, "long_blocks": args.long_blocks, "shapes": []}
+    rec = {"card": smi, "shapes": []}
     for name in dict.fromkeys(op for _, op, _, _ in SHAPES):
         A, op, pack = operator(name, dev)
         nnz = int(np.count_nonzero(sp.csc_matrix(A).data))
         for label, _, d, k in (s for s in SHAPES if s[1] == name):
             M = A.T if d == "tr" else A
-            rec["shapes"].append(_shape(label, pack(d), M, nnz, k, builds, dev,
-                                        args.long_blocks))
+            rec["shapes"].append(_shape(label, pack(d), M, nnz, k, builds, dev))
         del op
         torch.cuda.empty_cache()
     print(smi)
