@@ -263,6 +263,10 @@ KERNELS = (vt.tr_spmv, vt.gather, vt.gather_tiles, vt.tr_spmm, vt.tr_spmv_2d,
 PROBES = (probe_launch.add_one, probe_chunk.chunk, probe_chain.chain,
           probe_spmm4.fma)
 CHAIN_ITERS = 100  # the timed chain, at the JAX bench's alpha (bench.py:495)
+# the chain probe's marginal iterations (us) before its pack was held in
+# shared memory (the streaming walk, a thread a column), on an H100 80GB
+# HBM3 at 700 W: PERF.md, row 16
+STREAMING_CHAIN_US = {"A": 6.43, "B": 5.93, "C": 5.64, "D": 10.28}
 CHAIN_ALPHA = 0.999
 # H100 SXM data sheet: device-memory rate, f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1938,7 +1942,8 @@ def phase_probes(dev, floor_ms):
     every variant of the four probe kernels against its plain version at
     full size (gathers bitwise, sums to ``TOL``), each kernel's record for
     the kernels line, and the chain probe's marginal iterations beside the
-    chain's barrier floor of phase 8 (``floor_ms`` a 100-iteration call)."""
+    chain's barrier floor of phase 8 (``floor_ms`` a 100-iteration call)
+    and the streaming design's (``STREAMING_CHAIN_US``)."""
     t_phase = time.perf_counter()
     sp4 = probe_spmm4.inputs().to(dev)  # built once: 83M normal draws
     for k in PROBES:
@@ -1947,7 +1952,7 @@ def phase_probes(dev, floor_ms):
     launch = probe_launch.run(dev)
     pk = probe_kernel.run(dev)
     pk2 = probe_kernel2.run(dev)
-    chains = probe_chain.run(dev)
+    chains = probe_chain.run(dev, floor_ms / CHAIN_ITERS)
     spmm4 = probe_spmm4.run(dev, inp=sp4)
     t_run = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in PROBES}
@@ -1959,10 +1964,15 @@ def phase_probes(dev, floor_ms):
     probe_chain.print_records(chains, dev)
     probe_spmm4.print_record(spmm4, dev)
     floor_us = floor_ms * 1e3 / CHAIN_ITERS
-    print(f"[12 probes] chain probe, marginal us an iteration: "
-          + ", ".join(f"{r['variant']} {r['ms'] * 1e3:.3f}" for r in chains)
-          + f"; the chain kernel's barrier floor (phase 8) {floor_us:.3f} us an "
-          f"iteration; tiny launch a step: eager {launch['one']['wall_ms'] * 1e3:.2f}"
+    print(f"[12 probes] chain probe, marginal us an iteration (beside the chain "
+          f"kernel's barrier floor of phase 8, {floor_us:.3f} us, and the streaming "
+          f"design's, PERF.md row 16): "
+          + ", ".join(f"{r['variant']} {r['ms'] * 1e3:.3f} ({r['ms'] * 1e3 / floor_us:.2f}"
+                      f"x the floor; streaming {STREAMING_CHAIN_US[r['variant']]:.2f})"
+                      for r in chains)
+          + f"; grid {probe_chain.grid(dev, 'B')[0]} blocks at "
+          f"{probe_chain.grid(dev, 'B')[1]} B of shared memory each; tiny launch a "
+          f"step: eager {launch['one']['wall_ms'] * 1e3:.2f}"
           f" us (caller's clock), graph {launch['one']['graph_ms'] * 1e3:.2f} us "
           f"(device); add_one through "
           f"ctypes {launch['add_one']['wall_ms'] * 1e3:.2f} us, tr_spmv on one "
@@ -2059,7 +2069,8 @@ def phase_probes(dev, floor_ms):
                   **{f"ladder_red_{key}": v for key, v in entry(
                       d4, (probe_chunk.needed_bytes("ladder_red", inp4),
                            2 * inp4.val.numel())).items()}},
-        "chain": entry([b["ms"], plain_it, lib_it], (b["bytes"], b["flops"])),
+        "chain": {**entry([b["ms"], plain_it, lib_it], (b["bytes"], b["flops"])),
+                  "barrier_floor_ms": b["barrier_floor_ms"]},
         "fma": entry([spmm4["fma_ms"], fma_plain, spmm4["library_ms"]],
                      (spmm4["fma_bytes"], spmm4["fma_flops"])),
     }

@@ -1136,6 +1136,74 @@ def test_probe_chain_kernel_matches_plain(variant, n_iters, cuda_device):
     assert rel_err(got, want) <= TOL
 
 
+# (T, blocks, budget; None: the launcher's default) of the chain probe's
+# plans: one chunk; ranges starting at chunk starts (D's halo columns); a
+# forced small grid whose ranges pass the budget (spill); resident parts
+# ending at a chunk's last column; blocks with nothing resident, one
+# starting at 1024 (its carry from global memory); a small budget (partly
+# resident); budget 0 (all streamed)
+PROBE_CHAIN_PLANS = [(1, None, None), (3, 6, None), (5, 7, None), (40, 2, None),
+                     (3, 4, 95000), (2, 2, 320), (40, None, 40000), (40, None, 0)]
+
+
+@pytest.mark.parametrize("plan", PROBE_CHAIN_PLANS, ids=str)
+@pytest.mark.parametrize("variant", ["A", "B", "C", "D"])
+def test_probe_chain_kernel_plans(variant, plan, cuda_device):
+    """The chain probe at every kind of block range against its plain
+    version, x1-3; D bitwise B but at chunk starts, where it adds the
+    carry."""
+    from vbcs_tpu_torch.probes import probe_chain as pc
+
+    T, blocks, budget = plan
+    wblk = dict((v, w) for _, v, w in pc.VARIANTS)[variant]
+    inp = pc.inputs(T, wblk).to(cuda_device)
+    fit, b = pc.grid(cuda_device, variant, -1 if budget is None else budget)
+    p = pc.plan(T * 1024, fit if blocks is None else blocks, b, variant, wblk)
+    if (T, blocks) == (3, 6):
+        assert p.halo.sum() == (2 if variant == "D" else 0)
+    if (T, blocks) in ((40, 2), (3, 4)) or budget == 40000:
+        assert (p.spill > 0).all() and (p.resident > 0).all()
+    if budget in (0, 320):
+        assert (p.resident == 0).all()
+    for n in (1, 2, 3):
+        got = pc.chain(variant, inp, n, blocks, budget)
+        want = pc.chain_plain(variant, inp, n)
+        torch.cuda.synchronize()
+        assert got.shape == (8, T * 1024) and torch.isfinite(got).all()
+        assert rel_err(got, want) <= TOL, n
+    if variant == "D":
+        d = pc.chain("D", inp, 1, blocks, budget)
+        bb = pc.chain("B", inp, 1, blocks, budget)
+        s = torch.arange(1, T, device=cuda_device) * 1024
+        rest = torch.ones(T * 1024, dtype=torch.bool, device=cuda_device)
+        rest[s] = False
+        assert torch.equal(d[:, rest], bb[:, rest])
+        if T > 1:
+            assert rel_err(d[:, s], bb[:, s] + bb[:, s - 1]) <= TOL
+
+
+def test_probe_chain_refuses_what_does_not_fit(cuda_device):
+    """A budget over the card's limit or a grid that cannot be resident
+    raises; nothing falls back."""
+    from vbcs_tpu_torch.probes import probe_chain as pc
+
+    inp = pc.inputs(2).to(cuda_device)
+    fit, optin = pc.grid(cuda_device, "B")
+    before = pc.chain.launches
+    with pytest.raises(RuntimeError, match="grid"):
+        pc.grid(cuda_device, "B", optin + 1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pc.chain("B", inp, 1, budget=optin + 1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pc.chain("B", inp, 1, blocks=fit + 1)
+    off = torch.empty(inp.xin.numel() + 1, device=cuda_device)[1:].view_as(inp.xin)
+    with pytest.raises(ValueError, match="16 bytes"):  # read as float4
+        pc.chain("B", inp._replace(xin=off), 1)
+    assert pc.chain.launches == before
+    got = pc.chain("B", inp, 2)  # the card still launches it
+    assert rel_err(got, pc.chain_plain("B", inp, 2)) <= TOL
+
+
 def test_probe_spmm4_fma_kernel_matches_plain(cuda_device):
     """The FMA at full size (T = 157: Xg and out 164.6 MB each)."""
     from vbcs_tpu_torch.probes import probe_spmm4

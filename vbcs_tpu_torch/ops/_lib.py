@@ -140,9 +140,9 @@ def load():
             lib.vbcs_probe_add_one.restype = i32
             lib.vbcs_probe_chunk.argtypes = [i32] * 4 + [vp] * 7
             lib.vbcs_probe_chunk.restype = i32
-            lib.vbcs_probe_chain_grid.argtypes = [i32, ctypes.POINTER(i32)]
+            lib.vbcs_probe_chain_grid.argtypes = [i32] + [ctypes.POINTER(i32)] * 2
             lib.vbcs_probe_chain_grid.restype = i32
-            lib.vbcs_probe_chain.argtypes = [i32] * 4 + [vp] * 8 + [u32, i32, vp]
+            lib.vbcs_probe_chain.argtypes = [i32] * 4 + [vp] * 8 + [u32, i32, i32, vp]
             lib.vbcs_probe_chain.restype = i32
             lib.vbcs_probe_spmm4_fma.argtypes = [i32] + [vp] * 4
             lib.vbcs_probe_spmm4_fma.restype = i32

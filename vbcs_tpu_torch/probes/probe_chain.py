@@ -22,10 +22,13 @@ slice ``v``, with ``m`` the metadata at ``[s, c]``:
 
 :func:`chain` runs all ``n_iters`` iterations in one cooperative launch of
 ``csrc/probe_chain.cu`` on CUDA tensors and :func:`chain_plain` on CPU
-tensors; the probe reports the marginal time of an iteration by the
-difference of ``N_LO`` and ``N_HI`` iterations, as the TPU probe does.
-Values grow by about ``2.8`` an iteration, so long chains overflow to
-inf, on the TPU too: only short chains are compared.
+tensors.  The kernel's blocks own the column ranges of :func:`plan`, each
+holding its share of the pack (and its gather positions, decoded once) in
+shared memory across iterations, with the x windows it gathers from
+copied in at each iteration.  The probe reports the marginal time of
+an iteration by the difference of ``N_LO`` and ``N_HI`` iterations, as
+the TPU probe does.  Values grow by about ``2.8`` an iteration, so long
+chains overflow to inf, on the TPU too: only short chains are compared.
 
 Run on the card:  python -m vbcs_tpu_torch.probes.probe_chain
 """
@@ -41,8 +44,8 @@ import torch
 from ..ops import _lib
 from ._common import card, cuda_device, marginal_ms, report, warm_up
 
-__all__ = ["ChainInputs", "inputs", "VARIANTS", "chain", "chain_plain",
-           "library_matrix", "run", "main"]
+__all__ = ["ChainInputs", "ChainPlan", "inputs", "VARIANTS", "units", "plan", "grid",
+           "chain", "chain_plain", "library_matrix", "run", "main"]
 
 NG = NS = 1024  # columns of a chunk (the TPU probe's NG and NS)
 W = 8
@@ -57,7 +60,11 @@ VARIANTS = [
     ("D FULL v3 + carry chain", "D", 2),
 ]
 _CODES = {"A": 0, "B": 1, "C": 2, "D": 3}
-_grids: dict = {}  # (device index, variant) -> the occupancy grid
+# shared bytes a resident column (64 values, 8 positions) and a staged x
+# window (128 lanes, its start): csrc/probe_chain.cu kColBytes, kWinBytes
+COL_BYTES = 4 * (64 + 8)
+WIN_BYTES = 4 * (128 + 1)
+_grids: dict = {}  # (device index, variant, budget) -> (blocks, budget)
 
 
 class ChainInputs(NamedTuple):
@@ -87,6 +94,64 @@ def inputs(T: int = T, wblk: int = 2) -> ChainInputs:
     return ChainInputs(*(torch.from_numpy(a) for a in (val, meta, xin, wbase)), wblk)
 
 
+class ChainPlan(NamedTuple):
+    """The kernel's blocks: block ``b`` owns columns ``[lo[b], lo[b + 1])``,
+    of which the first ``resident[b]`` (and, where ``halo[b]``, column
+    ``lo[b] - 1``) live in shared memory with the ``windows[b]`` x windows
+    they gather from, ``bytes[b]`` in all; the rest, ``spill[b]``, are read
+    from global memory every iteration."""
+
+    lo: np.ndarray  # [G + 1] int64
+    resident: np.ndarray  # [G] int64
+    halo: np.ndarray  # [G] bool
+    windows: np.ndarray  # [G] int64
+    bytes: np.ndarray  # [G] int64
+
+    @property
+    def spill(self) -> np.ndarray:
+        return np.diff(self.lo) - self.resident
+
+
+def units(variant: str, wblk: int) -> tuple[int, int]:
+    """``(U, K)``: a variant's x windows come in units of ``U`` columns,
+    ``K`` windows of 128 lanes a unit (A: a chunk's first window of each
+    row; B-D: a slice's ``wblk`` windows of each row)."""
+    return (NS, 8) if variant == "A" else (128, 8 * wblk)
+
+
+def plan(X: int, blocks: int, budget: int, variant: str, wblk: int) -> ChainPlan:
+    """The column ranges of a launch of ``blocks`` blocks at ``budget``
+    bytes of shared memory each on ``X`` columns, as the kernel computes
+    them: ranges balanced to within one column, each block's first columns
+    resident, as many as fit with the windows they gather from; for D a
+    range starting at a chunk start ``t * NS > 0`` also holds the halo
+    column before it (the carry), if it holds any column."""
+    if blocks < 1 or budget < 0 or X < 0:
+        raise ValueError(f"need blocks >= 1, budget >= 0, X >= 0; got {blocks}, "
+                         f"{budget}, {X}")
+    U, K = units(variant, wblk)
+    lo = np.arange(blocks + 1, dtype=np.int64) * X // blocks
+    resident, halo, windows = (np.zeros(blocks, np.int64), np.zeros(blocks, bool),
+                               np.zeros(blocks, np.int64))
+    for b in range(blocks):
+        c0, n = int(lo[b]), int(lo[b + 1] - lo[b])
+        h = int(variant == "D" and c0 % NS == 0 and c0 > 0)
+
+        def nwin(nr):
+            return ((c0 + nr - 1) // U - (c0 - h) // U + 1) * K
+
+        def fits(nr):
+            return nr == 0 or (nr + h) * COL_BYTES + nwin(nr) * WIN_BYTES <= budget
+        a, z = 0, n  # the most resident columns that fit (a binary search)
+        while a < z:
+            mid = a + (z - a + 1) // 2
+            a, z = (mid, z) if fits(mid) else (a, mid - 1)
+        resident[b], halo[b] = a, a > 0 and h
+        windows[b] = nwin(a) if a else 0
+    return ChainPlan(lo, resident, halo, windows,
+                     (resident + halo) * COL_BYTES + windows * WIN_BYTES)
+
+
 def _check(variant: str, inp: ChainInputs, n_iters: int) -> None:
     if variant not in _CODES:
         raise ValueError(f"unknown chain variant {variant!r}")
@@ -96,49 +161,75 @@ def _check(variant: str, inp: ChainInputs, n_iters: int) -> None:
     dev = val.device
     X = val.shape[1] if val.dim() == 2 else 0
     if val.dtype != torch.float32 or val.shape != (8 * W, X) or X % NS or X == 0 \
-            or not val.is_contiguous():
-        raise ValueError(f"val must be contiguous f32 [64, T * {NS}]")
+            or 8 * W * X >= 2**31 or not val.is_contiguous():
+        raise ValueError(f"val must be contiguous f32 [64, T * {NS}], 64 X < 2^31")
     if meta.dtype != torch.int32 or meta.shape != (8, X) or not meta.is_contiguous():
         raise ValueError(f"meta must be contiguous int32 [8, {X}]")
     if xin.dtype != torch.float32 or xin.shape != (8, X) or not xin.is_contiguous():
         raise ValueError(f"xin must be contiguous f32 [8, {X}]")
-    if wbase.dtype != torch.int32 or wbase.numel() < (X // NS) * NV * inp.wblk \
+    # A reads wbase[t * 16] whatever wblk is
+    windows = 2 if variant == "A" else inp.wblk
+    if wbase.dtype != torch.int32 or wbase.numel() < (X // NS) * NV * windows \
             or inp.wblk not in (1, 2):
-        raise ValueError("wbase must be int32 with wblk (1 or 2) windows a slice")
+        raise ValueError("wbase must be int32 with wblk (1 or 2) windows a slice "
+                         "(A: 2)")
     if any(t.device != dev for t in (meta, xin, wbase)):
         raise ValueError("the inputs must lie on one device")
 
 
-def chain(variant: str, inp: ChainInputs, n_iters: int) -> torch.Tensor:
+def grid(device, variant: str, budget: int = -1) -> tuple[int, int]:
+    """``(blocks, budget)`` of a launch of ``variant`` on the CUDA
+    ``device``: every block the occupancy API fits at ``budget`` bytes of
+    shared memory a block (``-1``: the largest a block may take), cached
+    per device.  Raises ``RuntimeError`` for a budget over the device's
+    limit."""
+    dev = torch.device(device)
+    key = (dev.index, variant, budget)
+    if key not in _grids:
+        lib = _lib.load()
+        b, n = ctypes.c_int(budget), ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = lib.vbcs_probe_chain_grid(_CODES[variant], ctypes.byref(b),
+                                           ctypes.byref(n))
+        _lib.check(lib, rc, "probe chain grid")
+        _grids[key] = (n.value, b.value)
+    return _grids[key]
+
+
+def chain(variant: str, inp: ChainInputs, n_iters: int, blocks: int | None = None,
+          budget: int | None = None) -> torch.Tensor:
     """``out [W, X]`` after ``n_iters`` iterations of the chain probe
-    ``variant``: one cooperative launch on CUDA tensors (every block the
-    occupancy API fits, at most one a 256 columns), the plain version on
-    CPU tensors."""
+    ``variant``: one cooperative launch on CUDA tensors, the plain version
+    on CPU tensors.  ``budget``: shared bytes a block (default the largest
+    a block may take); ``blocks``: the grid (default every block the
+    occupancy API fits at that budget).  A grid or budget the card cannot
+    take raises ``RuntimeError``; nothing falls back."""
     _check(variant, inp, n_iters)
+    if blocks is not None and blocks < 1:
+        raise ValueError(f"blocks must be >= 1, got {blocks}")
+    if budget is not None and budget < 0:
+        raise ValueError(f"budget must be >= 0, got {budget}")
     dev = inp.val.device
     if dev.type == "cpu":
         return chain_plain(variant, inp, n_iters)
     if dev.type != "cuda":
         raise NotImplementedError(f"no chain probe kernel for device {dev}")
+    if inp.xin.data_ptr() % 16:
+        raise ValueError("xin must start on 16 bytes (the kernel reads it as float4)")
     X = inp.val.shape[1]
-    lib = _lib.load()
-    key = (dev.index, variant)
-    if key not in _grids:
-        n = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            rc = lib.vbcs_probe_chain_grid(_CODES[variant], ctypes.byref(n))
-        _lib.check(lib, rc, "probe chain grid")
-        _grids[key] = n.value
-    blocks = min(_grids[key], -(-X // 256))
+    fit, budget = grid(dev, variant, -1 if budget is None else budget)
+    blocks = fit if blocks is None else blocks
     out = torch.empty(W, X, dtype=torch.float32, device=dev)
     slots = torch.empty(2, 8, X, dtype=torch.float32, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
+    lib = _lib.load()
     with torch.cuda.device(dev):
         rc = lib.vbcs_probe_chain(
             _CODES[variant], n_iters, X // NS, inp.wblk, inp.val.data_ptr(),
             inp.meta.data_ptr(), inp.xin.data_ptr(), inp.wbase.data_ptr(),
             slots[0].data_ptr(), slots[1].data_ptr(), out.data_ptr(),
-            count.data_ptr(), 0, blocks, torch.cuda.current_stream(dev).cuda_stream)
+            count.data_ptr(), 0, blocks, budget,
+            torch.cuda.current_stream(dev).cuda_stream)
     _lib.check(lib, rc, f"probe chain {variant}")
     chain.launches += 1
     return out
@@ -211,18 +302,23 @@ def library_matrix(variant: str, inp: ChainInputs) -> torch.Tensor:
     return coo.coalesce().to_sparse_csr()
 
 
-def run(device) -> list[dict]:
+def run(device, barrier_floor_ms: float | None = None) -> list[dict]:
     """The marginal device time of one iteration of each variant on the
     CUDA ``device`` (``probes._common.marginal_ms`` of ``N_LO`` and
-    ``N_HI`` iterations).  Returns one record per variant."""
+    ``N_HI`` iterations).  Returns one record per variant, with
+    ``barrier_floor_ms`` (an iteration of the chain kernel's barrier
+    floor, measured by the caller) where it is given."""
     out = []
     for name, var, wblk in VARIANTS:
         inp = inputs(T, wblk).to(device)
         ms = marginal_ms(lambda n, var=var, inp=inp: chain(var, inp, n),
                          N_LO, N_HI, device)
-        out.append({"name": name, "variant": var, "ms": ms, "T": T,
-                    # per iteration: the pack is read once a call
-                    "bytes": 0, "flops": 2 * inp.val.numel()})
+        rec = {"name": name, "variant": var, "ms": ms, "T": T,
+               # per iteration: the pack is read once a call
+               "bytes": 0, "flops": 2 * inp.val.numel()}
+        if barrier_floor_ms is not None:
+            rec["barrier_floor_ms"] = barrier_floor_ms
+        out.append(rec)
     return out
 
 
