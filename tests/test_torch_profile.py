@@ -1,10 +1,7 @@
 """``vbcs_tpu_torch/utils/profile.py``: the bytes a TrSpMV over each
 device format moves, the roofline from the card's data-sheet peaks (a CPU
-device or an unknown card raises), and the ``torch.profiler`` trace.
-The card's name is patched in; no number here is a device measurement."""
-
-import json
-import os
+device or an unknown card raises).  The card's name is patched in; no
+number here is a device measurement."""
 
 import numpy as np
 import pytest
@@ -65,10 +62,3 @@ def test_roofline_refuses_cpu_and_unknown_cards(monkeypatch):
     with pytest.raises(ValueError, match="GPU X"):
         profile.roofline(100, 1.0, "cuda")
 
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    with profile.trace(str(tmp_path / "t")) as prof:
-        torch.ones(64).cumsum(0)
-    assert len(prof.key_averages()) > 0
-    with open(os.path.join(tmp_path, "t", "trace.json")) as f:
-        assert "traceEvents" in json.load(f)

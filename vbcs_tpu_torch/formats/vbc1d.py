@@ -26,6 +26,7 @@ import dataclasses
 import numpy as np
 
 from ..native import pack_1dvbc_native
+from ..utils import trace
 from ..utils.dtypes import acc_dtype
 from .csc import CSC
 from .partition import SplitPartition
@@ -138,73 +139,74 @@ def pack_1dvbc(A: CSC, Phi: SplitPartition, W: int | None = None) -> VBC1D:
     (stripe, row) blocks via a sort/unique and fills a dense w-slice per
     block with explicit zeros.
     """
-    m, n = A.m, A.n
-    spl = Phi.spl
-    L = len(Phi)
-    widths = Phi.widths()
-    if W is None:
-        W = max(1, int(widths.max(initial=1)))
-    if int(widths.max(initial=0)) > W:
-        raise ValueError(f"partition width {int(widths.max())} exceeds W={W}")
-    if Phi.n != n:
-        raise ValueError("partition does not cover the columns of A")
+    with trace.span("plan.pack"):
+        m, n = A.m, A.n
+        spl = Phi.spl
+        L = len(Phi)
+        widths = Phi.widths()
+        if W is None:
+            W = max(1, int(widths.max(initial=1)))
+        if int(widths.max(initial=0)) > W:
+            raise ValueError(f"partition width {int(widths.max())} exceeds W={W}")
+        if Phi.n != n:
+            raise ValueError("partition does not cover the columns of A")
 
-    # C++ fast path (exact same layout).  float64 staging is value-exact
-    # for f32/f64/ints<2^53/bool.
-    if A.val.dtype.kind in "fb" or (
-        A.val.dtype.kind in "iu" and A.val.dtype.itemsize <= 4
-    ):
-        packed = pack_1dvbc_native(m, n, A.pos, A.idx, A.val, spl)
-        if packed is not None:
-            bpos, bidx, bofs, bval = packed
-            return VBC1D(
-                m=m,
-                n=n,
-                W=int(W),
-                Phi=Phi,
-                pos=bpos,
-                idx=bidx,
-                ofs=bofs,
-                val=bval.astype(A.val.dtype),
+        # C++ fast path (exact same layout).  float64 staging is value-exact
+        # for f32/f64/ints<2^53/bool.
+        if A.val.dtype.kind in "fb" or (
+            A.val.dtype.kind in "iu" and A.val.dtype.itemsize <= 4
+        ):
+            packed = pack_1dvbc_native(m, n, A.pos, A.idx, A.val, spl)
+            if packed is not None:
+                bpos, bidx, bofs, bval = packed
+                return VBC1D(
+                    m=m,
+                    n=n,
+                    W=int(W),
+                    Phi=Phi,
+                    pos=bpos,
+                    idx=bidx,
+                    ofs=bofs,
+                    val=bval.astype(A.val.dtype),
+                )
+
+        nnz = A.nnz
+        col_of_nz = np.repeat(np.arange(n, dtype=np.int64), np.diff(A.pos))
+        stripe_of_nz = np.searchsorted(spl, col_of_nz, side="right") - 1
+
+        # Distinct (stripe, row) pairs, ordered by stripe then row — the block
+        # list.  ``inverse`` maps each nonzero to its block.
+        key = stripe_of_nz * np.int64(max(m, 1)) + A.idx
+        uniq, inverse = np.unique(key, return_inverse=True)
+        block_stripe = uniq // max(m, 1)
+        block_row = uniq % max(m, 1)
+
+        blocks_per_stripe = np.bincount(block_stripe, minlength=L).astype(np.int64)
+        pos = np.zeros(L + 1, dtype=np.int64)
+        np.cumsum(blocks_per_stripe, out=pos[1:])
+
+        ofs = np.zeros(L + 1, dtype=np.int64)
+        np.cumsum(blocks_per_stripe * widths, out=ofs[1:])
+
+        val = np.zeros(int(ofs[-1]), dtype=A.val.dtype)
+        if nnz:
+            b = inverse  # block id per nonzero
+            l_of_nz = stripe_of_nz
+            # value position: stripe base + block slot * width + column offset
+            vpos = (
+                ofs[l_of_nz]
+                + (b - pos[l_of_nz]) * widths[l_of_nz]
+                + (col_of_nz - spl[l_of_nz])
             )
+            val[vpos] = A.val
 
-    nnz = A.nnz
-    col_of_nz = np.repeat(np.arange(n, dtype=np.int64), np.diff(A.pos))
-    stripe_of_nz = np.searchsorted(spl, col_of_nz, side="right") - 1
-
-    # Distinct (stripe, row) pairs, ordered by stripe then row — the block
-    # list.  ``inverse`` maps each nonzero to its block.
-    key = stripe_of_nz * np.int64(max(m, 1)) + A.idx
-    uniq, inverse = np.unique(key, return_inverse=True)
-    block_stripe = uniq // max(m, 1)
-    block_row = uniq % max(m, 1)
-
-    blocks_per_stripe = np.bincount(block_stripe, minlength=L).astype(np.int64)
-    pos = np.zeros(L + 1, dtype=np.int64)
-    np.cumsum(blocks_per_stripe, out=pos[1:])
-
-    ofs = np.zeros(L + 1, dtype=np.int64)
-    np.cumsum(blocks_per_stripe * widths, out=ofs[1:])
-
-    val = np.zeros(int(ofs[-1]), dtype=A.val.dtype)
-    if nnz:
-        b = inverse  # block id per nonzero
-        l_of_nz = stripe_of_nz
-        # value position: stripe base + block slot * width + column offset
-        vpos = (
-            ofs[l_of_nz]
-            + (b - pos[l_of_nz]) * widths[l_of_nz]
-            + (col_of_nz - spl[l_of_nz])
+        return VBC1D(
+            m=m,
+            n=n,
+            W=int(W),
+            Phi=Phi,
+            pos=pos,
+            idx=block_row.astype(np.int64),
+            ofs=ofs,
+            val=val,
         )
-        val[vpos] = A.val
-
-    return VBC1D(
-        m=m,
-        n=n,
-        W=int(W),
-        Phi=Phi,
-        pos=pos,
-        idx=block_row.astype(np.int64),
-        ofs=ofs,
-        val=val,
-    )

@@ -65,6 +65,7 @@ from .ops.trspmv import _check_vec, tr_spmv
 from .ops.trspmv2d import tr_spmv_2d
 from .plan.alternating import pack_stripe
 from .plan.reorder import rcm_symmetric, window_badness
+from .utils import trace
 
 __all__ = ["VBCOperator", "VBC2DOperator", "route_tr_spmv", "route_tr_spmv_2d",
            "mean_tile_height", "tile2d_worthwhile", "TILE2D_MIN_HEIGHT"]
@@ -73,6 +74,10 @@ __all__ = ["VBCOperator", "VBC2DOperator", "route_tr_spmv", "route_tr_spmv_2d",
 # at least this tall on average runs the tile kernel, a flatter one the
 # stripe kernel on its 1-D view (GUARD 2-D data on an H100, PERF.md).
 TILE2D_MIN_HEIGHT = 2.0
+
+# the tracer's root span of each call, by direction (utils/trace.py)
+_VEC_SPANS = {"tr": "op.tr_mul", "fw": "op.mul"}
+_MAT_SPANS = {"tr": "op.tr_mul_mat", "fw": "op.mul_mat"}
 
 
 def route_tr_spmv(B, device, stripe: VBC1DDevice | None = None,
@@ -227,11 +232,12 @@ class _Directions:
     def _apply(self, which, x, alpha, beta, y):
         """``tr_mul``/``mul`` of one direction: the routed kernel with
         alpha/beta fused, or the semiring route and ``_axpby``."""
-        if not self._kernels_take(x):
-            out = semiring.tr_spmv(getattr(self, f"semi_{which}"), x)
-            return _axpby(out, alpha, beta, y)
-        _, fmt, call = getattr(self, f"route_{which}")
-        return call(fmt, x, alpha, beta, y)
+        with trace.span(_VEC_SPANS[which]):
+            if not self._kernels_take(x):
+                out = semiring.tr_spmv(getattr(self, f"semi_{which}"), x)
+                return _axpby(out, alpha, beta, y)
+            _, fmt, call = getattr(self, f"route_{which}")
+            return call(fmt, x, alpha, beta, y)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,36 +280,38 @@ class VBCOperator(_Directions):
         helps; "never"/"always" force it off/on.  The operator carries the
         permutation and applies it at the call boundaries.
         """
-        if directions not in ("both", "transposed", "forward"):
-            raise ValueError(f"unknown directions {directions!r}")
-        if reorder not in ("auto", "always", "never"):
-            raise ValueError(f"unknown reorder {reorder!r}")
-        A = _as_csc(A)
-        method = method or default_1d_partitioner(W, A.val.dtype.itemsize)
-        method_forward = method_forward or method
+        with trace.span("from_csc"):
+            if directions not in ("both", "transposed", "forward"):
+                raise ValueError(f"unknown directions {directions!r}")
+            if reorder not in ("auto", "always", "never"):
+                raise ValueError(f"unknown reorder {reorder!r}")
+            A = _as_csc(A)
+            method = method or default_1d_partitioner(W, A.val.dtype.itemsize)
+            method_forward = method_forward or method
 
-        row_perm = None
-        probe_pack = None  # reused as host_tr (same method/W as the probe)
-        if reorder in ("auto", "always") and A.m == A.n and A.m > 1024:
-            probe_pack = pack_1dvbc(A, pack_stripe(A, method), W)
-            bad = window_badness(probe_pack)
-            if reorder == "always" or bad > 0.05:
-                Ap, perm = rcm_symmetric(A)
-                probe_p = pack_1dvbc(Ap, pack_stripe(Ap, method), W)
-                if reorder == "always" or window_badness(probe_p) < bad:
-                    A, row_perm = Ap, perm
-                    probe_pack = probe_p
+            row_perm = None
+            probe_pack = None  # reused as host_tr (same method/W as the probe)
+            if reorder in ("auto", "always") and A.m == A.n and A.m > 1024:
+                probe_pack = pack_1dvbc(A, pack_stripe(A, method), W)
+                bad = window_badness(probe_pack)
+                if reorder == "always" or bad > 0.05:
+                    Ap, perm = rcm_symmetric(A)
+                    probe_p = pack_1dvbc(Ap, pack_stripe(Ap, method), W)
+                    if reorder == "always" or window_badness(probe_p) < bad:
+                        A, row_perm = Ap, perm
+                        probe_pack = probe_p
 
-        host_tr = host_fw = None
-        if directions in ("both", "transposed"):
-            if probe_pack is not None:
-                host_tr = probe_pack
-            else:
-                host_tr = pack_1dvbc(A, pack_stripe(A, method), W)
-        if directions in ("both", "forward"):
-            At = A.transpose()
-            host_fw = pack_1dvbc(At, pack_stripe(At, method_forward), W)
-        return VBCOperator.from_host(host_tr, host_fw, row_perm, device)
+            host_tr = host_fw = None
+            if directions in ("both", "transposed"):
+                if probe_pack is not None:
+                    host_tr = probe_pack
+                else:
+                    host_tr = pack_1dvbc(A, pack_stripe(A, method), W)
+            if directions in ("both", "forward"):
+                with trace.span("plan.transpose"):
+                    At = A.transpose()
+                host_fw = pack_1dvbc(At, pack_stripe(At, method_forward), W)
+            return VBCOperator.from_host(host_tr, host_fw, row_perm, device)
 
     @staticmethod
     def from_host(host_tr, host_fw, row_perm, device="cuda") -> "VBCOperator":
@@ -312,28 +320,29 @@ class VBCOperator(_Directions):
         be None; ``row_perm`` is the symmetric relabeling the packs were
         built under, or None.  The kernels' formats are copied for an f32
         matrix only."""
-        device = torch.device(device)
-        m, n = _shape_of(host_tr, host_fw)
-        perm_t = inv_t = None
-        if row_perm is not None:
-            row_perm = np.asarray(row_perm, dtype=np.int64)
-            if m != n or not np.array_equal(np.sort(row_perm), np.arange(m)):
-                raise ValueError("row_perm must be a permutation of range(m) "
-                                 "of a square operator")
-            inv = np.empty_like(row_perm)
-            inv[row_perm] = np.arange(m)
-            perm_t = torch.from_numpy(row_perm.astype(np.int32)).to(device)
-            inv_t = torch.from_numpy(inv.astype(np.int32)).to(device)
+        with trace.span("plan.upload"):
+            device = torch.device(device)
+            m, n = _shape_of(host_tr, host_fw)
+            perm_t = inv_t = None
+            if row_perm is not None:
+                row_perm = np.asarray(row_perm, dtype=np.int64)
+                if m != n or not np.array_equal(np.sort(row_perm), np.arange(m)):
+                    raise ValueError("row_perm must be a permutation of range(m) "
+                                     "of a square operator")
+                inv = np.empty_like(row_perm)
+                inv[row_perm] = np.arange(m)
+                perm_t = torch.from_numpy(row_perm.astype(np.int32)).to(device)
+                inv_t = torch.from_numpy(inv.astype(np.int32)).to(device)
 
-        def copy(host):
-            return (VBC1DDevice.from_host(host, device)
-                    if host is not None and _is_f32(host) else None)
+            def copy(host):
+                return (VBC1DDevice.from_host(host, device)
+                        if host is not None and _is_f32(host) else None)
 
-        return VBCOperator(
-            m=m, n=n, host_tr=host_tr, host_fw=host_fw, device=device,
-            dev_tr=copy(host_tr), dev_fw=copy(host_fw),
-            row_perm=row_perm, perm_t=perm_t, inv_t=inv_t,
-        )
+            return VBCOperator(
+                m=m, n=n, host_tr=host_tr, host_fw=host_fw, device=device,
+                dev_tr=copy(host_tr), dev_fw=copy(host_fw),
+                row_perm=row_perm, perm_t=perm_t, inv_t=inv_t,
+            )
 
     @property
     def shape(self):
@@ -353,21 +362,24 @@ class VBCOperator(_Directions):
     def nat_tr(self) -> VBC1DDevice:
         """The A pack in natural order: ``dev_tr``, or on an auto-RCM
         operator its natural view (built on first use)."""
-        fmt = self._packed("tr")
-        return fmt if self.perm_t is None else fmt.natural_view(self.perm_t)
+        with trace.span("op.route"):
+            fmt = self._packed("tr")
+            return fmt if self.perm_t is None else fmt.natural_view(self.perm_t)
 
     @functools.cached_property
     def nat_fw(self) -> VBC1DDevice:
         """The A.T pack in natural order (see :attr:`nat_tr`)."""
-        fmt = self._packed("fw")
-        return fmt if self.perm_t is None else fmt.natural_view(self.perm_t)
+        with trace.span("op.route"):
+            fmt = self._packed("fw")
+            return fmt if self.perm_t is None else fmt.natural_view(self.perm_t)
 
     def _route(self, which: str):
         host = self._host(which)
         self._packed(which)  # raises for a non-f32 matrix
         # the stripe format's natural view only where the stripe kernel runs
         stripe = None if scatter_admits(host) else getattr(self, f"nat_{which}")
-        return route_tr_spmv(host, self.device, stripe, self.perm_t)
+        with trace.span("op.route"):
+            return route_tr_spmv(host, self.device, stripe, self.perm_t)
 
     @functools.cached_property
     def route_tr(self):
@@ -405,19 +417,20 @@ class VBCOperator(_Directions):
         ``perm``: one launch, no gather kernel).  A non-f32 matrix or x runs the JAX
         operators' loop instead (``tr_mul``, then alpha rounded to f32,
         each iteration)."""
-        self._host("tr")  # raises when that direction was not packed
-        if self.m != self.n:
-            raise ValueError(f"tr_mul_chain needs a square operator, got "
-                             f"{self.m}x{self.n}")
-        if n_iters < 0:
-            raise ValueError(f"n_iters must be >= 0, got {n_iters}")
-        if not self._kernels_take(x):
-            return self._semiring_chain(x, n_iters, alpha)
-        fmt = self._packed("tr")
-        _check_vec("x", x, self.m, self.device)
-        if n_iters == 0:
-            return x.clone()
-        return tr_spmv_chain(fmt, x, n_iters, alpha, self.perm_t)
+        with trace.span("op.tr_mul_chain"):
+            self._host("tr")  # raises when that direction was not packed
+            if self.m != self.n:
+                raise ValueError(f"tr_mul_chain needs a square operator, got "
+                                 f"{self.m}x{self.n}")
+            if n_iters < 0:
+                raise ValueError(f"n_iters must be >= 0, got {n_iters}")
+            if not self._kernels_take(x):
+                return self._semiring_chain(x, n_iters, alpha)
+            fmt = self._packed("tr")
+            _check_vec("x", x, self.m, self.device)
+            if n_iters == 0:
+                return x.clone()
+            return tr_spmv_chain(fmt, x, n_iters, alpha, self.perm_t)
 
     def _semiring_chain(self, x, n_iters: int, alpha):
         """The JAX operators' ``fori_loop`` of ``tr_mul`` and ``* alpha``
@@ -437,9 +450,10 @@ class VBCOperator(_Directions):
         return out
 
     def _apply_mat(self, which, X):
-        if not self._kernels_take(X):
-            return semiring.tr_spmm(getattr(self, f"semi_{which}"), X)
-        return tr_spmm(getattr(self, f"nat_{which}"), X)
+        with trace.span(_MAT_SPANS[which]):
+            if not self._kernels_take(X):
+                return semiring.tr_spmm(getattr(self, f"semi_{which}"), X)
+            return tr_spmm(getattr(self, f"nat_{which}"), X)
 
     def tr_mul_mat(self, X):
         """Y = A.T @ X for a dense RHS ``X [m, k]`` on the operator's
@@ -510,29 +524,33 @@ class VBC2DOperator(_Directions):
             raise ValueError(f"unknown directions {directions!r}")
         if U < 1 or W < 1:
             raise ValueError(f"U and W must be >= 1, got U={U}, W={W}")
-        A = _as_csc(A)
-        host_tr = host_fw = None
-        if directions in ("both", "transposed"):
-            host_tr = vbc2d(A, U, W, method)
-        if directions in ("both", "forward"):
-            host_fw = vbc2d(A.transpose(), W, U, method_forward)
-        return VBC2DOperator.from_host(host_tr, host_fw, device)
+        with trace.span("from_csc"):
+            A = _as_csc(A)
+            host_tr = host_fw = None
+            if directions in ("both", "transposed"):
+                host_tr = vbc2d(A, U, W, method)
+            if directions in ("both", "forward"):
+                with trace.span("plan.transpose"):
+                    At = A.transpose()
+                host_fw = vbc2d(At, W, U, method_forward)
+            return VBC2DOperator.from_host(host_tr, host_fw, device)
 
     @staticmethod
     def from_host(host_tr, host_fw, device="cuda") -> "VBC2DOperator":
         """Operator over existing packs (this port's or the JAX package's
         ``VBC2D``): ``host_tr`` packs A, ``host_fw`` packs A.T, either may
         be None."""
-        device = torch.device(device)
-        m, n = _shape_of(host_tr, host_fw)
+        with trace.span("plan.upload"):
+            device = torch.device(device)
+            m, n = _shape_of(host_tr, host_fw)
 
-        def copy(host):
-            return (VBC2DDevice.from_host(host, device)
-                    if host is not None and _is_f32(host) else None)
+            def copy(host):
+                return (VBC2DDevice.from_host(host, device)
+                        if host is not None and _is_f32(host) else None)
 
-        return VBC2DOperator(m=m, n=n, host_tr=host_tr, host_fw=host_fw,
-                             device=device, dev_tr=copy(host_tr),
-                             dev_fw=copy(host_fw))
+            return VBC2DOperator(m=m, n=n, host_tr=host_tr, host_fw=host_fw,
+                                 device=device, dev_tr=copy(host_tr),
+                                 dev_fw=copy(host_fw))
 
     @property
     def shape(self):
@@ -556,12 +574,14 @@ class VBC2DOperator(_Directions):
     def route_tr(self):
         """``route_tr_spmv_2d`` of the A pack, ``(name, fmt, call)`` (lazy;
         the view route shares :attr:`view_tr`)."""
-        return route_tr_spmv_2d(self._host("tr"), self.device, self._packed("tr"))
+        with trace.span("op.route"):
+            return route_tr_spmv_2d(self._host("tr"), self.device, self._packed("tr"))
 
     @functools.cached_property
     def route_fw(self):
         """``route_tr_spmv_2d`` of the A.T pack (for ``mul``; lazy)."""
-        return route_tr_spmv_2d(self._host("fw"), self.device, self._packed("fw"))
+        with trace.span("op.route"):
+            return route_tr_spmv_2d(self._host("fw"), self.device, self._packed("fw"))
 
     # ---- compute ---------------------------------------------------------
 
@@ -578,9 +598,10 @@ class VBC2DOperator(_Directions):
         return self._apply("fw", x, alpha, beta, y)
 
     def _apply_mat(self, which, X):
-        if not self._kernels_take(X):
-            return semiring.tr_spmm(getattr(self, f"semi_{which}"), X)
-        return tr_spmm(getattr(self, f"view_{which}"), X)
+        with trace.span(_MAT_SPANS[which]):
+            if not self._kernels_take(X):
+                return semiring.tr_spmm(getattr(self, f"semi_{which}"), X)
+            return tr_spmm(getattr(self, f"view_{which}"), X)
 
     def tr_mul_mat(self, X):
         """Y = A.T @ X for a dense RHS ``X [m, k]`` (the SpMM kernel on

@@ -19,6 +19,8 @@ import tempfile
 import threading
 import time
 
+from ..utils import trace
+
 __all__ = ["build", "load", "check"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -95,60 +97,61 @@ def load():
     global _lib
     with _lock:
         if _lib is None:
-            build()
-            lib = ctypes.CDLL(SO)
-            vp, i32, u32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
-                                      ctypes.c_uint32, ctypes.c_int64,
-                                      ctypes.c_float)
-            lib.vbcs_tr_spmv.argtypes = [i32] * 3 + [vp] * 9 + [f32, f32, vp, vp]
-            lib.vbcs_tr_spmv.restype = i32
-            lib.vbcs_tr_spmv_2d.argtypes = [i32, i32] + [vp] * 7 + [f32, f32, vp, vp]
-            lib.vbcs_tr_spmv_2d.restype = i32
-            lib.vbcs_tr_spmm.argtypes = [i32, i64, i32, i32, i64, i32, i32] + [vp] * 10
-            lib.vbcs_tr_spmm.restype = i32
-            lib.vbcs_gather.argtypes = [i32, vp, vp, vp, vp, vp]
-            lib.vbcs_gather.restype = i32
-            lib.vbcs_gather_tiles.argtypes = [i32, vp, vp, vp, vp]
-            lib.vbcs_gather_tiles.restype = i32
-            lib.vbcs_tr_spmv_scatter.argtypes = [i32, i32] + [vp] * 9 + [
-                f32, f32, vp, vp]
-            lib.vbcs_tr_spmv_scatter.restype = i32
-            lib.vbcs_tr_spmv_chain.argtypes = [i32, i32] + [vp] * 8 + [
-                f32, vp, vp, vp, vp, vp, vp, u32, i32, i32, vp]
-            lib.vbcs_tr_spmv_chain.restype = i32
-            lib.vbcs_chain_grid.argtypes = [ctypes.POINTER(i32)] * 2
-            lib.vbcs_chain_grid.restype = i32
-            lib.vbcs_tile_relayout.argtypes = [i32, i32, vp, vp, vp]
-            lib.vbcs_tile_relayout.restype = i32
-            # the split-point DP (ops/dp.py)
-            lib.vbcs_dp_table.argtypes = [i64, i32, i32, i64] + [vp] * 9
-            lib.vbcs_dp_table.restype = i32
-            lib.vbcs_dp_table_scratch_doubles.argtypes = [i64, i32, i32]
-            lib.vbcs_dp_table_scratch_doubles.restype = i64
-            lib.vbcs_dp_recurrence.argtypes = [i64, i32] + [vp] * 4
-            lib.vbcs_dp_recurrence.restype = i32
-            lib.vbcs_dp_scan_scratch_doubles.argtypes = [i64, i32]
-            lib.vbcs_dp_scan_scratch_doubles.restype = i64
-            lib.vbcs_dp_scan.argtypes = [i64, i32] + [vp] * 5
-            lib.vbcs_dp_scan.restype = i32
-            lib.vbcs_dp_recurrence_checked.argtypes = [i64, i32, i32, i32] + [vp] * 6
-            lib.vbcs_dp_recurrence_checked.restype = i32
-            lib.vbcs_dp_chain_floor.argtypes = [i64] + [vp] * 3
-            lib.vbcs_dp_chain_floor.restype = i32
-            # the probes (vbcs_tpu_torch/probes)
-            lib.vbcs_probe_add_one.argtypes = [i32, vp, vp, vp]
-            lib.vbcs_probe_add_one.restype = i32
-            lib.vbcs_probe_chunk.argtypes = [i32] * 4 + [vp] * 7
-            lib.vbcs_probe_chunk.restype = i32
-            lib.vbcs_probe_chain_grid.argtypes = [i32] + [ctypes.POINTER(i32)] * 2
-            lib.vbcs_probe_chain_grid.restype = i32
-            lib.vbcs_probe_chain.argtypes = [i32] * 4 + [vp] * 8 + [u32, i32, i32, vp]
-            lib.vbcs_probe_chain.restype = i32
-            lib.vbcs_probe_spmm4_fma.argtypes = [i32] + [vp] * 4
-            lib.vbcs_probe_spmm4_fma.restype = i32
-            lib.vbcs_error_string.argtypes = [i32]
-            lib.vbcs_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            with trace.span("lib.load"):
+                build()
+                lib = ctypes.CDLL(SO)
+                vp, i32, u32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_uint32, ctypes.c_int64,
+                                          ctypes.c_float)
+                lib.vbcs_tr_spmv.argtypes = [i32] * 3 + [vp] * 9 + [f32, f32, vp, vp]
+                lib.vbcs_tr_spmv.restype = i32
+                lib.vbcs_tr_spmv_2d.argtypes = [i32, i32] + [vp] * 7 + [f32, f32, vp, vp]
+                lib.vbcs_tr_spmv_2d.restype = i32
+                lib.vbcs_tr_spmm.argtypes = [i32, i64, i32, i32, i64, i32, i32] + [vp] * 10
+                lib.vbcs_tr_spmm.restype = i32
+                lib.vbcs_gather.argtypes = [i32, vp, vp, vp, vp, vp]
+                lib.vbcs_gather.restype = i32
+                lib.vbcs_gather_tiles.argtypes = [i32, vp, vp, vp, vp]
+                lib.vbcs_gather_tiles.restype = i32
+                lib.vbcs_tr_spmv_scatter.argtypes = [i32, i32] + [vp] * 9 + [
+                    f32, f32, vp, vp]
+                lib.vbcs_tr_spmv_scatter.restype = i32
+                lib.vbcs_tr_spmv_chain.argtypes = [i32, i32] + [vp] * 8 + [
+                    f32, vp, vp, vp, vp, vp, vp, u32, i32, i32, vp]
+                lib.vbcs_tr_spmv_chain.restype = i32
+                lib.vbcs_chain_grid.argtypes = [ctypes.POINTER(i32)] * 2
+                lib.vbcs_chain_grid.restype = i32
+                lib.vbcs_tile_relayout.argtypes = [i32, i32, vp, vp, vp]
+                lib.vbcs_tile_relayout.restype = i32
+                # the split-point DP (ops/dp.py)
+                lib.vbcs_dp_table.argtypes = [i64, i32, i32, i64] + [vp] * 9
+                lib.vbcs_dp_table.restype = i32
+                lib.vbcs_dp_table_scratch_doubles.argtypes = [i64, i32, i32]
+                lib.vbcs_dp_table_scratch_doubles.restype = i64
+                lib.vbcs_dp_recurrence.argtypes = [i64, i32] + [vp] * 4
+                lib.vbcs_dp_recurrence.restype = i32
+                lib.vbcs_dp_scan_scratch_doubles.argtypes = [i64, i32]
+                lib.vbcs_dp_scan_scratch_doubles.restype = i64
+                lib.vbcs_dp_scan.argtypes = [i64, i32] + [vp] * 5
+                lib.vbcs_dp_scan.restype = i32
+                lib.vbcs_dp_recurrence_checked.argtypes = [i64, i32, i32, i32] + [vp] * 6
+                lib.vbcs_dp_recurrence_checked.restype = i32
+                lib.vbcs_dp_chain_floor.argtypes = [i64] + [vp] * 3
+                lib.vbcs_dp_chain_floor.restype = i32
+                # the probes (vbcs_tpu_torch/probes)
+                lib.vbcs_probe_add_one.argtypes = [i32, vp, vp, vp]
+                lib.vbcs_probe_add_one.restype = i32
+                lib.vbcs_probe_chunk.argtypes = [i32] * 4 + [vp] * 7
+                lib.vbcs_probe_chunk.restype = i32
+                lib.vbcs_probe_chain_grid.argtypes = [i32] + [ctypes.POINTER(i32)] * 2
+                lib.vbcs_probe_chain_grid.restype = i32
+                lib.vbcs_probe_chain.argtypes = [i32] * 4 + [vp] * 8 + [u32, i32, i32, vp]
+                lib.vbcs_probe_chain.restype = i32
+                lib.vbcs_probe_spmm4_fma.argtypes = [i32] + [vp] * 4
+                lib.vbcs_probe_spmm4_fma.restype = i32
+                lib.vbcs_error_string.argtypes = [i32]
+                lib.vbcs_error_string.restype = ctypes.c_char_p
+                _lib = lib
         return _lib
 
 

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ..formats.device import VBC1DDevice
+from ..utils import trace
 from . import _lib
 from .trspmv import _check_vec, tr_spmv_plain
 
@@ -263,19 +264,20 @@ def tr_spmv_chain(fmt: VBC1DDevice, x: torch.Tensor, n_iters: int,
         dst = ends[(n_launches - 1 - j) % 2]
         x_map = perm if j == 0 else None
         y_map = perm if j == n_launches - 1 else None
-        with torch.cuda.device(dev):
-            rc = lib.vbcs_tr_spmv_chain(
-                k, fmt.L, plan.buf.data_ptr(), fmt.spl.data_ptr(), fmt.pos.data_ptr(),
-                fmt.idx.data_ptr(), fmt.ofs.data_ptr(), fmt.col_stripe.data_ptr(),
-                fmt.val.data_ptr(), src.data_ptr(),
-                1.0 if alpha is None else float(alpha),
-                None if bufs is None else bufs[0].data_ptr(),
-                None if bufs is None else bufs[1].data_ptr(), dst.data_ptr(),
-                None if x_map is None else x_map.data_ptr(),
-                None if y_map is None else y_map.data_ptr(),
-                count.data_ptr(), 0, blocks, budget,
-                torch.cuda.current_stream(dev).cuda_stream)
-        _lib.check(lib, rc, "tr_spmv_chain")
+        with trace.span("op.launch"):
+            with torch.cuda.device(dev):
+                rc = lib.vbcs_tr_spmv_chain(
+                    k, fmt.L, plan.buf.data_ptr(), fmt.spl.data_ptr(),
+                    fmt.pos.data_ptr(), fmt.idx.data_ptr(), fmt.ofs.data_ptr(),
+                    fmt.col_stripe.data_ptr(), fmt.val.data_ptr(), src.data_ptr(),
+                    1.0 if alpha is None else float(alpha),
+                    None if bufs is None else bufs[0].data_ptr(),
+                    None if bufs is None else bufs[1].data_ptr(), dst.data_ptr(),
+                    None if x_map is None else x_map.data_ptr(),
+                    None if y_map is None else y_map.data_ptr(),
+                    count.data_ptr(), 0, blocks, budget,
+                    torch.cuda.current_stream(dev).cuda_stream)
+            _lib.check(lib, rc, "tr_spmv_chain")
         tr_spmv_chain.launches += 1
         src = dst
     return out

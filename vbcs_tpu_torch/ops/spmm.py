@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..formats.device import SPMM_LONG_BLOCKS, VBC1DDevice
+from ..utils import trace
 from . import _lib
 from .trspmv import _check_tensor
 
@@ -46,28 +47,31 @@ def tr_spmm(fmt: VBC1DDevice, X: torch.Tensor) -> torch.Tensor:
     CUDA tensors run the stripe SpMM kernel (or raise); CPU tensors run
     :func:`tr_spmm_plain`."""
     dev = fmt.device
-    _check_mat("X", X, fmt.m, dev)
+    with trace.span("op.check"):
+        _check_mat("X", X, fmt.m, dev)
     if dev.type == "cpu":
         return tr_spmm_plain(fmt, X)
     if dev.type != "cuda":
         raise NotImplementedError(f"no SpMM kernel for device {dev}")
     k = X.shape[1]
-    Y = torch.empty(fmt.n, k, dtype=torch.float32, device=dev)
+    with trace.span("op.alloc"):
+        Y = torch.empty(fmt.n, k, dtype=torch.float32, device=dev)
     if fmt.n == 0 or k == 0:
         return Y
-    lib = _lib.load()
-    longs = fmt.long_stripes  # None: the lanes take every stripe
-    n_long = 0 if longs is None else longs.numel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vbcs_tr_spmm(
-            fmt.L, k, fmt.width_class, int(fmt.quad_widths), fmt.idx.numel(),
-            SPMM_LONG_BLOCKS, n_long, longs.data_ptr() if n_long else None,
-            fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(),
-            fmt.ofs.data_ptr(),
-            None if fmt.col_out is None else fmt.col_out.data_ptr(),
-            fmt.val.data_ptr(), X.data_ptr(), Y.data_ptr(), stream)
-    _lib.check(lib, rc, "tr_spmm")
+    with trace.span("op.launch"):
+        lib = _lib.load()
+        longs = fmt.long_stripes  # None: the lanes take every stripe
+        n_long = 0 if longs is None else longs.numel()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.vbcs_tr_spmm(
+                fmt.L, k, fmt.width_class, int(fmt.quad_widths), fmt.idx.numel(),
+                SPMM_LONG_BLOCKS, n_long, longs.data_ptr() if n_long else None,
+                fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(),
+                fmt.ofs.data_ptr(),
+                None if fmt.col_out is None else fmt.col_out.data_ptr(),
+                fmt.val.data_ptr(), X.data_ptr(), Y.data_ptr(), stream)
+        _lib.check(lib, rc, "tr_spmm")
     tr_spmm.launches += 1
     return Y
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..formats.device import VBC1DDevice
+from ..utils import trace
 from . import _lib
 
 __all__ = ["tr_spmv", "tr_spmv_plain"]
@@ -87,12 +88,13 @@ def _run_tr_spmv(kernel, plain, fmt, x, alpha, beta, y, launch,
     alpha, beta, out, stream)`` (device pointers and the stream as ints),
     raises if the launch failed, and counts it in ``kernel.launches``."""
     dev = fmt.device
-    _check_vec("x", x, fmt.m, dev)
-    if out is not None:
-        _check_out(fmt, out)
-    with_y = y is not None and beta is not None
-    if with_y:
-        _check_vec("y", y, fmt.n if out is None else out.numel(), dev)
+    with trace.span("op.check"):
+        _check_vec("x", x, fmt.m, dev)
+        if out is not None:
+            _check_out(fmt, out)
+        with_y = y is not None and beta is not None
+        if with_y:
+            _check_vec("y", y, fmt.n if out is None else out.numel(), dev)
     if dev.type == "cpu":
         if out is None:
             return plain(fmt, x, alpha, beta, y)
@@ -100,16 +102,18 @@ def _run_tr_spmv(kernel, plain, fmt, x, alpha, beta, y, launch,
     if dev.type != "cuda":
         raise NotImplementedError(f"no {kernel.__name__} kernel for device {dev}")
     if out is None:
-        out = torch.empty(fmt.n, dtype=torch.float32, device=dev)
+        with trace.span("op.alloc"):
+            out = torch.empty(fmt.n, dtype=torch.float32, device=dev)
     if fmt.n == 0:
         return out
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        rc = launch(lib, y.data_ptr() if with_y else None,
-                    1.0 if alpha is None else float(alpha),
-                    float(beta) if with_y else 0.0, out.data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream)
-    _lib.check(lib, rc, kernel.__name__)
+    with trace.span("op.launch"):
+        lib = _lib.load()
+        with torch.cuda.device(dev):
+            rc = launch(lib, y.data_ptr() if with_y else None,
+                        1.0 if alpha is None else float(alpha),
+                        float(beta) if with_y else 0.0, out.data_ptr(),
+                        torch.cuda.current_stream(dev).cuda_stream)
+        _lib.check(lib, rc, kernel.__name__)
     kernel.launches += 1
     return out
 

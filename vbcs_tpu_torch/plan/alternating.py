@@ -21,6 +21,7 @@ import dataclasses
 
 from ..formats.csc import CSC
 from ..formats.partition import SplitPartition
+from ..utils import trace
 from .dynamic import DynamicTotalChunker
 
 __all__ = ["AlternatingPacker", "AlternatePacker", "pack_stripe", "pack_plaid"]
@@ -34,9 +35,10 @@ def pack_stripe(
     ``row_partition`` is consulted only by :class:`DynamicTotalChunker`
     carrying a 2-D (BlockComponent) cost model.
     """
-    if isinstance(method, DynamicTotalChunker):
-        return method.partition(A, row_partition)
-    return method.partition(A)
+    with trace.span("plan.dp"):
+        if isinstance(method, DynamicTotalChunker):
+            return method.partition(A, row_partition)
+        return method.partition(A)
 
 
 @dataclasses.dataclass(frozen=True)

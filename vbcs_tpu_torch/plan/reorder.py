@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..formats.csc import CSC
+from ..utils import trace
 
 __all__ = ["apply_row_perm", "rcm_rows", "profile_rows", "rcm_symmetric",
            "window_badness"]
@@ -66,15 +67,16 @@ def rcm_symmetric(A: CSC):
     A symmetric relabeling maps permuted space to permuted space, so
     chained products pay the boundary permutation once, not per
     multiply."""
-    if A.m != A.n:
-        raise ValueError("symmetric reorder needs a square matrix")
-    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    with trace.span("plan.rcm"):
+        if A.m != A.n:
+            raise ValueError("symmetric reorder needs a square matrix")
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
 
-    S = A.to_scipy().tocsr()
-    sym = (S + S.T).tocsr()
-    perm = np.asarray(reverse_cuthill_mckee(sym, symmetric_mode=True))
-    Sp = S[perm][:, perm].tocsc()
-    return CSC.from_scipy(Sp), perm
+        S = A.to_scipy().tocsr()
+        sym = (S + S.T).tocsr()
+        perm = np.asarray(reverse_cuthill_mckee(sym, symmetric_mode=True))
+        Sp = S[perm][:, perm].tocsc()
+        return CSC.from_scipy(Sp), perm
 
 
 def window_badness(B, ng: int = 1024, max_w: int = 6) -> float:
@@ -84,21 +86,22 @@ def window_badness(B, ng: int = 1024, max_w: int = 6) -> float:
 
     Approximates that packer's chunking: stripes in order, ~128 block
     groups per vreg, window = distinct ``row >> 10`` tiles."""
-    nb = (B.pos[1:] - B.pos[:-1]).astype(np.int64)
-    ngr = np.maximum(1, -(-nb // 8))
-    grp_stripe = np.repeat(np.arange(nb.size), ngr)
-    vreg_of_grp = np.arange(grp_stripe.size) // 128
-    # tiles of each stripe's row range (cheap proxy: min/max row)
-    lo = np.zeros(nb.size, dtype=np.int64)
-    hi = np.zeros(nb.size, dtype=np.int64)
-    for l in range(nb.size):
-        sl = B.idx[B.pos[l]:B.pos[l + 1]]
-        if sl.size:
-            lo[l], hi[l] = sl.min() >> 10, sl.max() >> 10
-    nvreg = int(vreg_of_grp.max()) + 1 if vreg_of_grp.size else 1
-    vlo = np.full(nvreg, np.iinfo(np.int64).max)
-    vhi = np.zeros(nvreg, dtype=np.int64)
-    np.minimum.at(vlo, vreg_of_grp, lo[grp_stripe])
-    np.maximum.at(vhi, vreg_of_grp, hi[grp_stripe])
-    spans = np.maximum(vhi - np.minimum(vlo, vhi) + 1, 1)
-    return float((spans > max_w).mean())
+    with trace.span("plan.badness"):
+        nb = (B.pos[1:] - B.pos[:-1]).astype(np.int64)
+        ngr = np.maximum(1, -(-nb // 8))
+        grp_stripe = np.repeat(np.arange(nb.size), ngr)
+        vreg_of_grp = np.arange(grp_stripe.size) // 128
+        # tiles of each stripe's row range (cheap proxy: min/max row)
+        lo = np.zeros(nb.size, dtype=np.int64)
+        hi = np.zeros(nb.size, dtype=np.int64)
+        for l in range(nb.size):
+            sl = B.idx[B.pos[l]:B.pos[l + 1]]
+            if sl.size:
+                lo[l], hi[l] = sl.min() >> 10, sl.max() >> 10
+        nvreg = int(vreg_of_grp.max()) + 1 if vreg_of_grp.size else 1
+        vlo = np.full(nvreg, np.iinfo(np.int64).max)
+        vhi = np.zeros(nvreg, dtype=np.int64)
+        np.minimum.at(vlo, vreg_of_grp, lo[grp_stripe])
+        np.maximum.at(vhi, vreg_of_grp, hi[grp_stripe])
+        spans = np.maximum(vhi - np.minimum(vlo, vhi) + 1, 1)
+        return float((spans > max_w).mean())

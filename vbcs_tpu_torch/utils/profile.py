@@ -1,26 +1,22 @@
-"""Roofline accounting and profiler traces on a CUDA card.
+"""Roofline accounting on a CUDA card.
 
 Port of ``vbcs_tpu/utils/profile.py``.  :func:`stream_bytes` counts the
 bytes one TrSpMV over a device format must move (its arrays, x and y),
 :func:`roofline` turns bytes and operations into the least time the card
-could take and the share of it a measured time reaches, and :func:`trace`
-captures a ``torch.profiler`` trace.  The peaks come from the card's
-name and its data sheet; a CPU device or a card not in the table raises
+could take and the share of it a measured time reaches.  The peaks come
+from the card's name and its data sheet; a CPU device or a card not in the table raises
 (a host-memory guess is no device metric).
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import os
 
 import torch
 
 from ..formats.device import ScatterDevice, VBC1DDevice, VBC2DDevice
 
-__all__ = ["hbm_bandwidth", "f32_flops", "stream_bytes", "roofline", "Roofline",
-           "trace"]
+__all__ = ["hbm_bandwidth", "f32_flops", "stream_bytes", "roofline", "Roofline"]
 
 # data sheets (SXM parts, dense, outside the tensor cores for f32):
 # card-name fragment -> (device-memory bytes/s, f32 FLOP/s)
@@ -102,15 +98,3 @@ def roofline(work, measured_s: float | None = None, device="cuda",
         measured_s=measured_s,
         fraction=(ideal / measured_s) if measured_s else None)
 
-
-@contextlib.contextmanager
-def trace(logdir: str):
-    """Capture a ``torch.profiler`` trace of the CPU and the CUDA
-    activities inside the block; writes ``logdir/trace.json`` (Chrome trace
-    format) and yields the profiler (``key_averages()`` for the sums by
-    kernel)."""
-    os.makedirs(logdir, exist_ok=True)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
