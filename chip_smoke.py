@@ -52,7 +52,13 @@ Phases (one line each; any failure raises and exits non-zero):
    stripes, ~250 MB a call, built through ``VBCOperator.from_csc``, held
    against the f64 product, its plain version and the library first;
    back-to-back and flushed: the ``x16_*`` fields of its ``kernels``
-   entry),
+   entry), and its staged map on the natural views of the benchmark's
+   two TrSpMV cells (``stripe_ab.CELLS``, from ``spbench/gen``, through
+   ``from_csc(A, W=8, reorder="auto")``: ~2.1M and ~1.5M stripes about 2
+   wide; the map checked staged, each call one staged launch after a
+   reset, held against the plain version bare, with alpha/beta/y and into
+   a longer ``out=`` through ``col_out``, two launches bitwise; the
+   ``kernels`` line's ``tr_spmv_staged`` entry),
    the tile kernel also beside the stripe kernel on the same matrix's 1-D
    view and beside itself on a one-tile pack (its launch floor), the
    chain beside ``CHAIN_ITERS`` stripe-kernel launches and as many
@@ -236,6 +242,7 @@ from vbcs_tpu_torch.ops.chain import chain_grid, chain_plan
 from vbcs_tpu_torch.ops.scatter import MAX_MEAN_WIDTH, scatter_admits
 from vbcs_tpu_torch.operator import TILE2D_MIN_HEIGHT
 from vbcs_tpu_torch.ops.trspmv2d import lanes_per_stripe
+from vbcs_tpu_torch.ops.trspmv import stage_plan, thread_map
 from vbcs_tpu_torch.parallel import comm, shard, stream
 from vbcs_tpu_torch.probes import chunk as probe_chunk
 from vbcs_tpu_torch.probes import (probe_chain, probe_kernel, probe_kernel2,
@@ -245,7 +252,7 @@ from vbcs_tpu_torch.probes import probe_pack
 from vbcs_tpu_torch.ops import dp as dp_ops
 from vbcs_tpu_torch.plan.device_dp import STAGES, dp_inputs, dp_route, dp_stages
 from vbcs_tpu_torch.plan.dynamic import dp_partition
-from vbcs_tpu_torch.tools import method_table, weak_scaling
+from vbcs_tpu_torch.tools import method_table, stripe_ab, weak_scaling
 from vbcs_tpu_torch.tools.spmm_ab import work as tr_spmm_work
 from vbcs_tpu_torch.utils.timing import flushed_ms, host_ms, paired_ms
 
@@ -1560,11 +1567,13 @@ def phase_timing_above_l2(dev, errs):
     nnz = nonzeros(A)
     work = tr_spmv_work(fmt, nnz, True)
     rec, nbytes = entry(warm, work), work[0]
-    cols = "four columns" if fmt.quad_widths else "a column"
+    cols = {"quad": "four columns a thread",
+            "staged": "a run of stripes a block"}[thread_map(fmt)]
     print(f"[8 timing tr_spmv, blocky_matrix({BLOCKY_ABOVE_L2}): {op.m}x{op.n}, "
           f"nnz {nnz}, {fmt.L} stripes, {fmt.idx.numel()} blocks; generated in "
           f"{t_gen:.2f} s, from_csc (transposed, to device) {t_op:.2f} s] "
-          f"kernel ({cols} a thread) {warm[0] * 1e3:.2f} us/call back-to-back, "
+          f"kernel ({cols}) "
+          f"{warm[0] * 1e3:.2f} us/call back-to-back, "
           f"{cold[0] * 1e3:.2f} us flushed ({nbytes / 1e6:.1f} MB per call: "
           f"{nbytes / (warm[0] * 1e6):.1f} GB/s back-to-back, "
           f"{nbytes / (cold[0] * 1e6):.1f} flushed; bound "
@@ -1577,6 +1586,93 @@ def phase_timing_above_l2(dev, errs):
     return {"x16_ms": warm[0], "x16_flushed_ms": cold[0],
             "x16_bound_ms": rec["bound_ms"], "x16_plain_ms": warm[1],
             "x16_library_ms": warm[2], "x16_library_flushed_ms": cold[2]}
+
+
+def phase_timing_cells(dev, errs):
+    """The stripe kernel's staged map on the natural views the benchmark's
+    two TrSpMV cells run (``stripe_ab.CELLS``: ``blocky_w8``'s
+    ``tr_mul(x, 1, 0.5, y)``, ``hpcg_27pt_144``'s ``mul(x)``), built as
+    the cells build them.  On each: the map is ``staged``; after a reset,
+    each checked call is one staged launch and no other; the kernel against
+    its plain version bare, with alpha/beta/y and into a longer ``out=``
+    buffer through ``col_out`` (its other entries kept), two launches
+    bitwise; then the cell's call timed back-to-back (kernel, plain) and
+    L2-flushed.  Returns (the kernels line's ``tr_spmv_staged`` entry, its
+    launches); the entry's ``ms``/``bound_ms`` are the blocky cell's, each
+    cell's under ``cells``."""
+    errs["tr_spmv_staged"] = 0.0
+    cells, n_launch = {}, 0
+    for label, (_, _, _, direction, (alpha, beta, with_y)) in stripe_ab.CELLS.items():
+        t0 = time.perf_counter()
+        A = stripe_ab.cell_matrix(label)
+        op = vt.VBCOperator.from_csc(A, W=8, directions=direction, reorder="auto",
+                                     device=dev)
+        torch.cuda.synchronize()
+        t_op = time.perf_counter() - t0
+        name, fmt, _ = op.route_tr if direction == "transposed" else op.route_fw
+        check(name == "stripe" and fmt.col_out is not None
+              and thread_map(fmt) == "staged",
+              f"{label}: route {name}, natural view {fmt.col_out is not None}, "
+              f"map {thread_map(fmt)} (want the stripe route's staged map on a "
+              f"natural view)")
+        rng = np.random.default_rng(21)
+        xt = torch.from_numpy(rng.standard_normal(op.m).astype(np.float32)).to(dev)
+        yt = torch.from_numpy(rng.standard_normal(op.n).astype(np.float32)).to(dev)
+        big = torch.from_numpy(rng.standard_normal(2 * op.n + 1).astype(np.float32)).to(dev)
+        place = torch.from_numpy(rng.permutation(2 * op.n + 1)[:op.n].astype(np.int32)).to(dev)
+        placed = dataclasses.replace(fmt, col_out=place[fmt.col_out.long()])
+        forms = {"bare": (fmt, (), False), "alpha_beta_y": (fmt, (0.5, 0.25, yt), False),
+                 "out": (placed, (0.5, 0.25, big), True)}
+        worst = 0.0
+        for form, (f, args, into) in forms.items():
+            def run(kernel, f=f, args=args, into=into):
+                return kernel(f, xt, *args, **({"out": torch.full_like(big, 7.0)}
+                                                if into else {}))
+            reset_launches()
+            got, again = run(vt.tr_spmv), run(vt.tr_spmv)
+            torch.cuda.synchronize()
+            check(vt.tr_spmv.launches_by_map == {"quad": 0, "staged": 2}
+                  and vt.tr_spmv.launches == 2,
+                  f"{label} {form}: launches {vt.tr_spmv.launches_by_map} (want two "
+                  f"staged)")
+            n_launch += 2
+            ref = run(vt.tr_spmv_plain)
+            err = rel_err(got.cpu().numpy(), ref.cpu().numpy())
+            check(np.isfinite(err) and err <= TOL and torch.equal(got, again),
+                  f"{label} {form}: staged map off the plain version by {err:.2e}, "
+                  f"or two launches differ")
+            errs["tr_spmv_staged"] = max(errs["tr_spmv_staged"],
+                                         float((got - ref).abs().max()))
+            worst = max(worst, err)
+            del got, again, ref
+        call_args = () if alpha is None else (alpha, beta, yt)
+        calls = [lambda: vt.tr_spmv(fmt, xt, *call_args),
+                 lambda: vt.tr_spmv_plain(fmt, xt, *call_args)]
+        warm = paired_ms(calls, dev)
+        cold = flushed_ms(calls[0], dev)
+        nnz = nonzeros(A)
+        work = tr_spmv_work(fmt, nnz, with_y)
+        bound_ms, bound_by = bound(*work)
+        cells[label] = {"ms": warm[0], "flushed_ms": cold, "plain_ms": warm[1],
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "stripes": fmt.L, "blocks": fmt.idx.numel(),
+                        "runs": int(stage_plan(fmt).shape[0] - 1)}
+        print(f"[8 timing tr_spmv, staged map, {label}'s natural view: {op.m}x{op.n}, "
+              f"nnz {nnz}, {fmt.L} stripes of mean width {op.n / fmt.L:.3f}, "
+              f"{fmt.idx.numel()} blocks, {cells[label]['runs']} runs; generated "
+              f"and from_csc (auto-RCM) {t_op:.2f} s] kernel {warm[0] * 1e3:.2f} "
+              f"us/call back-to-back, {cold * 1e3:.2f} flushed ({work[0] / 1e6:.1f} MB "
+              f"per call; bound {bound_ms * 1e3:.2f} us, {bound_ms / warm[0]:.3f} of "
+              f"it back-to-back); plain {warm[1] * 1e3:.2f} us; |Δ|/max {worst:.3e} "
+              f"(plain; bare, alpha/beta/y, out=); two launches bitwise equal",
+              flush=True)
+        del op, fmt, placed, calls, xt, yt, big, place
+        torch.cuda.empty_cache()
+    first = cells[next(iter(stripe_ab.CELLS))]
+    rec = {k: first[k] for k in ("ms", "flushed_ms", "plain_ms", "bound_ms", "bound_by")}
+    rec["library_ms"] = None
+    rec["cells"] = cells
+    return rec, n_launch
 
 
 def phase_timing_relabeled(dev, fem, scat, spmm):
@@ -3092,6 +3188,7 @@ def phase_plan(dev, flag, fem, mdl, mdl2, smi, errs):
 def reset_launches():
     for kern in KERNELS:
         kern.launches = 0
+    vt.tr_spmv.launches_by_map.update(dict.fromkeys(vt.tr_spmv.launches_by_map, 0))
 
 
 @contextlib.contextmanager
@@ -3217,6 +3314,7 @@ def main():
     ms = phase_timing(dev, flag, fem, spmm)
     ms["tr_spmm"] = phase_timing_spmm(dev, flag, fem, spmm, parts)
     ms["tr_spmv"].update(phase_timing_above_l2(dev, errs))
+    ms["tr_spmv_staged"], launches["tr_spmv_staged"] = phase_timing_cells(dev, errs)
     ms_2d, pairs_2d = phase_timing_2d(dev, parts)
     ms.update(ms_2d)
     ms.update(phase_timing_slice4(dev, chains, scat, rel, pairs_2d))
@@ -3262,6 +3360,9 @@ def main():
     meta = [
         ("tr_spmv_stripe", "tr_spmv", "trspmv.cu",
          "vbcs_tpu/ops/pallas_trspmv3.py:1145"),
+        ("tr_spmv_staged", "tr_spmv_staged", "trspmv.cu",
+         "vbcs_tpu/ops/pallas_trspmv3.py:1145 (the staged map, on the benchmark "
+         "cells' natural views)"),
         ("gather", "gather", "gather.cu", "vbcs_tpu/ops/windowed_gather.py:184"),
         ("gather_tiles", "gather_tiles", "gather.cu",
          "vbcs_tpu/ops/windowed_gather.py:184 (the halo paths' tile maps)"),

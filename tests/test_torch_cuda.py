@@ -30,6 +30,7 @@ from vbcs_tpu_torch.ops.chain import chain_grid, chain_plan
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from bench import (blocky2d_matrix, blocky_matrix, fem_matrix,  # noqa: E402
                    scattered_matrix)
+from spbench.gen import blocky, hpcg27  # noqa: E402
 from chip_smoke import (chain_bytes, chain_oracle,  # noqa: E402
                         chain_residencies, coo_matrix, corrupt_guess,
                         lane_group_packs,
@@ -180,7 +181,7 @@ def test_tr_spmv_natural_view_and_out_injection(chunker, cuda_device):
     """``col_out`` as a natural view's permutation, and as an injection of
     two formats' columns into one longer ``out=`` buffer (the overlapped
     halo path's shape): y_in read and y written at the places, the other
-    entries kept; on mixed widths (a thread a column) and on widths of 8
+    entries kept; on mixed widths (the staged map) and on widths of 8
     (four columns a thread)."""
     from vbcs_tpu_torch.parallel.shard import permute_stripes, stripe_columns
 
@@ -248,7 +249,7 @@ def test_tr_spmv_cut_at_stripe_boundaries_is_bitwise(cuda_device):
 
 
 def test_tr_spmv_maps_agree_bitwise(cuda_device):
-    """Four columns a thread (widths of 8) and a thread a column (the same
+    """Four columns a thread (widths of 8) and the staged map (the same
     format with ``quad_widths`` off, or its values 4 bytes off a 16-byte
     boundary) add each column's blocks in one order: the same bits; and y
     in and out 4 bytes off a 16-byte boundary (no float4 of y) too."""
@@ -261,18 +262,179 @@ def test_tr_spmv_maps_agree_bitwise(cuda_device):
     y = torch.from_numpy(rng.standard_normal(B.n).astype(np.float32)).to(dev)
     want = vt.tr_spmv(fmt, x, 0.5, 0.25, y)
     assert rel_err(want, vt.tr_spmv_plain(fmt, x, 0.5, 0.25, y)) <= TOL
-    columns = dataclasses.replace(fmt, quad_widths=False)
-    assert torch.equal(vt.tr_spmv(columns, x, 0.5, 0.25, y), want)
+    from vbcs_tpu_torch.ops.trspmv import thread_map
+
+    staged = dataclasses.replace(fmt, quad_widths=False)
+    assert thread_map(fmt) == "quad" and thread_map(staged) == "staged"
+    assert torch.equal(vt.tr_spmv(staged, x, 0.5, 0.25, y), want)
     shifted = torch.empty(fmt.val.numel() + 1, device=dev)
     shifted[1:] = fmt.val
     assert shifted[1:].data_ptr() % 16 == 4
     off = dataclasses.replace(fmt, val=shifted[1:])
+    assert thread_map(off) == "staged"
     assert torch.equal(vt.tr_spmv(off, x, 0.5, 0.25, y), want)
     y_off = torch.empty(B.n + 1, device=dev)
     y_off[1:] = y
     out = torch.full((B.n + 1,), 3.0, device=dev)
     assert vt.tr_spmv(fmt, x, 0.5, 0.25, y_off[1:], out=out[1:]).data_ptr() % 16 == 4
     assert torch.equal(out[1:], want) and out[0].item() == 3.0
+
+
+def narrow_natural_view(A, direction, device):
+    """The natural view of a relabeled pack, as an auto-RCM operator runs
+    it (``reorder="always"``: RCM at any size)."""
+    op = vt.VBCOperator.from_csc(A, W=8, directions=direction, reorder="always",
+                                 device=device)
+    return op.nat_tr if direction == "transposed" else op.nat_fw
+
+
+def mixed_widths_pack(seed=12, n_stripes=300, m=400):
+    """Widths 1-7 drawn at random, 6-40 blocks a stripe."""
+    rng = np.random.default_rng(seed)
+    splits = np.concatenate([[0], np.cumsum(rng.integers(1, 8, n_stripes))])
+    n = int(splits[-1])
+    w = np.diff(splits)
+    rows, cols = [], []
+    for s in range(n_stripes):
+        r = rng.choice(m, rng.integers(6, 41), replace=False)
+        rows.append(np.repeat(r, w[s]))
+        cols.append(np.tile(np.arange(splits[s], splits[s + 1]), r.size))
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    A = sp.csc_matrix((rng.standard_normal(rows.size).astype(np.float32),
+                       (rows, cols)), shape=(m, n))
+    return vt.pack_1dvbc(vt.CSC.from_scipy(A), vt.SplitPartition(splits), 8)
+
+
+def rows_pack(splits, m, every, seed=3):
+    """A pack under the given stripe splits whose every ``every``-th row
+    is dense."""
+    D = np.random.default_rng(seed).standard_normal((m, splits[-1])).astype(np.float32)
+    D *= (np.arange(m) % every == 0)[:, None]
+    return vt.pack_1dvbc(vt.CSC.from_scipy(sp.csc_matrix(D)),
+                         vt.SplitPartition(np.array(splits)), max(np.diff(splits)))
+
+
+# the staged map's shapes: the benchmark cells' kinds of pack at small
+# sizes (natural views of RCM packs), mixed widths, a stripe longer than a
+# stage (~4,000 blocks of width 3: chunks), a stripe wider than a block's
+# four passes (five), one both (chunks in passes), one whose block row is
+# wider than a whole stage, one stripe; name -> format maker(device)
+STAGED_CASES = {
+    "blocky_random_rows_rcm": lambda d: narrow_natural_view(
+        blocky.generate(2, L=3000), "transposed", d),
+    "stencil27_11_rcm": lambda d: narrow_natural_view(
+        hpcg27.generate(None, nx=11, ny=11, nz=11), "forward", d),
+    "mixed_widths_1_7": lambda d: vt.VBC1DDevice.from_host(mixed_widths_pack(), d),
+    "stripe_longer_than_a_stage": lambda d: vt.VBC1DDevice.from_host(
+        vt.vbc1d(banded(9000, 12, 4000, 4500, 5), 3, vt.EquiChunker(3)), d),
+    "stripe_wider_than_a_block": lambda d: vt.VBC1DDevice.from_host(
+        rows_pack([0, 3, 1103, 1110], 30, 6), d),
+    "stripe_long_and_wide": lambda d: vt.VBC1DDevice.from_host(
+        rows_pack([0, 1501], 30, 3), d),
+    "stripe_wider_than_a_stage": lambda d: vt.VBC1DDevice.from_host(
+        rows_pack([0, 3, 8003, 8010], 30, 6), d),
+    "one_stripe": lambda d: vt.VBC1DDevice.from_host(
+        vt.vbc1d(banded(300, 7, 50, 150, 8), 7, vt.EquiChunker(7)), d),
+}
+
+
+@pytest.mark.parametrize("call", ["bare", "alpha_beta_y", "out"])
+@pytest.mark.parametrize("case", sorted(STAGED_CASES))
+def test_tr_spmv_staged_map(case, call, cuda_device):
+    """The staged map against the plain version, bare, with alpha, beta
+    and y, and into a longer ``out=`` buffer through ``col_out`` (its
+    other entries kept); one staged launch a call; two launches bitwise."""
+    from vbcs_tpu_torch.ops.trspmv import stage_plan
+
+    fmt = STAGED_CASES[case](cuda_device)
+    assert not fmt.quad_widths
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(fmt.m, device=cuda_device, generator=g)
+    kw = {}
+    if call == "out":
+        place = torch.randperm(2 * fmt.n + 1, device=cuda_device, generator=g)[:fmt.n]
+        place = place.int() if fmt.col_out is None else place.int()[fmt.col_out.long()]
+        fmt = dataclasses.replace(fmt, col_out=place)
+        y = torch.randn(2 * fmt.n + 1, device=cuda_device, generator=g)
+        args = (0.5, 0.25, y)
+    else:
+        y = torch.randn(fmt.n, device=cuda_device, generator=g)
+        args = (0.5, 0.25, y) if call == "alpha_beta_y" else ()
+    assert stage_plan(fmt).shape[0] >= 2
+    before = dict(vt.tr_spmv.launches_by_map)
+    if call == "out":
+        got = vt.tr_spmv(fmt, x, *args, out=torch.full_like(y, 7.0))
+        again = vt.tr_spmv(fmt, x, *args, out=torch.full_like(y, 7.0))
+        want = vt.tr_spmv_plain(fmt, x, *args, out=torch.full_like(y, 7.0))
+    else:
+        got, again = vt.tr_spmv(fmt, x, *args), vt.tr_spmv(fmt, x, *args)
+        want = vt.tr_spmv_plain(fmt, x, *args)
+    torch.cuda.synchronize()
+    assert vt.tr_spmv.launches_by_map == {**before, "staged": before["staged"] + 2}
+    assert torch.isfinite(got).all() and rel_err(got, want) <= TOL
+    assert torch.equal(got, again)
+    if call == "out":
+        kept = torch.ones(got.numel(), dtype=torch.bool, device=cuda_device)
+        kept[fmt.col_out.long()] = False
+        assert (got[kept] == 7.0).all()
+
+
+def test_tr_spmv_launches_by_map(cuda_device):
+    """``launches_by_map`` (and ``trace.launches_by_map``) counts an 8-wide
+    pack's launch as ``quad`` and a narrow one's as ``staged``."""
+    from vbcs_tpu_torch.utils import trace
+
+    narrow = vt.VBC1DDevice.from_host(mixed_widths_pack(), cuda_device)
+    wide = vt.VBC1DDevice.from_host(vt.vbc1d(blocky_matrix(L=2048), 8), cuda_device)
+    assert wide.quad_widths and not narrow.quad_widths
+    for fmt, key in ((narrow, "staged"), (wide, "quad")):
+        before = trace.launches_by_map()
+        vt.tr_spmv(fmt, torch.ones(fmt.m, device=cuda_device))
+        assert trace.launches_by_map() == {**before, key: before[key] + 1}
+
+
+def test_tr_spmv_staged_cuts_are_bitwise(cuda_device):
+    """On the staged map, as on the float4 map, a column's bits are its
+    stripe's own: ranks' slices, the stripes reordered, the rows read
+    from a remapped stage, and the overlap's two formats written into one
+    buffer through ``col_out`` give the whole format's y."""
+    from vbcs_tpu_torch.ops import trspmv
+    from vbcs_tpu_torch.parallel.shard import (permute_stripes, shard_1d,
+                                               split_ranges, stripe_columns)
+
+    rng = np.random.default_rng(11)
+    B = mixed_widths_pack(seed=13, n_stripes=600, m=500)
+    dev = cuda_device
+    x = torch.from_numpy(rng.standard_normal(B.m).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.standard_normal(B.n).astype(np.float32)).to(dev)
+    fmt = vt.VBC1DDevice.from_host(B, dev)
+    whole = vt.tr_spmv(fmt, x, 0.5, 0.25, y)
+    assert trspmv.thread_map(fmt) == "staged"
+    ranges = split_ranges(np.diff(np.asarray(B.ofs, dtype=np.int64)), 5)
+    spl = np.asarray(B.Phi.spl)
+    for rank, (s0, s1) in enumerate(ranges):
+        cut = vt.VBC1DDevice.from_host(shard_1d(B, 5, rank, ranges), dev)
+        c0, c1 = int(spl[s0]), int(spl[s1])
+        assert torch.equal(vt.tr_spmv(cut, x, 0.5, 0.25, y[c0:c1]), whole[c0:c1])
+    order = rng.permutation(B.L)
+    moved = vt.VBC1DDevice.from_host(permute_stripes(B, order), dev)
+    cols = torch.from_numpy(np.concatenate(
+        [np.arange(spl[s], spl[s + 1]) for s in order])).to(dev)
+    assert torch.equal(vt.tr_spmv(moved, x, 0.5, 0.25, y[cols]), whole[cols])
+    stage_of = rng.permutation(B.m)
+    stage = torch.empty_like(x)
+    stage[torch.from_numpy(stage_of).to(dev)] = x
+    staged = dataclasses.replace(B, idx=stage_of[np.asarray(B.idx)])
+    got = vt.tr_spmv(vt.VBC1DDevice.from_host(staged, dev), stage, 0.5, 0.25, y)
+    assert torch.equal(got, whole)
+    out = torch.full_like(y, 7.0)
+    k = B.L // 3
+    for part in (order[:k], order[k:]):
+        f = vt.VBC1DDevice.from_host(permute_stripes(B, part), dev)
+        f = dataclasses.replace(f, col_out=torch.from_numpy(
+            stripe_columns(B, part).astype(np.int32)).to(dev))
+        vt.tr_spmv(f, x, 0.5, 0.25, y, out=out)
+    assert torch.equal(out, whole)
 
 
 @pytest.mark.parametrize("W", [3, 40])

@@ -40,3 +40,22 @@ def test_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         stripe_ab.main([])
+
+
+@pytest.mark.parametrize("label", sorted(stripe_ab.CELLS))
+def test_cells_are_the_benchmarks(label):
+    """Each TrSpMV cell's matrix is its configuration's in ``spbench``:
+    the same generator and arguments, at the configuration's ``small``
+    size the same matrix through ``cell_matrix``'s path."""
+    import importlib
+    import json
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    bench = json.load(open(os.path.join(root, "BENCHMARK.json")))
+    cell = next(c for c in bench["workloads"] if c["name"] == label)
+    with open(os.path.join(root, "spbench", "configs", f"{cell['config']}.json")) as fh:
+        cfg = json.load(fh)
+    gen, seed, kw, _, _ = stripe_ab.CELLS[label]
+    assert gen == cfg["generator"] and {**kw, "dtype": "float32"} == cfg["args"]
+    small = importlib.import_module(f"spbench.gen.{gen}").generate(seed, **cfg["small"])
+    assert small.shape[0] > 0 and small.nnz > 0

@@ -19,9 +19,14 @@ import jax.numpy as jnp
 import scipy.sparse as sp
 import torch
 
+import dataclasses
+
 import vbcs_tpu as v
 import vbcs_tpu_torch as vt
 from vbcs_tpu.ops import pallas_trspmv3 as pk3
+from vbcs_tpu_torch.ops.trspmv import (STAGE_COLS, STAGE_STRIPES, STAGE_WORDS,
+                                       _cut_runs, stage_plan)
+from spbench.gen import blocky, hpcg27
 
 TOL = 2e-5
 
@@ -177,3 +182,130 @@ def test_empty_shapes():
     fmt = vt.VBC1DDevice.from_host(vt.vbc1d(A, 8), "cpu")
     np.testing.assert_array_equal(vt.tr_spmv(fmt, torch.ones(0)).numpy(),
                                   np.zeros(4, np.float32))
+
+
+# ---- the staged map's runs (ops/trspmv.stage_plan) ------------------------
+
+def _stage_walk(fmt, plan, cols, stripes, words):
+    """Each run's stripes, columns and stage words; raises where a split's
+    (column, block, value) is not its stripe's, or a run breaks a bound it
+    must keep or could have taken its next stripe."""
+    spl, pos, ofs = (t.numpy().astype(np.int64) for t in (fmt.spl, fmt.pos, fmt.ofs))
+    plan = plan.numpy().astype(np.int64)
+    runs = plan[:, 0]
+    assert runs[0] == 0 and runs[-1] == fmt.L and np.all(np.diff(runs) >= 1)
+    assert np.array_equal(plan[:, 1:], np.stack([spl[runs], pos[runs], ofs[runs]], 1))
+    used = ofs + pos
+
+    def fits(s0, s1):
+        return (spl[s1] - spl[s0] <= cols and s1 - s0 <= stripes
+                and used[s1] - used[s0] <= words)
+
+    for s0, s1 in zip(runs[:-1], runs[1:]):
+        assert s1 - s0 == 1 or fits(s0, s1), f"run {s0}:{s1} breaks a bound"
+        assert s1 == fmt.L or not fits(s0, s1 + 1), f"run {s0}:{s1} stops early"
+    return runs
+
+
+def _mixed_widths(seed=3, L=500, m=300):
+    rng = np.random.default_rng(seed)
+    splits = np.concatenate([[0], np.cumsum(rng.integers(1, 8, L))])
+    D = sp.random(m, int(splits[-1]), 0.05, random_state=seed, format="csc",
+                  dtype=np.float32)
+    return vt.pack_1dvbc(vt.CSC.from_scipy(D), vt.SplitPartition(splits), 8)
+
+
+def _wide_pack(splits, m=12):
+    """A pack under the given stripe splits, every third row dense."""
+    D = np.zeros((m, splits[-1]), np.float32)
+    D[::3] = np.random.default_rng(5).standard_normal(((m + 2) // 3, splits[-1]))
+    return vt.pack_1dvbc(vt.CSC.from_scipy(sp.csc_matrix(D)),
+                         vt.SplitPartition(np.array(splits)), max(np.diff(splits)))
+
+
+def _natural(A, direction):
+    op = vt.VBCOperator.from_csc(A, W=8, directions=direction, reorder="always",
+                                 device="cpu")
+    which = "tr" if direction == "transposed" else "fw"
+    return getattr(op, f"dev_{which}"), getattr(op, f"nat_{which}")
+
+
+def _empty_stripes():
+    A = banded(300, 128, 12, 60, 21).tolil()
+    A[:, 16:48] = 0
+    A[:, 88:96] = 0
+    A = A.tocsc()
+    A.eliminate_zeros()
+    return vt.vbc1d(A, 3, vt.EquiChunker(3))
+
+
+STAGE_PACKS = {  # name -> (pack, its natural view or None)
+    "stencil27_11_natural_view": lambda: _natural(
+        hpcg27.generate(None, nx=11, ny=11, nz=11), "forward"),
+    "blocky_w8_l300_rcm": lambda: _natural(blocky.generate(0, L=300), "transposed"),
+    "mixed_widths_1_7": lambda: (vt.VBC1DDevice.from_host(_mixed_widths(), "cpu"), None),
+    "zero_block_stripes": lambda: (vt.VBC1DDevice.from_host(_empty_stripes(), "cpu"), None),
+    "stripe_longer_than_a_stage": lambda: (vt.VBC1DDevice.from_host(
+        vt.vbc1d(banded(9000, 12, 6000, 4500, 5), 3, vt.EquiChunker(3)), "cpu"), None),
+    "one_stripe": lambda: (vt.VBC1DDevice.from_host(
+        vt.vbc1d(banded(100, 5, 30, 50, 2), 5, vt.EquiChunker(5)), "cpu"), None),
+    "stripe_wider_than_a_stage": lambda: (vt.VBC1DDevice.from_host(
+        _wide_pack([0, 2, 8002, 8005]), "cpu"), None),
+}
+
+
+@pytest.mark.parametrize("bounds", [None, (8, 4, 64)])
+@pytest.mark.parametrize("case", sorted(STAGE_PACKS))
+def test_stage_plan_runs(case, bounds):
+    """Every stripe in exactly one run, in order, each run within the
+    column, stripe and stage bounds (or one stripe), none stopping before
+    a bound (greedy); at the kernel's bounds (``stage_plan``, cached and
+    shared with the natural view) and at tiny ones."""
+    fmt, view = STAGE_PACKS[case]()
+    if bounds is None:
+        cols, stripes, words = STAGE_COLS, STAGE_STRIPES, STAGE_WORDS
+        runs = stage_plan(fmt)
+        assert stage_plan(fmt) is runs  # cached
+        if view is not None:
+            assert view.col_out is not None
+            assert stage_plan(view) is runs  # shared
+    else:
+        cols, stripes, words = bounds
+        runs = _cut_runs(fmt.spl.long(), fmt.pos.long(), fmt.ofs.long(), *bounds)
+    assert runs.dtype == torch.int32 and runs.device == fmt.device
+    assert runs.shape[1] == 4 and runs.is_contiguous()
+    _stage_walk(fmt, runs, cols, stripes, words)
+
+
+def test_stage_plan_long_stripe_is_a_run_of_its_own():
+    fmt = STAGE_PACKS["stripe_longer_than_a_stage"]()[0]
+    nblk = torch.diff(fmt.pos).numpy()
+    long = np.flatnonzero(nblk * 4 > STAGE_WORDS)
+    assert long.size
+    runs = stage_plan(fmt).numpy()[:, 0]
+    for s in long:
+        assert s in runs and s + 1 in runs
+
+
+@pytest.mark.parametrize("splits", [[0, 2, 8002, 8005], [0, 7200], [0, 1, 601, 603, 604]])
+def test_stage_plan_wide_stripe_is_a_run_of_its_own(splits):
+    """A stripe wider than a run's columns (or than a whole stage) is cut,
+    not refused: a run of its own, its neighbours in runs of theirs."""
+    fmt = vt.VBC1DDevice.from_host(_wide_pack(splits), "cpu")
+    runs = stage_plan(fmt).numpy()[:, 0]
+    wide = np.flatnonzero(np.diff(splits) > STAGE_COLS)
+    assert wide.size
+    for s in wide:
+        assert s in runs and s + 1 in runs
+    _stage_walk(fmt, stage_plan(fmt), STAGE_COLS, STAGE_STRIPES, STAGE_WORDS)
+
+
+def test_stage_plan_follows_the_arrays():
+    """A format whose splits are other arrays (a ``replace``) gets its own
+    runs."""
+    fmt = STAGE_PACKS["mixed_widths_1_7"]()[0]
+    runs = stage_plan(fmt)
+    cut = vt.VBC1DDevice.from_host(_mixed_widths(seed=4), "cpu")
+    moved = dataclasses.replace(cut, stage_plans=fmt.stage_plans)
+    assert not torch.equal(stage_plan(moved), runs)
+    assert torch.equal(stage_plan(fmt), runs)  # cut anew, not moved's

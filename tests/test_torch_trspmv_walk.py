@@ -11,6 +11,13 @@ the CPU checks what its launch and maps promise:
   1,024 columns, a thread four columns 1,024 apart in turn, its stripe by
   a binary search of the block's splits), gives every column to exactly
   one thread, four columns of one stripe at a time;
+* the staged map, walked as the kernel walks it (a block a run of
+  ``ops.trspmv.stage_plan``, the run's values copied into a stage in
+  16-byte words from a window rounded out on the values' alignment, x
+  gathered once a block row; a stripe whose values do not fit a stage in
+  passes of a block's columns and, in each, chunks of block rows, the
+  pass's values copied a word at a time), reads only staged words and
+  gives each column the bits of its sum in block order;
 * a column's f32 sum (its blocks in block order with ``fmaf``, then alpha
   and beta) agrees with the plain version, and its bits are the same on a
   format cut at stripe boundaries or with its stripes reordered.
@@ -24,6 +31,8 @@ import scipy.sparse as sp
 import torch
 
 import vbcs_tpu_torch as vt
+from vbcs_tpu_torch.ops.trspmv import (STAGE_COLS, STAGE_STRIPES, STAGE_WORDS,
+                                       _cut_runs)
 from vbcs_tpu_torch.parallel.shard import permute_stripes, shard_1d, split_ranges
 from vbcs_tpu_torch.tools.matrices import blocky_matrix
 
@@ -195,3 +204,113 @@ def test_column_sums_of_a_cut_are_the_whole_sums():
     cols = np.concatenate([np.arange(spl[s], spl[s + 1]) for s in order])
     got = column_sums(permute_stripes(B, order), x, 0.5, 0.25, y[cols])
     assert np.array_equal(got.view(np.int32), whole[cols].view(np.int32))
+
+
+def staged_walk(B, x, alpha, beta, y_in, mis=0, words=STAGE_WORDS):
+    """y as the staged map computes it (``csrc/trspmv.cu``:
+    ``tr_spmv_staged_kernel``), its values ``mis`` words past a 16-byte
+    boundary, on the runs ``stage_plan`` cuts at a stage of ``words``: the
+    stage holds the run's (or the chunk's) values and x rows and nothing
+    else, and a column reads only what was staged for it."""
+    spl, pos, ofs = (np.asarray(a, dtype=np.int64) for a in (B.Phi.spl, B.pos, B.ofs))
+    idx, val = np.asarray(B.idx, dtype=np.int64), np.asarray(B.val, dtype=F32)
+    x = np.asarray(x, F32)
+    runs = _cut_runs(*(torch.from_numpy(a) for a in (spl, pos, ofs)), STAGE_COLS,
+                     STAGE_STRIPES, words).numpy()[:, 0].astype(np.int64)
+    y = np.full(B.n, np.nan, F32)
+
+    def window(w0, w1, mis):
+        first = w0 - ((w0 + mis) & 3)
+        end = w1 + ((4 - ((w1 + mis) & 3)) & 3)
+        assert (first + mis) % 4 == 0 and (end - first) % 4 == 0
+        return first, end
+
+    def stage_rows(stage, at, cb, ce):
+        """Block rows cb..ce-1's idx window copied to ``stage[at:]`` (16-byte
+        aligned), then gathered: block cb's x at the returned word."""
+        assert at % 4 == 0
+        i0, i1 = window(cb, ce, (mis + 1) & 3)  # idx on another alignment
+        assert at + (i1 - i0) <= words + 16, "the stage overflows"
+        xs = at + (cb - i0)
+        stage[xs:xs + ce - cb] = x[idx[cb:ce]]
+        return xs
+
+    def stage_of(cv0, cv1, cb, ce):
+        a0, a1 = window(cv0, cv1, mis)
+        stage = np.full(words + 16, np.nan, F32)
+        lo, hi = max(a0, 0), min(a1, val.size)  # the rounding's words are unread
+        stage[lo - a0:hi - a0] = val[lo:hi]
+        return stage, a0, stage_rows(stage, a1 - a0, cb, ce) - cb
+
+    def column(acc, stage, a0, xs, s0, s1, j, cb, ce):
+        g = s0 + np.searchsorted(spl[s0:s1 + 1], j, side="right") - 1
+        w = spl[g + 1] - spl[g]
+        bl, bh = max(pos[g], cb), min(pos[g + 1], ce)
+        sv = (ofs[g] - a0) + (bl - pos[g]) * w + (j - spl[g])
+        for k in range(bh - bl):
+            v, xv = stage[sv + k * w], stage[xs + bl + k]
+            assert not (np.isnan(v) or np.isnan(xv)), "an unstaged word read"
+            acc = fmaf(v, xv, acc)
+        return acc
+
+    def store(acc, j):
+        y[j] = fmaf(F32(beta), F32(y_in[j]), (F32(alpha) * acc).astype(F32))
+
+    for s0, s1 in zip(runs[:-1], runs[1:]):
+        c0, c1, b0, b1, v0, v1 = spl[s0], spl[s1], pos[s0], pos[s1], ofs[s0], ofs[s1]
+        if (v1 - v0) + (b1 - b0) <= words:  # staged once, passes of THREADS
+            stage, a0, xs = stage_of(v0, v1, b0, b1)
+            for j in range(c0, c1):
+                store(column(F32(0), stage, a0, xs, s0, s1, j, b0, b1), j)
+            continue
+        assert s1 - s0 == 1, "a run longer than a stage holds one stripe"
+        w = c1 - c0
+        for jb in range(c0, c1, THREADS):
+            pw = min(THREADS, c1 - jb)  # the pass's columns
+            chunk = words // (pw + 1)
+            assert chunk >= 1
+            acc = np.zeros(pw, F32)
+            for cb in range(b0, b1, chunk):
+                ce = min(cb + chunk, b1)
+                stage = np.full(words + 16, np.nan, F32)
+                i = np.arange((ce - cb) * pw)
+                r = i // pw  # as the kernel's copy loop
+                at = v0 + (cb - b0 + r) * w + (jb - c0) + (i - r * pw)
+                assert (at >= v0).all() and (at < v1).all()
+                stage[:i.size] = val[at]
+                xs = stage_rows(stage, (i.size + 3) & ~3, cb, ce)
+                for t in range(pw):
+                    for k in range(ce - cb):
+                        v, xv = stage[k * pw + t], stage[xs + k]
+                        assert not (np.isnan(v) or np.isnan(xv)), "an unstaged word read"
+                        acc[t] = fmaf(v, xv, acc[t])
+            for t in range(pw):
+                store(acc[t], jb + t)
+    return y
+
+
+STAGED = {  # name -> (host pack, stage words): every kind of run
+    **{name: (PACKS[name][0], STAGE_WORDS) for name in
+       ("width_1", "width_3", "width_5", "width_40", "empty_stripes",
+        "zero_width_stripe_odd", "multiclass_dp", "wide_rectangle")},
+    "stripes_longer_than_a_stage": (lambda: vt.vbc1d(banded(300, 24, 200, 150, 5), 3,
+                                                     vt.EquiChunker(3)), 256),
+    "wider_than_a_block": (lambda: split_pack([0, 3, 1603, 1610], m=30), STAGE_WORDS),
+    "long_and_wide": (lambda: split_pack([0, 300], m=120), 2048),
+    "wider_than_a_stage": (lambda: split_pack([0, 2, 2302, 2305], m=30), 2048),
+    "one_stripe": (lambda: split_pack([0, 7], m=50), STAGE_WORDS),
+}
+
+
+@pytest.mark.parametrize("mis", [0, 1, 3])
+@pytest.mark.parametrize("case", sorted(STAGED))
+def test_staged_walk_is_the_column_sums(case, mis):
+    """Every column's bits as the thread a column's (``column_sums``), on
+    values at each offset from a 16-byte boundary."""
+    make, words = STAGED[case]
+    B = make()
+    rng = np.random.default_rng(4)
+    x, y = rng.standard_normal(B.m).astype(F32), rng.standard_normal(B.n).astype(F32)
+    got = staged_walk(B, x, 0.5, 0.25, y, mis, words=words)
+    want = column_sums(B, x, 0.5, 0.25, y)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))

@@ -150,6 +150,13 @@ class VBC1DDevice:
     # the SpMM kernel walks a thread block each; None: the kernel takes
     # every stripe by its lanes
     long_stripes: torch.Tensor | None = None
+    # the stripe kernel's runs of stripes (filled on first use by
+    # ``ops.trspmv.stage_plan``); ``natural_view`` and every other
+    # ``dataclasses.replace`` hand the same dict on, as they hand on
+    # ``spl``, ``pos`` and ``ofs``, and the entry names the arrays it was
+    # cut from
+    stage_plans: dict = dataclasses.field(default_factory=dict, repr=False,
+                                          compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -169,8 +176,9 @@ class VBC1DDevice:
         """The natural view of this pack of ``A[perm][:, perm]``: block rows
         ``perm[idx]`` (computed once, on the device) and ``col_out = perm``,
         so ``tr_spmv``/``tr_spmm`` read natural x and write natural y.  It
-        shares ``spl``, ``pos``, ``ofs``, ``val`` and ``col_stripe`` with
-        this pack; ``idx`` and ``col_out`` are its own."""
+        shares ``spl``, ``pos``, ``ofs``, ``val``, ``col_stripe`` and the
+        stripe kernel's runs (``stage_plans``) with this pack; ``idx`` and
+        ``col_out`` are its own."""
         _check_perm(perm, self.n, self.device)
         if self.m != self.n or self.col_out is not None:
             raise ValueError("a natural view needs a square pack in relabeled order")

@@ -13,6 +13,13 @@ added only when both ``beta`` and ``y`` are given.
 injection into ``[0, out.numel())``: two launches on two formats whose
 ``col_out`` are disjoint fill one buffer (the overlapped halo path's
 local and remote stripes, ``parallel/stream.py``).
+
+The kernel has two thread maps, picked here from the format
+(:func:`thread_map`): the float4 map where every stripe width is a
+multiple of 4 (``quad_widths``) and the values start on 16 bytes; else
+the staged map, a thread block a run of stripes (:func:`stage_plan`).
+``tr_spmv.launches_by_map`` counts the launches of each
+(``utils.trace.launches_by_map``).
 """
 
 from __future__ import annotations
@@ -23,7 +30,16 @@ from ..formats.device import VBC1DDevice
 from ..utils import trace
 from . import _lib
 
-__all__ = ["tr_spmv", "tr_spmv_plain"]
+__all__ = ["tr_spmv", "tr_spmv_plain", "stage_plan", "thread_map", "STAGE_COLS",
+           "STAGE_STRIPES", "STAGE_WORDS"]
+
+# the staged map's run bounds (csrc/trspmv.cu: kRunCols, kRunStripes,
+# kStageWords): two passes of a block's 256 threads, a column a thread;
+# the run's splits; its values and gathered x rows in one shared-memory
+# stage of 4-byte words
+STAGE_COLS = 512
+STAGE_STRIPES = 256
+STAGE_WORDS = 7168
 
 
 def _check_tensor(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -118,6 +134,60 @@ def _run_tr_spmv(kernel, plain, fmt, x, alpha, beta, y, launch,
     return out
 
 
+def _cut_runs(spl: torch.Tensor, pos: torch.Tensor, ofs: torch.Tensor,
+              cols: int, stripes: int, words: int) -> torch.Tensor:
+    """:func:`stage_plan`'s runs of the stripes split by ``spl``/``pos``/
+    ``ofs`` (int64) at the given bounds."""
+    L, dev = spl.numel() - 1, spl.device
+    s = torch.arange(L + 1, device=dev)
+    used = ofs + pos  # stage words before each stripe split
+    nxt = torch.minimum(
+        torch.searchsorted(spl, spl + cols, right=True),
+        torch.searchsorted(used, used + words, right=True)) - 1
+    nxt = torch.minimum(nxt, s + stripes)
+    nxt = torch.maximum(nxt, s + 1).clamp_(max=L)  # a stripe at least; L stays
+    jumps = [nxt]  # jumps[k][s]: the split 2^k runs on from split s
+    while int(jumps[-1][0]) < L:
+        jumps.append(jumps[-1][jumps[-1]])
+    on = torch.zeros(L + 1, dtype=torch.bool, device=dev)
+    on[0] = True
+    for jump in reversed(jumps):
+        on[jump[on]] = True
+    runs = torch.nonzero(on).flatten()
+    return torch.stack([runs, spl[runs], pos[runs], ofs[runs]], 1).int().contiguous()
+
+
+def stage_plan(fmt: VBC1DDevice) -> torch.Tensor:
+    """The staged map's runs of ``fmt``, a thread block of the kernel a run:
+    int32 ``[R + 1, 4]`` on its device, each split between runs as (stripe,
+    column, block, value), so a block reads where its run starts and ends
+    in two 16-byte loads.
+
+    Cut greedily from stripe 0: each run takes whole consecutive stripes
+    for as long as it holds at most ``STAGE_COLS`` columns,
+    ``STAGE_STRIPES`` stripes and ``STAGE_WORDS`` words of stage (its
+    values and its block rows, one word each), so no run but the last
+    could take its next stripe.  A stripe beyond ``STAGE_WORDS`` alone is
+    a run of its own (the kernel walks it in passes of columns and chunks
+    of blocks); one beyond ``STAGE_COLS`` too.  Computed with torch ops
+    (each stripe's longest run, then the runs from stripe 0 by pointer
+    doubling) once per format arrays and cached in ``fmt.stage_plans``,
+    which a natural view shares."""
+    hit = fmt.stage_plans.get("runs")
+    if hit is not None and hit[0] is fmt.spl and hit[1] is fmt.pos and hit[2] is fmt.ofs:
+        return hit[3]
+    plan = _cut_runs(fmt.spl.long(), fmt.pos.long(), fmt.ofs.long(), STAGE_COLS,
+                     STAGE_STRIPES, STAGE_WORDS)
+    fmt.stage_plans["runs"] = (fmt.spl, fmt.pos, fmt.ofs, plan)
+    return plan
+
+
+def thread_map(fmt) -> str:
+    """The kernel's thread map on ``fmt``: ``"quad"`` or ``"staged"``
+    (module docstring)."""
+    return "quad" if fmt.quad_widths and fmt.val.data_ptr() % 16 == 0 else "staged"
+
+
 def tr_spmv(fmt: VBC1DDevice, x: torch.Tensor, alpha=None, beta=None,
             y=None, out=None) -> torch.Tensor:
     """``alpha * A.T @ x (+ beta * y)`` in natural order, shape ``[n]``
@@ -129,14 +199,21 @@ def tr_spmv(fmt: VBC1DDevice, x: torch.Tensor, alpha=None, beta=None,
 
     CUDA tensors run the stripe kernel (or raise); CPU tensors run
     :func:`tr_spmv_plain`."""
-    return _run_tr_spmv(
-        tr_spmv, tr_spmv_plain, fmt, x, alpha, beta, y,
-        lambda lib, *rest: lib.vbcs_tr_spmv(
-            fmt.n, fmt.L, int(fmt.quad_widths), fmt.spl.data_ptr(),
+    def launch(lib, *rest):
+        how = thread_map(fmt)
+        runs = stage_plan(fmt) if how == "staged" else None
+        rc = lib.vbcs_tr_spmv(
+            fmt.n, fmt.L, 0 if runs is None else runs.shape[0] - 1,
+            None if runs is None else runs.data_ptr(), fmt.spl.data_ptr(),
             fmt.pos.data_ptr(), fmt.idx.data_ptr(), fmt.ofs.data_ptr(),
-            fmt.col_stripe.data_ptr(),
             None if fmt.col_out is None else fmt.col_out.data_ptr(),
-            fmt.val.data_ptr(), x.data_ptr(), *rest), out)
+            fmt.val.data_ptr(), x.data_ptr(), *rest)
+        if rc == 0:
+            tr_spmv.launches_by_map[how] += 1
+        return rc
+
+    return _run_tr_spmv(tr_spmv, tr_spmv_plain, fmt, x, alpha, beta, y, launch, out)
 
 
 tr_spmv.launches = 0
+tr_spmv.launches_by_map = {"quad": 0, "staged": 0}

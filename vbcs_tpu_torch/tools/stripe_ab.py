@@ -13,20 +13,41 @@ is compiled by ``nvcc`` into a library of its own under ``build/`` and
 held against the plain version first (``|Δ| / max|y| <= 2e-5``); two
 launches of each must agree bitwise.
 
+``--cells`` times the shapes of the benchmark's two TrSpMV cells instead
+(``spbench/``: ``blocky_w8.trmul_stream``, the random-row blocky family
+at ``L = 640,000``, ``tr_mul(x, 1, 0.5, y)``; ``hpcg_27pt_144.cg_sync``,
+HPCG's 27-point stencil at 144^3, ``mul(x)``), each through
+``from_csc(A, W=8, reorder="auto")`` as the cell plans it, on three
+formats of its packed direction: (a) ``natural``, the natural view the
+cell runs (rows ``perm[idx]``, y through ``col_out``); (b)
+``relabeled``, the relabeled pack itself (x and y in its order, no
+``col_out``); (c) ``window``, (a) with every block row masked into the
+first ``WINDOW_ROWS`` rows (1 MB of x, surely in the L2).  (a) against
+(b) and (c) splits the scattered x and y from the map's own cost.
+Back-to-back only: each call moves 350-900 MB, over 7x the L2.
+
     python -m vbcs_tpu_torch.tools.stripe_ab [--variant NAME=SRC.cu ...]
-        [--earlier NAME=SRC.cu ...] [--width W] [--json FILE]
+        [--columns NAME=SRC.cu ...] [--earlier NAME=SRC.cu ...]
+        [--width W | --cells] [--json FILE]
 
 A ``--variant`` source exports ``vbcs_tr_spmv`` with the package's
-interface; an ``--earlier`` source the interface of the kernel the
-package's replaced, which has no ``quads`` argument.  It needs a CUDA card and
-prints one line a matrix, the card's name and power limit, and a JSON
-record last.
+interface (its runs cut by the package's
+:func:`~vbcs_tpu_torch.ops.trspmv.stage_plan`, its map the package's
+:func:`~vbcs_tpu_torch.ops.trspmv.thread_map`); a ``--columns`` source
+the interface of the kernel before the staged map (``quads`` in place
+of the runs, the thread a column through ``col_stripe``: ``git show
+9ccbb5a:vbcs_tpu_torch/csrc/trspmv.cu``); an ``--earlier`` source the
+interface of the first kernel, which has no ``quads`` argument.  The
+cells' matrices come from the benchmark's own generators
+(``spbench.gen``).  It needs a CUDA card and prints one line a matrix,
+the card's name and power limit, and a JSON record last.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -37,15 +58,32 @@ import torch
 
 from .. import VBCOperator
 from ..ops import _lib
-from ..ops.trspmv import tr_spmv, tr_spmv_plain
+from ..ops.trspmv import stage_plan, thread_map, tr_spmv, tr_spmv_plain
 from ..utils.profile import f32_flops, hbm_bandwidth
 from ..utils.timing import flushed_ms, paired_ms
 from .matrices import BLOCKY_ABOVE_L2, blocky_matrix
 
-__all__ = ["work", "main"]
+__all__ = ["work", "main", "CELLS", "WINDOW_ROWS"]
 
 TOL = 2e-5  # f32 sums in another order than the plain version's index_add_
 ALPHA, BETA = 0.5, 0.25
+WINDOW_ROWS = 1 << 18  # (c): block rows masked into 1 MB of x
+# the benchmark's TrSpMV cells: (generator of spbench/gen, its seed and
+# arguments, packed direction, call arguments)
+CELLS = {
+    "blocky_w8.trmul_stream": ("blocky", 0, dict(L=640_000, w=8, d=8), "transposed",
+                               (1.0, 0.5, True)),
+    "hpcg_27pt_144.cg_sync": ("hpcg27", None, dict(nx=144, ny=144, nz=144),
+                              "forward", (None, None, False)),
+}
+
+
+def cell_matrix(label):
+    """The matrix of a TrSpMV cell (``CELLS``), from ``spbench/gen``."""
+    import importlib
+
+    gen, seed, kw, _, _ = CELLS[label]
+    return importlib.import_module(f"spbench.gen.{gen}").generate(seed, **kw)
 
 
 def work(fmt, nnz: int) -> tuple[int, int]:
@@ -60,7 +98,8 @@ def work(fmt, nnz: int) -> tuple[int, int]:
 
 def _build(named: list[tuple[str, str, str]]) -> dict:
     """Compile each (name, interface, source) into ``build/stripe_ab_<name>.so``
-    (all at once) and load it with its ``vbcs_tr_spmv`` typed."""
+    (all at once) and load it with its ``vbcs_tr_spmv`` typed: name ->
+    (interface, launcher)."""
     out_dir = os.path.dirname(_lib.SO)
     os.makedirs(out_dir, exist_ok=True)
     libs = {name: os.path.join(out_dir, f"stripe_ab_{name}.so") for name, _, _ in named}
@@ -70,24 +109,34 @@ def _build(named: list[tuple[str, str, str]]) -> dict:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     loaded = {}
     for name, kind, _ in named:
-        lib = ctypes.CDLL(libs[name])
-        fn = lib.vbcs_tr_spmv
-        fn.argtypes = ([i32] * 3 if kind == "variant" else [i32]) + [vp] * 9 + [
+        fn = ctypes.CDLL(libs[name]).vbcs_tr_spmv
+        fn.argtypes = [i32] * (1 if kind == "earlier" else 3) + [vp] * 9 + [
             f32, f32, vp, vp]
         fn.restype = i32
         loaded[name] = (kind, fn)
     return loaded
 
 
-def _call(kind, fn, fmt, xt, yt):
-    """A closure launching another build on ``fmt`` (a new output each call)."""
+def _call(kind, fn, fmt, xt, yt, alpha=ALPHA, beta=BETA):
+    """A closure launching another build on ``fmt`` (a new output each
+    call; ``yt`` None: no beta term)."""
+    ptrs = [fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(),
+            fmt.ofs.data_ptr()]
+    if kind == "variant":
+        runs = stage_plan(fmt) if thread_map(fmt) == "staged" else None
+        head = [fmt.n, fmt.L, 0 if runs is None else runs.shape[0] - 1,
+                None if runs is None else runs.data_ptr()]
+    else:  # a thread a column, through col_stripe
+        head = [fmt.n, fmt.L, int(fmt.quad_widths)] if kind == "columns" else [fmt.n]
+        ptrs.append(fmt.col_stripe.data_ptr())
+
     def run():
         out = torch.empty(fmt.n, dtype=torch.float32, device=xt.device)
-        head = [fmt.n, fmt.L, int(fmt.quad_widths)] if kind == "variant" else [fmt.n]
-        rc = fn(*head, fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(),
-                fmt.ofs.data_ptr(), fmt.col_stripe.data_ptr(), None,
-                fmt.val.data_ptr(), xt.data_ptr(), yt.data_ptr(),
-                ALPHA, BETA, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        rc = fn(*head, *ptrs, None if fmt.col_out is None else fmt.col_out.data_ptr(),
+                fmt.val.data_ptr(), xt.data_ptr(),
+                None if yt is None else yt.data_ptr(),
+                1.0 if alpha is None else alpha, 0.0 if yt is None else beta,
+                out.data_ptr(), torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"launch failed: CUDA error {rc}")
         return out
@@ -114,7 +163,7 @@ def _case(label, A, builds, dev) -> dict:
         torch.from_numpy(AT.indices.astype(np.int32)), torch.from_numpy(AT.data),
         size=(op.n, op.m)).to(dev)
     cands = {"package": lambda: tr_spmv(fmt, xt, ALPHA, BETA, yt)}
-    cands.update({k: _call(kind, fn, fmt, xt, yt) for k, (kind, fn) in builds.items()})
+    cands.update({k: _call(*b, fmt, xt, yt) for k, b in builds.items()})
     plain = tr_spmv_plain(fmt, xt, ALPHA, BETA, yt)
     library = lambda: torch.addmv(yt, AT, xt, beta=BETA, alpha=ALPHA)  # noqa: E731
     errs, same = {}, {}
@@ -152,6 +201,60 @@ def _case(label, A, builds, dev) -> dict:
     return rec
 
 
+def _cell_case(label, A, direction, call_args, builds, dev) -> dict:
+    """(a), (b) and (c) of one cell's packed direction (module docstring):
+    each candidate held against the plain version, two launches bitwise,
+    bitwise the package on each format, then timed back-to-back."""
+    alpha, beta, with_y = call_args
+    op = VBCOperator.from_csc(A, W=8, directions=direction, reorder="auto",
+                              device=dev)
+    which = "tr" if direction == "transposed" else "fw"
+    name, natural, _ = getattr(op, f"route_{which}")
+    if name != "stripe" or op.perm_t is None:
+        raise RuntimeError(f"{label}: route {name}, auto-RCM "
+                           f"{'on' if op.perm_t is not None else 'off'}")
+    views = {"natural": natural,
+             "relabeled": getattr(op, f"dev_{which}"),
+             "window": dataclasses.replace(natural, idx=natural.idx & (WINDOW_ROWS - 1))}
+    rng = np.random.default_rng(21)
+    xt = torch.from_numpy(rng.standard_normal(op.m).astype(np.float32)).to(dev)
+    yt = (torch.from_numpy(rng.standard_normal(op.n).astype(np.float32)).to(dev)
+          if with_y else None)
+    nnz = int(np.count_nonzero(sp.csc_matrix(A).data))
+    rec = {"columns": op.n, "stripes": natural.L, "blocks": natural.idx.numel(),
+           "mean_width": op.n / natural.L, "nnz": nnz, "views": {}}
+    for view, fmt in views.items():
+        cands = {"package": lambda fmt=fmt: tr_spmv(fmt, xt, alpha, beta, yt)}
+        cands.update({k: _call(*b, fmt, xt, yt, alpha, beta)
+                      for k, b in builds.items()})
+        plain = tr_spmv_plain(fmt, xt, alpha, beta, yt)
+        ours = cands["package"]()
+        errs, same = {}, {}
+        for k, f in cands.items():
+            a, b = f(), f()
+            torch.cuda.synchronize()
+            errs[k], same[k] = _rel(a, plain), torch.equal(a, ours)
+            if errs[k] > TOL or not torch.equal(a, b):
+                raise RuntimeError(f"{label} {view} {k}: off the plain version by "
+                                   f"{errs[k]:.2e} or two launches differ")
+        del plain
+        warm = paired_ms(list(cands.values()), dev)
+        nbytes, flops = work(fmt, nnz)
+        bound_ms = max(nbytes / hbm_bandwidth(dev), flops / f32_flops(dev)) * 1e3
+        rec["views"][view] = {
+            "mb_a_call": nbytes / 1e6, "bound_ms": bound_ms,
+            "kernels": {k: {"ms": warm[i], "rel_err": errs[k],
+                            "bitwise_package": same[k]}
+                        for i, k in enumerate(cands)}}
+        print(f"[{label} {view}] {op.n} columns, {fmt.L} stripes of mean width "
+              f"{op.n / fmt.L:.3f}, {fmt.idx.numel()} blocks, {nbytes / 1e6:.1f} MB "
+              f"a call, bound {bound_ms * 1e3:.2f} us; " + "; ".join(
+                  f"{k} {warm[i] * 1e3:.2f} us ({bound_ms / warm[i]:.3f} of the bound"
+                  f"{', bitwise the package' if same[k] else ''})"
+                  for i, k in enumerate(cands)), flush=True)
+    return rec
+
+
 def _named(values, kind):
     out = []
     for v in values or []:
@@ -166,10 +269,15 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variant", action="append",
                     help="NAME=SRC.cu, the package's interface")
+    ap.add_argument("--columns", action="append",
+                    help="NAME=SRC.cu, the interface before the staged map")
     ap.add_argument("--earlier", action="append",
                     help="NAME=SRC.cu, the interface without quads")
-    ap.add_argument("--width", type=int, default=8,
-                    help="blocky_matrix's stripe width w (default 8, the flagship's)")
+    shapes = ap.add_mutually_exclusive_group()
+    shapes.add_argument("--width", type=int, default=8,
+                        help="blocky_matrix's stripe width w (default 8, the flagship's)")
+    shapes.add_argument("--cells", action="store_true",
+                        help="the benchmark's TrSpMV cells' shapes, (a)-(c)")
     ap.add_argument("--json", help="also write the record to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -180,12 +288,19 @@ def main(argv=None) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     _lib.load()
-    builds = _build(_named(args.variant, "variant") + _named(args.earlier, "earlier"))
-    w = dict(w=args.width)
-    rec = {"card": smi, "w": args.width,
-           "flagship": _case(f"blocky_matrix({w})", blocky_matrix(**w), builds, dev),
-           "above_l2": _case(f"blocky_matrix({BLOCKY_ABOVE_L2 | w})",
-                             blocky_matrix(**BLOCKY_ABOVE_L2, **w), builds, dev)}
+    builds = _build(_named(args.variant, "variant") + _named(args.columns, "columns")
+                    + _named(args.earlier, "earlier"))
+    if args.cells:
+        rec = {"card": smi, "cells": {
+            label: _cell_case(label, cell_matrix(label), direction, call_args, builds,
+                              dev)
+            for label, (_, _, _, direction, call_args) in CELLS.items()}}
+    else:
+        w = dict(w=args.width)
+        rec = {"card": smi, "w": args.width,
+               "flagship": _case(f"blocky_matrix({w})", blocky_matrix(**w), builds, dev),
+               "above_l2": _case(f"blocky_matrix({BLOCKY_ABOVE_L2 | w})",
+                                 blocky_matrix(**BLOCKY_ABOVE_L2, **w), builds, dev)}
     print(smi)
     line = json.dumps(rec)
     print(line, flush=True)

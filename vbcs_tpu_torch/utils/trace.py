@@ -32,7 +32,8 @@ Span names are fixed strings at each site:
 
 :func:`launches` sums the launch counters of the operator's per-call
 kernels (``ops.CALL_LAUNCHERS``), which count whether the tracer is on
-or not.
+or not; :func:`launches_by_map` splits the stripe TrSpMV's by the thread
+map each launch took.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ import time
 import torch
 
 __all__ = ["enable", "disable", "enabled", "span", "count", "snapshot", "reset",
-           "summary", "launches"]
+           "summary", "launches", "launches_by_map"]
 
 _on = False
 _NULL = contextlib.nullcontext()
@@ -195,3 +196,13 @@ def launches() -> int:
     from ..ops import CALL_LAUNCHERS
 
     return sum(f.launches for f in CALL_LAUNCHERS)
+
+
+def launches_by_map() -> dict:
+    """Launches of the stripe TrSpMV kernel since the process began, by
+    the thread map the launcher took from the format (``"quad"``, the
+    float4 map; ``"staged"``, a run of stripes a block): a copy of
+    ``ops.trspmv.tr_spmv.launches_by_map``."""
+    from ..ops.trspmv import tr_spmv
+
+    return dict(tr_spmv.launches_by_map)
