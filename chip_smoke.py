@@ -58,7 +58,10 @@ Phases (one line each; any failure raises and exits non-zero):
    wide; the map checked staged, each call one staged launch after a
    reset, held against the plain version bare, with alpha/beta/y and into
    a longer ``out=`` through ``col_out``, two launches bitwise; the
-   ``kernels`` line's ``tr_spmv_staged`` entry),
+   ``kernels`` line's ``tr_spmv_staged`` entry) and its f64 staged map on
+   the float64 cell's natural view (``stripe_ab.F64_CELLS``, the same
+   checks at 1e-14, the bound at 8 bytes an element; the ``kernels``
+   line's ``tr_spmv_staged_f64`` entry),
    the tile kernel also beside the stripe kernel on the same matrix's 1-D
    view and beside itself on a one-tile pack (its launch floor), the
    chain beside ``CHAIN_ITERS`` stripe-kernel launches and as many
@@ -94,10 +97,11 @@ Phases (one line each; any failure raises and exits non-zero):
     gather); then every variant of the four probe kernels against its
     plain version at full size; the relayout's time beside the launch
     probe's floor;
-13. the semiring routes (``ops/semiring.py``): the flagship and the
-    auto-RCM FEM as f64 operators at full size (``tr_mul`` with
-    alpha/beta/y, ``mul``, ``tr_mul_mat``/``mul_mat`` at k=32,
-    ``tr_mul_chain`` x5) against scipy's f64 products (``SEMI_TOL``),
+13. the non-f32 routes: the flagship and the auto-RCM FEM as f64
+    operators at full size (``tr_mul`` with alpha/beta/y and ``mul`` on
+    the stripe kernel's f64 map, one launch each; ``tr_mul_mat``/
+    ``mul_mat`` at k=32 and ``tr_mul_chain`` x5 on ``ops/semiring.py``)
+    against scipy's f64 products (``SEMI_TOL``),
     ``Pajek/GD99_c`` as int32 and bool operators (1-D and 2-D) exact, and
     the f64 flagship ``tr_mul`` timed beside the f32 kernel, the f64
     library call, an int32 call and the CSC baseline (``ops/csr.py``) in
@@ -263,6 +267,7 @@ from vbcs_tpu_torch.tools.matrices import (BLOCKY_ABOVE_L2, blocky2d_matrix,
 # |kernel - reference| / max|reference|: f32 sums in another order than
 # the plain version (atomics) and the f64 oracle
 TOL = 2e-5
+TOL_F64 = 1e-14  # the f64 stripe kernel (fma) against its plain version (multiply, add)
 SPMM_K = (1, 5, 32, 128, 130)  # scalar path, float4 path, two 128-col tiles
 KERNELS = (vt.tr_spmv, vt.gather, vt.gather_tiles, vt.tr_spmm, vt.tr_spmv_2d,
            vt.tr_spmv_chain, vt.tr_spmv_scatter, vt.tile_relayout)
@@ -555,13 +560,14 @@ def index_bytes(fmt, nnz) -> int:
     return sum(t.numel() * t.element_size() for t in arrays)
 
 
-def tr_spmv_work(fmt, nnz, with_y, n_iters=1):
+def tr_spmv_work(fmt, nnz, with_y, n_iters=1, elem=4):
     """(bytes, flops) that ``y = alpha*A.T@x (+ beta*y)`` needs on the
     matrix of ``fmt`` with ``nnz`` nonzeros: each nonzero's value and
     index (:func:`index_bytes`) and x read once, y in (with_y) and y out
-    written once; an FMA per nonzero and the scaling per output, for each
-    iteration.  The pack's stored fill is not counted."""
-    nbytes = 4 * nnz + index_bytes(fmt, nnz) + 4 * (
+    written once, values and vectors at ``elem`` bytes an element; an FMA
+    per nonzero and the scaling per output, for each iteration.  The
+    pack's stored fill is not counted."""
+    nbytes = elem * nnz + index_bytes(fmt, nnz) + elem * (
         fmt.m + fmt.n * (2 if with_y else 1))
     flops = n_iters * (2 * nnz + fmt.n * (3 if with_y else 1))
     return nbytes, flops
@@ -1631,7 +1637,7 @@ def phase_timing_cells(dev, errs):
             reset_launches()
             got, again = run(vt.tr_spmv), run(vt.tr_spmv)
             torch.cuda.synchronize()
-            check(vt.tr_spmv.launches_by_map == {"quad": 0, "staged": 2}
+            check(vt.tr_spmv.launches_by_map == {"quad": 0, "staged": 2, "staged_f64": 0}
                   and vt.tr_spmv.launches == 2,
                   f"{label} {form}: launches {vt.tr_spmv.launches_by_map} (want two "
                   f"staged)")
@@ -1672,6 +1678,88 @@ def phase_timing_cells(dev, errs):
     rec = {k: first[k] for k in ("ms", "flushed_ms", "plain_ms", "bound_ms", "bound_by")}
     rec["library_ms"] = None
     rec["cells"] = cells
+    return rec, n_launch
+
+
+def phase_timing_cells_f64(dev, errs):
+    """The stripe kernel's f64 staged map on the natural view the
+    benchmark's float64 cell runs (``stripe_ab.F64_CELLS``:
+    ``hpcg_27pt_144_f64``'s ``mul(x)``), built as the cell builds it.  The
+    route is the stripe kernel on an f64 natural view; after a reset, each
+    checked call is one ``staged_f64`` launch and no other; the kernel
+    against its plain version in f64 (``TOL_F64``) bare, with alpha/beta/y
+    and into a longer ``out=`` through ``col_out``, two launches bitwise;
+    then the cell's call timed back-to-back (kernel, plain) and
+    L2-flushed, its bound at 8 bytes an element (and f64 operations at
+    half the f32 peak).  Returns (the kernels line's ``tr_spmv_staged_f64``
+    entry, its launches)."""
+    errs["tr_spmv_staged_f64"] = 0.0
+    label, (_, _, _, direction, (alpha, beta, _)) = next(iter(stripe_ab.F64_CELLS.items()))
+    t0 = time.perf_counter()
+    A = stripe_ab.cell_matrix(label)
+    op = vt.VBCOperator.from_csc(A, W=8, directions=direction, reorder="auto", device=dev)
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t0
+    name, fmt, _ = op.route_tr if direction == "transposed" else op.route_fw
+    check(name == "stripe" and fmt.col_out is not None and fmt.val.dtype == torch.float64
+          and thread_map(fmt) == "staged",
+          f"{label}: route {name}, natural view {fmt.col_out is not None}, values "
+          f"{fmt.val.dtype}, map {thread_map(fmt)} (want the f64 staged map on a "
+          f"natural view)")
+    rng = np.random.default_rng(21)
+    xt = torch.from_numpy(rng.standard_normal(op.m)).to(dev)
+    yt = torch.from_numpy(rng.standard_normal(op.n)).to(dev)
+    big = torch.from_numpy(rng.standard_normal(2 * op.n + 1)).to(dev)
+    place = torch.from_numpy(rng.permutation(2 * op.n + 1)[:op.n].astype(np.int32)).to(dev)
+    placed = dataclasses.replace(fmt, col_out=place[fmt.col_out.long()])
+    forms = {"bare": (fmt, (), False), "alpha_beta_y": (fmt, (0.5, 0.25, yt), False),
+             "out": (placed, (0.5, 0.25, big), True)}
+    worst, n_launch = 0.0, 0
+    for form, (f, args, into) in forms.items():
+        def run(kernel, f=f, args=args, into=into):
+            return kernel(f, xt, *args, **({"out": torch.full_like(big, 7.0)}
+                                            if into else {}))
+        reset_launches()
+        got, again = run(vt.tr_spmv), run(vt.tr_spmv)
+        torch.cuda.synchronize()
+        check(vt.tr_spmv.launches_by_map == {"quad": 0, "staged": 0, "staged_f64": 2}
+              and vt.tr_spmv.launches == 2,
+              f"{label} {form}: launches {vt.tr_spmv.launches_by_map} (want two "
+              f"staged_f64)")
+        n_launch += 2
+        ref = run(vt.tr_spmv_plain)
+        err = rel_err(got.cpu().numpy(), ref.cpu().numpy())
+        check(got.dtype == torch.float64 and np.isfinite(err) and err <= TOL_F64
+              and torch.equal(got, again),
+              f"{label} {form}: f64 staged map off the plain version by {err:.2e}, "
+              f"or two launches differ")
+        errs["tr_spmv_staged_f64"] = max(errs["tr_spmv_staged_f64"],
+                                         float((got - ref).abs().max()))
+        worst = max(worst, err)
+        del got, again, ref
+    call_args = () if alpha is None else (alpha, beta, yt)
+    calls = [lambda: vt.tr_spmv(fmt, xt, *call_args),
+             lambda: vt.tr_spmv_plain(fmt, xt, *call_args)]
+    warm = paired_ms(calls, dev)
+    cold = flushed_ms(calls[0], dev)
+    nnz = nonzeros(A)
+    nbytes, flops = tr_spmv_work(fmt, nnz, beta is not None, elem=8)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / (F32_FLOP_PER_S / 2) * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    runs = int(stage_plan(fmt).shape[0] - 1)
+    print(f"[8 timing tr_spmv, f64 staged map, {label}'s natural view: {op.m}x{op.n}, "
+          f"nnz {nnz}, {fmt.L} stripes of mean width {op.n / fmt.L:.3f}, "
+          f"{fmt.idx.numel()} blocks, {runs} runs; generated and from_csc (auto-RCM) "
+          f"{t_op:.2f} s] kernel {warm[0] * 1e3:.2f} us/call back-to-back, "
+          f"{cold * 1e3:.2f} flushed ({nbytes / 1e6:.1f} MB per call; bound "
+          f"{bound_ms * 1e3:.2f} us, {bound_ms / warm[0]:.3f} of it back-to-back); "
+          f"plain {warm[1] * 1e3:.2f} us; |Δ|/max {worst:.3e} (plain; bare, "
+          f"alpha/beta/y, out=); two launches bitwise equal", flush=True)
+    rec = {"ms": warm[0], "flushed_ms": cold, "plain_ms": warm[1], "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None, "stripes": fmt.L,
+           "blocks": fmt.idx.numel(), "runs": runs, "cell": label}
+    del op, fmt, placed, calls, xt, yt, big, place
+    torch.cuda.empty_cache()
     return rec, n_launch
 
 
@@ -2220,17 +2308,18 @@ def f32_alpha(A) -> float:
 
 
 def semiring_f64_run(label, A32, dev, rng, relabeled):
-    """An f64 operator of ``A32`` at full size: ``tr_mul(alpha, beta, y)``,
-    ``mul``, ``tr_mul_mat``/``mul_mat`` at k=32 and ``tr_mul_chain`` x5
-    against scipy's f64 products (``SEMI_TOL``); returns the matrix, the
-    operator and its f64 x and y on the card."""
+    """An f64 operator of ``A32`` at full size: ``tr_mul(alpha, beta, y)``
+    and ``mul`` (the stripe kernel's f64 map: one ``staged_f64`` launch
+    each), ``tr_mul_mat``/``mul_mat`` at k=32 and ``tr_mul_chain`` x5 (the
+    semiring route) against scipy's f64 products (``SEMI_TOL``); returns
+    the matrix, the operator and its f64 x and y on the card."""
     A = sp.csc_matrix(A32, dtype=np.float64)
     t0 = time.perf_counter()
     op = vt.VBCOperator.from_csc(A, W=8, device=dev)
     torch.cuda.synchronize()
     t_op = time.perf_counter() - t0
-    check(op.dev_tr is None and op.dev_fw is None,
-          f"{label}: an f64 operator copied the kernels' f32 formats")
+    check(op.dev_tr.val.dtype == op.dev_fw.val.dtype == torch.float64,
+          f"{label}: an f64 operator's kernel formats are not f64")
     check((op.row_perm is not None) == relabeled,
           f"{label}: auto-RCM {'did not relabel' if relabeled else 'relabeled'} "
           f"the f64 matrix")
@@ -2239,10 +2328,14 @@ def semiring_f64_run(label, A32, dev, rng, relabeled):
     X, Xf = rng.standard_normal((m, 32)), rng.standard_normal((n, 32))
     alpha = f32_alpha(A)
     xt, yt, xft, Xt, Xft = (torch.from_numpy(a).to(dev) for a in (x, y, xf, X, Xf))
-    got = {"tr_mul": op.tr_mul(xt, 0.5, 0.25, yt), "mul": op.mul(xft),
-           "tr_mul_mat": op.tr_mul_mat(Xt), "mul_mat": op.mul_mat(Xft),
-           "tr_mul_chain": op.tr_mul_chain(xt, 5, alpha)}
+    before = vt.tr_spmv.launches_by_map["staged_f64"]
+    got = {"tr_mul": op.tr_mul(xt, 0.5, 0.25, yt), "mul": op.mul(xft)}
+    f64_map = vt.tr_spmv.launches_by_map["staged_f64"] - before
+    got.update({"tr_mul_mat": op.tr_mul_mat(Xt), "mul_mat": op.mul_mat(Xft),
+                "tr_mul_chain": op.tr_mul_chain(xt, 5, alpha)})
     torch.cuda.synchronize()
+    check(f64_map == 2, f"{label}: f64 tr_mul and mul launched {f64_map} f64 staged "
+                        f"maps (want 2)")
     want = {"tr_mul": 0.5 * (A.T @ x) + 0.25 * y, "mul": A @ xf,
             "tr_mul_mat": A.T @ X, "mul_mat": A @ Xf,
             "tr_mul_chain": chain_oracle(A, x, 5, alpha)}
@@ -2257,6 +2350,7 @@ def semiring_f64_run(label, A32, dev, rng, relabeled):
     order = "relabeled by RCM" if op.row_perm is not None else "natural order"
     print(f"[13 semiring f64 {label}] {m}x{n}, {A.nnz} nnz, {order}, "
           f"{op.semi_tr.val.numel()} stored values; from_csc {t_op:.3f} s; "
+          f"tr_mul/mul on the f64 staged map, the rest semiring; "
           f"|Δ|/max vs scipy f64: "
           + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
           + f" (tol {SEMI_TOL}; SpMM k=32, chain x5 at alpha {alpha:.6g})",
@@ -2309,10 +2403,12 @@ def semiring_exact(dev, rng):
 
 
 def phase_semiring(dev, flag):
-    """13: the non-f32 routes (``ops/semiring.py``) at full size — the
-    flagship and the auto-RCM FEM as f64 operators, GD99_c as int32 and
-    bool — and their times beside the f32 kernel, the library call and
-    the CSC baseline (``ops/csr.py``).  Returns the SEMIRING record."""
+    """13: the non-f32 routes at full size — the flagship and the
+    auto-RCM FEM as f64 operators (``tr_mul``/``mul`` on the stripe
+    kernel's f64 map, the SpMM and the chain on ``ops/semiring.py``),
+    GD99_c as int32 and bool — and their times beside the f32 kernel, the
+    library call and the CSC baseline (``ops/csr.py``).  Returns the
+    SEMIRING record."""
     rng = np.random.default_rng(16)
     with counting_semiring() as calls:
         A64, op64, x64, y64 = semiring_f64_run("flagship", flag[0], dev, rng, False)
@@ -3315,6 +3411,8 @@ def main():
     ms["tr_spmm"] = phase_timing_spmm(dev, flag, fem, spmm, parts)
     ms["tr_spmv"].update(phase_timing_above_l2(dev, errs))
     ms["tr_spmv_staged"], launches["tr_spmv_staged"] = phase_timing_cells(dev, errs)
+    ms["tr_spmv_staged_f64"], launches["tr_spmv_staged_f64"] = phase_timing_cells_f64(
+        dev, errs)
     ms_2d, pairs_2d = phase_timing_2d(dev, parts)
     ms.update(ms_2d)
     ms.update(phase_timing_slice4(dev, chains, scat, rel, pairs_2d))
@@ -3363,6 +3461,9 @@ def main():
         ("tr_spmv_staged", "tr_spmv_staged", "trspmv.cu",
          "vbcs_tpu/ops/pallas_trspmv3.py:1145 (the staged map, on the benchmark "
          "cells' natural views)"),
+        ("tr_spmv_staged_f64", "tr_spmv_staged_f64", "trspmv.cu",
+         "vbcs_tpu/ops/pallas_trspmv3.py:1145 (the staged map in f64, on the float64 "
+         "cell's natural view; the JAX operators run f64 on XLA)"),
         ("gather", "gather", "gather.cu", "vbcs_tpu/ops/windowed_gather.py:184"),
         ("gather_tiles", "gather_tiles", "gather.cu",
          "vbcs_tpu/ops/windowed_gather.py:184 (the halo paths' tile maps)"),

@@ -379,6 +379,38 @@ def test_tr_spmv_staged_map(case, call, cuda_device):
         assert (got[kept] == 7.0).all()
 
 
+# sha256 (first 16 hex digits) of the f32 staged map's outputs on each
+# STAGED_CASES format, y bare then with alpha 0.5, beta 0.25 and y, x and
+# y drawn from default_rng(31) in f32: the bits of the f32-only staged
+# kernel, which the kernel templated on its value type must keep (NVIDIA
+# H100 80GB HBM3; the sums' order fixes them on any card)
+STAGED_F32_DIGESTS = {
+    "blocky_random_rows_rcm": "d957a88fb899b120",
+    "mixed_widths_1_7": "0b2357c24b75fe5c",
+    "one_stripe": "648faace15efacab",
+    "stencil27_11_rcm": "6fcf7b128415029a",
+    "stripe_long_and_wide": "844780eb404ef83f",
+    "stripe_longer_than_a_stage": "097dc227bd0679c1",
+    "stripe_wider_than_a_block": "2e44bb6330c14e5f",
+    "stripe_wider_than_a_stage": "3ff67e40d621e0dd",
+}
+
+
+@pytest.mark.parametrize("case", sorted(STAGED_CASES))
+def test_tr_spmv_staged_f32_bits_kept(case, cuda_device):
+    """The f32 staged map gives the f32-only kernel's bits."""
+    import hashlib
+
+    fmt = STAGED_CASES[case](cuda_device)
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal(fmt.m).astype(np.float32)).to(cuda_device)
+    y = torch.from_numpy(rng.standard_normal(fmt.n).astype(np.float32)).to(cuda_device)
+    h = hashlib.sha256()
+    for args in ((), (0.5, 0.25, y)):
+        h.update(vt.tr_spmv(fmt, x, *args).cpu().numpy().tobytes())
+    assert h.hexdigest()[:16] == STAGED_F32_DIGESTS[case]
+
+
 def test_tr_spmv_launches_by_map(cuda_device):
     """``launches_by_map`` (and ``trace.launches_by_map``) counts an 8-wide
     pack's launch as ``quad`` and a narrow one's as ``staged``."""
@@ -1387,7 +1419,8 @@ def test_probe_spmm4_fma_kernel_matches_plain(cuda_device):
 @pytest.mark.parametrize("dtype", ["float64", "int32", "bool"])
 def test_semiring_routes_on_card(dtype, shape, cuda_device):
     """A non-f32 matrix runs ``ops/semiring.py`` on CUDA tensors (no
-    kernel launch): f64 within 1e-12 of scipy's f64 product, int32 and
+    kernel launch) — but the 1-D f64 ``tr_mul``, one launch of the stripe
+    kernel's f64 map: f64 within 1e-12 of scipy's f64 product, int32 and
     bool matrices exact with an int32 x."""
     A = blocky_matrix(L=512).astype(np.float64)
     if dtype != "float64":
@@ -1406,8 +1439,12 @@ def test_semiring_routes_on_card(dtype, shape, cuda_device):
         X = rng.integers(-4, 5, (m, 5)).astype(np.int32)
     launched = vt.tr_spmv.launches + vt.tr_spmv_2d.launches + vt.tr_spmm.launches
     y = op.tr_mul(torch.from_numpy(x).to(cuda_device))
+    f64_map = int(dtype == "float64" and shape == "1d")  # the f64 staged map
+    assert vt.tr_spmv.launches + vt.tr_spmv_2d.launches + vt.tr_spmm.launches == (
+        launched + f64_map)
     Y = op.tr_mul_mat(torch.from_numpy(X).to(cuda_device))
-    assert vt.tr_spmv.launches + vt.tr_spmv_2d.launches + vt.tr_spmm.launches == launched
+    assert vt.tr_spmv.launches + vt.tr_spmv_2d.launches + vt.tr_spmm.launches == (
+        launched + f64_map)
     Ai = A.astype(np.float64 if dtype == "float64" else np.int64)
     for got, want in ((y, Ai.T @ x), (Y, Ai.T @ X)):
         assert got.device.type == "cuda" and got.dtype == torch.from_numpy(x).dtype

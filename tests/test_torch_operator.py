@@ -27,6 +27,7 @@ import torch
 
 import vbcs_tpu as v
 import vbcs_tpu_torch as vt
+from vbcs_tpu_torch.utils import trace
 from corpus import load_corpus
 from vbcs_tpu.ops import pallas_trspmv3 as pk3
 
@@ -157,14 +158,25 @@ def test_route_and_from_host():
 
 def test_refusals():
     A = matrix("HB/can_292")
-    # an f64 matrix takes the semiring route (no f32 kernel formats); a
-    # bool x is refused there, as JAX's segment_sum refuses it
+    # an f64 matrix has f64 kernel formats (the stripe kernel's f64 map);
+    # an f64 matrix with an f32 x takes the semiring route in f32; a bool
+    # x is refused there, as JAX's segment_sum refuses it
     op64 = vt.VBCOperator.from_csc(A.astype(np.float64), device="cpu")
-    assert op64.dev_tr is None and op64.dev_fw is None
+    assert op64.dev_tr.val.dtype == op64.dev_fw.val.dtype == torch.float64
+    before = trace.semiring_calls().get("float32", 0)
+    x32 = torch.from_numpy(np.random.default_rng(1).standard_normal(A.shape[0])).float()
+    got = op64.tr_mul(x32)
+    assert got.dtype == torch.float32
+    assert trace.semiring_calls()["float32"] == before + 1
+    want = A.T.astype(np.float64) @ x32.numpy().astype(np.float64)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
     with pytest.raises(TypeError):
         op64.tr_mul(torch.zeros(A.shape[0], dtype=torch.bool))
+    assert op64.route_tr[0] == "stripe"  # an f64 pack: no f64 scatter kernel
+    op_int = vt.VBCOperator.from_csc(A.astype(np.int32), device="cpu")
+    assert op_int.dev_tr is None and op_int.dev_fw is None
     with pytest.raises(TypeError):
-        op64.route_tr  # the kernels' route is for f32 matrices
+        op_int.route_tr  # no kernel runs an int32 matrix
     if not torch.cuda.is_available():  # the default device is the card: no CPU fallback
         with pytest.raises((AssertionError, RuntimeError)):
             vt.VBCOperator.from_csc(A)

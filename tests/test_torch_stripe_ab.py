@@ -59,3 +59,24 @@ def test_cells_are_the_benchmarks(label):
     assert gen == cfg["generator"] and {**kw, "dtype": "float32"} == cfg["args"]
     small = importlib.import_module(f"spbench.gen.{gen}").generate(seed, **cfg["small"])
     assert small.shape[0] > 0 and small.nnz > 0
+
+
+@pytest.mark.parametrize("label", sorted(stripe_ab.F64_CELLS))
+def test_f64_cells_are_the_benchmarks(label):
+    """The float64 cell's matrix is its configuration's: the same
+    generator and arguments, float64 included; at the ``small`` size
+    ``cell_matrix``'s generator gives an f64 matrix."""
+    import importlib
+    import json
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    bench = json.load(open(os.path.join(root, "BENCHMARK.json")))
+    cell = next(c for c in bench["workloads"] if c["name"] == label)
+    with open(os.path.join(root, "spbench", "configs", f"{cell['config']}.json")) as fh:
+        cfg = json.load(fh)
+    gen, seed, kw, direction, _ = stripe_ab.F64_CELLS[label]
+    assert gen == cfg["generator"] and kw == cfg["args"] and kw["dtype"] == "float64"
+    assert direction == "forward"  # the cell's mul runs the A.T pack
+    small = importlib.import_module(f"spbench.gen.{gen}").generate(
+        seed, **{**kw, **cfg["small"]})
+    assert small.dtype == np.float64 and small.nnz > 0

@@ -251,6 +251,93 @@ def test_launches_sums_the_per_call_launchers(monkeypatch):
     assert trace.launches() == 11111
 
 
+@pytest.fixture(scope="module")
+def band64(band):
+    """The band in f64: an operator whose f64 calls take the stripe
+    kernel's f64 map (its plain version on the CPU)."""
+    return operator(band.astype(np.float64))
+
+
+def test_semiring_span_opens_only_on_that_route(band64):
+    """``op.semiring`` wraps the semiring route's product, under the
+    call's root span, and opens on no other route: not on an f64 call that
+    the stripe route takes, nor on an f32 one."""
+    op = band64
+    x = torch.randn(op.n, dtype=torch.float64)
+    op.mul(x)  # the routed format built
+    op.mul(x.float())  # the semiring format built
+    trace.enable()
+    op.mul(x)
+    op.tr_mul(x, 2.0, 0.5, x)
+    trace.disable()
+    assert "op.semiring" not in {s["name"] for s in trace.snapshot()["spans"]}
+    trace.reset()
+    trace.enable()
+    op.mul(x.float())  # a mixed pair: the semiring route, in f32
+    op.tr_mul_chain(x, 2, 0.5)  # the chain in f64
+    op.mul_mat(x[:, None].repeat(1, 2))  # the SpMM in f64
+    trace.disable()
+    spans = trace.snapshot()["spans"]
+    semi = [s for s in spans if s["name"] == "op.semiring"]
+    assert [spans[s["parent"]]["name"] for s in semi] == ["op.mul", "op.tr_mul_chain",
+                                                          "op.mul_mat"]
+    assert [s["call"] for s in semi] == [0, 1, 2]
+
+
+def test_semiring_counter_counts_with_the_tracer_off_or_on(band64):
+    op = band64
+    x = torch.randn(op.n, dtype=torch.float64)
+    for on in (False, True):
+        if on:
+            trace.enable()
+        before = trace.semiring_calls()
+        op.mul(x.float())
+        op.tr_mul_chain(x, 2)
+        op.mul(x)  # the stripe route: no semiring call
+        after = trace.semiring_calls()
+        assert after.get("float32", 0) == before.get("float32", 0) + 1
+        assert after.get("float64", 0) == before.get("float64", 0) + 1
+        trace.disable()
+    assert trace.snapshot()["counters"] == {}  # not the tracer's counters
+
+
+def test_off_cost_of_a_span_is_unchanged(band64, monkeypatch):
+    """Off, the new span is the one shared no-op like every other, and a
+    semiring call calls no clock and no profiler function."""
+    called = []
+    monkeypatch.setattr(trace, "_now", lambda: called.append("clock") or 0)
+    monkeypatch.setattr(trace, "_profiling", lambda: called.append("profiling") or False)
+    assert trace.span("op.semiring") is trace.span("op.mul") is trace._NULL
+    x = torch.randn(band64.n, dtype=torch.float64)
+    band64.mul(x.float())
+    band64.mul(x)
+    assert called == [] and trace.snapshot() == {"spans": [], "counters": {}}
+
+
+@pytest.mark.cuda
+def test_f64_launches_count_with_the_tracer_off_or_on(band64):
+    """On the card an f64 call on the stripe route is one ``staged_f64``
+    launch, counted whether the tracer is on or not; ``quad`` and
+    ``staged`` and the semiring counter do not move."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda", 0)
+    op = operator(relabeled_band().astype(np.float64), dev)
+    x = torch.randn(op.n, dtype=torch.float64, device=dev)
+    op.mul(x)
+    op.tr_mul(x)
+    for on in (False, True):
+        if on:
+            trace.enable()
+        before, semi = trace.launches_by_map(), trace.semiring_calls()
+        op.mul(x)
+        op.tr_mul(x, 2.0, 0.5, x)
+        assert trace.launches_by_map() == {**before, "staged_f64": before["staged_f64"] + 2}
+        assert trace.semiring_calls() == semi
+        trace.disable()
+    torch.cuda.synchronize(dev)
+
+
 @pytest.mark.cuda
 def test_launch_spans_and_counter_on_the_card(band):
     if not torch.cuda.is_available():

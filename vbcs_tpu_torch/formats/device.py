@@ -138,7 +138,7 @@ class VBC1DDevice:
     pos: torch.Tensor  # [L + 1] int32 block pointers into idx
     idx: torch.Tensor  # [num_blocks] int32 block rows
     ofs: torch.Tensor  # [L + 1] int32 value offsets per stripe
-    val: torch.Tensor  # [total_vals] f32 block values
+    val: torch.Tensor  # [total_vals] f32 (or f64) block values
     col_stripe: torch.Tensor  # [n] int32 stripe of each column
     col_out: torch.Tensor | None = None  # [n] int32 output place (natural view)
     # every stripe width a multiple of 4: the stripe kernel then gives a
@@ -185,15 +185,21 @@ class VBC1DDevice:
         return dataclasses.replace(self, idx=perm[self.idx.long()], col_out=perm)
 
     @staticmethod
-    def from_host(host, device) -> "VBC1DDevice":
-        """Copy a host 1D-VBC to ``device``, its values as f32.
+    def from_host(host, device, dtype=torch.float32) -> "VBC1DDevice":
+        """Copy a host 1D-VBC to ``device``, its values as ``dtype``:
+        float32 (the default, whatever the pack's own dtype) or float64,
+        the stripe kernel's two value types (an f64 pack keeps its
+        values; ``VBCOperator`` copies an f64 matrix so).
 
         ``host`` is any object with ``m, n, W, Phi.spl, pos, idx, ofs,
         val`` as NumPy arrays: this port's ``VBC1D`` or the JAX
         package's, so both packages can run the same pack.  Raises
-        ``ValueError`` on an inconsistent pack or
-        on an index that does not fit in int32 (the kernel does no bounds
-        checks of its own)."""
+        ``ValueError`` on an inconsistent pack, on an index that does not
+        fit in int32 (the kernel does no bounds checks of its own) or on
+        another ``dtype``."""
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"the stripe kernel's values are float32 or float64, "
+                             f"not {dtype}")
         m, n, spl, pos, idx, ofs, val = _vbc1d_arrays(host)
         L = spl.size - 1
         col_stripe = np.repeat(np.arange(L, dtype=np.int64), np.diff(spl))
@@ -205,7 +211,8 @@ class VBC1DDevice:
             pos=_i32(pos, "pos", device),
             idx=_i32(idx, "idx", device),
             ofs=_i32(ofs, "ofs", device),
-            val=torch.from_numpy(np.ascontiguousarray(val, dtype=np.float32)).to(device),
+            val=torch.from_numpy(np.ascontiguousarray(
+                val, dtype=np.float32 if dtype == torch.float32 else np.float64)).to(device),
             col_stripe=_i32(col_stripe, "col_stripe", device),
             quad_widths=bool(np.all(np.diff(spl) % 4 == 0)),
             width_class=width_class(np.diff(spl), np.diff(pos)),

@@ -37,12 +37,24 @@ operator does.
 
 Every kernel writes natural order, so nothing follows it.
 
-The kernels are the f32 path: an f32 matrix with an f32 ``x`` (the JAX
-operators' ``_pallas_ok``).  Every other pair — an f64, int32 or bool
-matrix, or an x of another dtype — runs ``ops/semiring.py`` in x's
-dtype on the pack's flat :class:`SemiringDevice` (natural coordinates
-on an auto-RCM operator), with alpha/beta/y applied after it as the JAX
-operators' ``_axpby`` does, on CPU and CUDA tensors alike.
+The kernels run an f32 matrix with an f32 ``x`` (the JAX operators'
+``_pallas_ok``), and the 1-D operator's ``tr_mul``/``mul`` also an f64
+matrix with an f64 ``x``: the stripe kernel's f64 staged map
+(``ops/trspmv.py``) on the f64 copy of the pack, alpha/beta/y fused in
+f64, through the same route and natural view — a departure from
+``_pallas_ok``, which sends every f64 call to XLA; the results agree
+within f64 rounding.  An f64 pack takes the stripe kernel whatever the
+scatter guard says, since the scatter kernel is f32's alone (the f64
+DP cuts HPCG's stencil into stripes 1.98 wide, under the guard's 2.0,
+where the f32 DP leaves 2.02).  Every other call runs
+``ops/semiring.py`` in x's dtype on the pack's flat
+:class:`SemiringDevice` (natural coordinates on an auto-RCM operator),
+with alpha/beta/y applied after it as the JAX operators' ``_axpby``
+does, on CPU and CUDA tensors alike: an int32 or bool matrix; a matrix
+and x of different dtypes; and in f64 ``tr_mul_chain``,
+``tr_mul_mat``/``mul_mat`` and every :class:`VBC2DOperator` call.  Each
+such call is counted by its product's dtype
+(``utils.trace.semiring_calls``) and runs in an ``op.semiring`` span.
 """
 
 from __future__ import annotations
@@ -83,26 +95,29 @@ _MAT_SPANS = {"tr": "op.tr_mul_mat", "fw": "op.mul_mat"}
 def route_tr_spmv(B, device, stripe: VBC1DDevice | None = None,
                   perm: torch.Tensor | None = None):
     """The per-call TrSpMV kernel :meth:`VBCOperator.tr_mul` runs for a
-    packed f32 format ``B`` — ``(name, fmt, call)`` with
+    packed f32 or f64 format ``B`` — ``(name, fmt, call)`` with
     ``call(fmt, x, alpha, beta, y) -> y`` — for harnesses that must time
     the shipped path, and the one place the operator's route is decided.
 
     ``"scatter"`` (the entry-tiled kernel on ``B``'s CSC) when the
-    scatter guard admits ``B`` (``ops.scatter.scatter_admits``: mean
-    stripe width at most ``MAX_MEAN_WIDTH``), else ``"stripe"``.  The JAX
-    package tries its one-shot first and reaches the scatter tier only
-    when that pack refuses; the port's stripe kernel refuses nothing, so
-    the guard alone decides.  ``stripe`` is ``B`` already on ``device``,
+    scatter guard admits an f32 ``B`` (``ops.scatter.scatter_admits``:
+    mean stripe width at most ``MAX_MEAN_WIDTH``), else ``"stripe"``; an
+    f64 ``B`` always ``"stripe"`` (its f64 staged map), since the scatter
+    kernel is f32's alone.  The JAX package tries its one-shot first and
+    reaches the scatter tier only when that pack refuses; the port's
+    stripe kernel refuses nothing, so the guard alone decides.  ``stripe``
+    is ``B`` already on ``device`` (in ``B``'s dtype),
     reused instead of a second copy.  ``perm`` (int32 on ``device``) says
     that ``B`` packs ``A[perm][:, perm]``: the route's format is then the
     natural view of its pack (``natural_view``), whose call reads natural
     x and writes natural y."""
-    fmt = pack_scatter(B, device)
+    f64 = np.asarray(B.val).dtype == np.float64
+    fmt = None if f64 else pack_scatter(B, device)
     if fmt is not None:
         return ("scatter", fmt if perm is None else fmt.natural_view(perm),
                 tr_spmv_scatter)
     if stripe is None:
-        stripe = VBC1DDevice.from_host(B, device)
+        stripe = VBC1DDevice.from_host(B, device, torch.float64 if f64 else torch.float32)
     if perm is not None and stripe.col_out is None:
         stripe = stripe.natural_view(perm)
     return "stripe", stripe, tr_spmv
@@ -168,6 +183,11 @@ def _is_f32(host) -> bool:
     return np.asarray(host.val).dtype == np.float32
 
 
+# the stripe kernel's value types, by a host pack's dtype
+_STRIPE_DTYPES = {np.dtype(np.float32): torch.float32,
+                  np.dtype(np.float64): torch.float64}
+
+
 def _as_csc(A) -> CSC:
     return A if isinstance(A, CSC) else CSC.from_scipy(A)
 
@@ -187,8 +207,8 @@ def _shape_of(host_tr, host_fw) -> tuple[int, int]:
 
 class _Directions:
     """What both operators share: a pack of each direction on the host,
-    the kernels' f32 formats of those packs (None for a non-f32 matrix)
-    and, built on first use, their flat semiring formats."""
+    the kernels' formats of those packs (None for a matrix no kernel
+    runs) and, built on first use, their flat semiring formats."""
 
     def _host(self, which: str):
         host = self.host_tr if which == "tr" else self.host_fw
@@ -199,13 +219,13 @@ class _Directions:
 
     def _packed(self, which: str):
         """The kernels' format of one direction: ``ValueError`` when that
-        direction was not packed, ``TypeError`` for a non-f32 matrix
-        (whose calls take the semiring route)."""
+        direction was not packed, ``TypeError`` for a matrix no kernel
+        runs (whose calls take the semiring route)."""
         host = self._host(which)
         fmt = self.dev_tr if which == "tr" else self.dev_fw
         if fmt is None:
-            raise TypeError(f"the kernels run float32 matrices, this one is "
-                            f"{np.asarray(host.val).dtype}")
+            raise TypeError(f"no kernel runs this operator's "
+                            f"{np.asarray(host.val).dtype} matrix")
         return fmt
 
     def _kernels_take(self, x) -> bool:
@@ -229,13 +249,25 @@ class _Directions:
         return SemiringDevice.from_host(self._host("fw"), device=self.device,
                                         perm=getattr(self, "perm_t", None))
 
+    def _vector_kernel_takes(self, which: str, x) -> bool:
+        """Whether ``tr_mul``/``mul`` of one direction runs its routed
+        kernel: :meth:`_kernels_take` here; the 1-D operator adds f64."""
+        return self._kernels_take(x)
+
+    def _semiring(self, fn, which: str, x):
+        """``fn`` (an ``ops/semiring.py`` product) on one direction's
+        flat format, in an ``op.semiring`` span, counted by x's dtype."""
+        with trace.span("op.semiring"):
+            out = fn(getattr(self, f"semi_{which}"), x)
+        semiring.count_call(x.dtype)
+        return out
+
     def _apply(self, which, x, alpha, beta, y):
         """``tr_mul``/``mul`` of one direction: the routed kernel with
         alpha/beta fused, or the semiring route and ``_axpby``."""
         with trace.span(_VEC_SPANS[which]):
-            if not self._kernels_take(x):
-                out = semiring.tr_spmv(getattr(self, f"semi_{which}"), x)
-                return _axpby(out, alpha, beta, y)
+            if not self._vector_kernel_takes(which, x):
+                return _axpby(self._semiring(semiring.tr_spmv, which, x), alpha, beta, y)
             _, fmt, call = getattr(self, f"route_{which}")
             return call(fmt, x, alpha, beta, y)
 
@@ -319,7 +351,7 @@ class VBCOperator(_Directions):
         ``VBC1D``): ``host_tr`` packs A, ``host_fw`` packs A.T, either may
         be None; ``row_perm`` is the symmetric relabeling the packs were
         built under, or None.  The kernels' formats are copied for an f32
-        matrix only."""
+        or f64 matrix only, in its own dtype."""
         with trace.span("plan.upload"):
             device = torch.device(device)
             m, n = _shape_of(host_tr, host_fw)
@@ -335,8 +367,9 @@ class VBCOperator(_Directions):
                 inv_t = torch.from_numpy(inv.astype(np.int32)).to(device)
 
             def copy(host):
-                return (VBC1DDevice.from_host(host, device)
-                        if host is not None and _is_f32(host) else None)
+                dtype = None if host is None else _STRIPE_DTYPES.get(
+                    np.asarray(host.val).dtype)
+                return None if dtype is None else VBC1DDevice.from_host(host, device, dtype)
 
             return VBCOperator(
                 m=m, n=n, host_tr=host_tr, host_fw=host_fw, device=device,
@@ -373,18 +406,30 @@ class VBCOperator(_Directions):
             fmt = self._packed("fw")
             return fmt if self.perm_t is None else fmt.natural_view(self.perm_t)
 
+    def _vector_kernel_takes(self, which: str, x) -> bool:
+        """The kernels' f32 pair, or an f64 matrix with an f64 ``x``
+        (the stripe kernel's f64 staged map)."""
+        if self._kernels_take(x):
+            return True
+        return (isinstance(x, torch.Tensor) and x.dtype == torch.float64
+                and np.asarray(self._host(which).val).dtype == np.float64)
+
     def _route(self, which: str):
         host = self._host(which)
-        self._packed(which)  # raises for a non-f32 matrix
+        # (raises for a matrix no kernel runs)
+        f32 = self._packed(which).val.dtype == torch.float32
         # the stripe format's natural view only where the stripe kernel runs
-        stripe = None if scatter_admits(host) else getattr(self, f"nat_{which}")
+        stripe = None if f32 and scatter_admits(host) else getattr(self, f"nat_{which}")
         with trace.span("op.route"):
             return route_tr_spmv(host, self.device, stripe, self.perm_t)
 
     @functools.cached_property
     def route_tr(self):
         """``route_tr_spmv`` of the A pack, ``(name, fmt, call)``, its
-        format in natural order; the scatter pack is built on first use."""
+        format in natural order; the scatter pack is built on first use.
+        An f64 pack routes to the stripe kernel (its f64 staged map)
+        whatever the scatter guard says: the scatter kernel is f32's
+        alone."""
         return self._route("tr")
 
     @functools.cached_property
@@ -395,8 +440,9 @@ class VBCOperator(_Directions):
     def tr_mul(self, x, alpha=None, beta=None, y=None):
         """y = alpha * (A.T @ x) + beta * y on the operator's device
         (reference ``mul!(y, A', x, alpha, beta)``, with ``alpha``
-        applied), through the kernel :func:`route_tr_spmv` picks; the
-        semiring route for a non-f32 matrix or x."""
+        applied), through the kernel :func:`route_tr_spmv` picks for an
+        f32 matrix and x, or an f64 matrix and x; else the semiring
+        route."""
         return self._apply("tr", x, alpha, beta, y)
 
     def mul(self, x, alpha=None, beta=None, y=None):
@@ -435,24 +481,27 @@ class VBCOperator(_Directions):
     def _semiring_chain(self, x, n_iters: int, alpha):
         """The JAX operators' ``fori_loop`` of ``tr_mul`` and ``* alpha``
         (alpha as an f32 scalar), which raises ``TypeError`` when alpha
-        would turn an integer x into a float carry."""
-        fmt = self.semi_tr
+        would turn an integer x into a float carry; one semiring call."""
         semiring.check_operand("x", x, self.m, self.device, 1)
         if alpha is not None and not x.is_floating_point():
             raise TypeError(f"alpha turns the {x.dtype} iterate into a float "
                             f"one (the JAX loop refuses the change of type)")
         a = None if alpha is None else float(np.float32(alpha))
-        out = x.clone()
-        for _ in range(n_iters):
-            out = semiring.tr_spmv(fmt, out)
-            if a is not None:
-                out = out * a
-        return out
+
+        def loop(fmt, x):
+            out = x.clone()
+            for _ in range(n_iters):
+                out = semiring.tr_spmv(fmt, out)
+                if a is not None:
+                    out = out * a
+            return out
+
+        return self._semiring(loop, "tr", x)
 
     def _apply_mat(self, which, X):
         with trace.span(_MAT_SPANS[which]):
             if not self._kernels_take(X):
-                return semiring.tr_spmm(getattr(self, f"semi_{which}"), X)
+                return self._semiring(semiring.tr_spmm, which, X)
             return tr_spmm(getattr(self, f"nat_{which}"), X)
 
     def tr_mul_mat(self, X):
@@ -600,7 +649,7 @@ class VBC2DOperator(_Directions):
     def _apply_mat(self, which, X):
         with trace.span(_MAT_SPANS[which]):
             if not self._kernels_take(X):
-                return semiring.tr_spmm(getattr(self, f"semi_{which}"), X)
+                return self._semiring(semiring.tr_spmm, which, X)
             return tr_spmm(getattr(self, f"view_{which}"), X)
 
     def tr_mul_mat(self, X):

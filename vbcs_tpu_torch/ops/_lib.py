@@ -105,6 +105,9 @@ def load():
                                           ctypes.c_float)
                 lib.vbcs_tr_spmv.argtypes = [i32] * 3 + [vp] * 9 + [f32, f32, vp, vp]
                 lib.vbcs_tr_spmv.restype = i32
+                lib.vbcs_tr_spmv_f64.argtypes = [i32] * 3 + [vp] * 9 + [
+                    ctypes.c_double, ctypes.c_double, vp, vp]
+                lib.vbcs_tr_spmv_f64.restype = i32
                 lib.vbcs_tr_spmv_2d.argtypes = [i32, i32] + [vp] * 7 + [f32, f32, vp, vp]
                 lib.vbcs_tr_spmv_2d.restype = i32
                 lib.vbcs_tr_spmm.argtypes = [i32, i64, i32, i32, i64, i32, i32] + [vp] * 10

@@ -20,6 +20,12 @@ multiple of 4 (``quad_widths``) and the values start on 16 bytes; else
 the staged map, a thread block a run of stripes (:func:`stage_plan`).
 ``tr_spmv.launches_by_map`` counts the launches of each
 (``utils.trace.launches_by_map``).
+
+A format holds f32 or f64 values (``VBC1DDevice.from_host``'s
+``dtype``), and x, y and the output are in the same dtype.  f64 runs the
+staged map in double on every format (``csrc/trspmv.cu``'s
+``vbcs_tr_spmv_f64``: a stage holds half as many values and block rows),
+counted as ``staged_f64``; ``quad`` and ``staged`` count f32 launches.
 """
 
 from __future__ import annotations
@@ -30,8 +36,8 @@ from ..formats.device import VBC1DDevice
 from ..utils import trace
 from . import _lib
 
-__all__ = ["tr_spmv", "tr_spmv_plain", "stage_plan", "thread_map", "STAGE_COLS",
-           "STAGE_STRIPES", "STAGE_WORDS"]
+__all__ = ["tr_spmv", "tr_spmv_plain", "stage_plan", "stage_elements", "thread_map",
+           "STAGE_COLS", "STAGE_STRIPES", "STAGE_WORDS"]
 
 # the staged map's run bounds (csrc/trspmv.cu: kRunCols, kRunStripes,
 # kStageWords): two passes of a block's 256 threads, a column a thread;
@@ -42,13 +48,23 @@ STAGE_STRIPES = 256
 STAGE_WORDS = 7168
 
 
-def _check_tensor(name: str, t: torch.Tensor, shape: tuple, device) -> None:
-    """Refuse what the kernels do not take: anything but a contiguous f32
-    tensor of ``shape`` (``None`` matches any extent) on ``device``."""
+def stage_elements(dtype: torch.dtype) -> int:
+    """Values and block rows a run stages in ``dtype`` (one element of
+    the value type each, in ``STAGE_WORDS`` 4-byte words): 7,168 in f32,
+    3,584 in f64 (``csrc/trspmv.cu``: ``kStageElems``)."""
+    return STAGE_WORDS * 4 // torch.empty(0, dtype=dtype).element_size()
+
+
+def _check_tensor(name: str, t: torch.Tensor, shape: tuple, device,
+                  dtype=torch.float32) -> None:
+    """Refuse what the kernels do not take: anything but a contiguous
+    tensor of ``dtype`` and ``shape`` (``None`` matches any extent) on
+    ``device``."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {str(dtype).removeprefix('torch.')}, "
+                        f"got {t.dtype}")
     if t.dim() != len(shape) or any(
             want is not None and got != want for got, want in zip(t.shape, shape)):
         want = ", ".join("k" if w is None else str(w) for w in shape)
@@ -60,18 +76,20 @@ def _check_tensor(name: str, t: torch.Tensor, shape: tuple, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_vec(name: str, t: torch.Tensor, size: int, device) -> None:
-    _check_tensor(name, t, (size,), device)
+def _check_vec(name: str, t: torch.Tensor, size: int, device,
+               dtype=torch.float32) -> None:
+    _check_tensor(name, t, (size,), device, dtype)
 
 
 def tr_spmv_plain(fmt, x: torch.Tensor, alpha=None, beta=None,
                   y=None, out=None) -> torch.Tensor:
     """Plain PyTorch TrSpMV: ``index_add_`` of ``val * x[row]`` into the
-    value's column.  ``fmt`` is any device format with ``n``, ``val`` and
-    ``value_coords`` (computed once per format); with ``out``, the
-    columns land in it at ``col_out`` and its other entries are kept."""
+    value's column, in the values' dtype.  ``fmt`` is any device format
+    with ``n``, ``val`` and ``value_coords`` (computed once per format);
+    with ``out``, the columns land in it at ``col_out`` and its other
+    entries are kept."""
     row, col = fmt.value_coords
-    acc = torch.zeros(fmt.n if out is None else out.numel(), dtype=torch.float32,
+    acc = torch.zeros(fmt.n if out is None else out.numel(), dtype=fmt.val.dtype,
                       device=x.device)
     acc.index_add_(0, col, fmt.val * x[row])
     if alpha is not None:
@@ -88,8 +106,9 @@ def tr_spmv_plain(fmt, x: torch.Tensor, alpha=None, beta=None,
 
 def _check_out(fmt, out) -> None:
     """``out`` must hold every output column: ``n`` entries in natural
-    order, at least ``n`` under ``col_out`` (an injection into them)."""
-    _check_tensor("out", out, (None,), fmt.device)
+    order, at least ``n`` under ``col_out`` (an injection into them), in
+    the format's dtype."""
+    _check_tensor("out", out, (None,), fmt.device, fmt.val.dtype)
     if out.numel() < fmt.n or (fmt.col_out is None and out.numel() != fmt.n):
         raise ValueError(f"out has {out.numel()} entries for {fmt.n} columns "
                          f"({'placed by col_out' if fmt.col_out is not None else 'in order'})")
@@ -98,19 +117,20 @@ def _check_out(fmt, out) -> None:
 def _run_tr_spmv(kernel, plain, fmt, x, alpha, beta, y, launch,
                  out=None) -> torch.Tensor:
     """The body every TrSpMV wrapper shares.  Checks ``x`` (and ``y`` when
-    ``beta`` is given; shaped like the output), runs ``plain`` on a CPU
-    tensor, and on a CUDA tensor allocates the output (unless ``out`` is
-    given: only :func:`tr_spmv` takes one) and calls ``launch(lib, y_in,
-    alpha, beta, out, stream)`` (device pointers and the stream as ints),
-    raises if the launch failed, and counts it in ``kernel.launches``."""
-    dev = fmt.device
+    ``beta`` is given; shaped like the output), each in the dtype of the
+    format's values, runs ``plain`` on a CPU tensor, and on a CUDA
+    tensor allocates the output (unless ``out`` is given: only
+    :func:`tr_spmv` takes one) and calls ``launch(lib, y_in, alpha, beta,
+    out, stream)`` (device pointers and the stream as ints), raises if
+    the launch failed, and counts it in ``kernel.launches``."""
+    dev, dtype = fmt.device, fmt.val.dtype
     with trace.span("op.check"):
-        _check_vec("x", x, fmt.m, dev)
+        _check_vec("x", x, fmt.m, dev, dtype)
         if out is not None:
             _check_out(fmt, out)
         with_y = y is not None and beta is not None
         if with_y:
-            _check_vec("y", y, fmt.n if out is None else out.numel(), dev)
+            _check_vec("y", y, fmt.n if out is None else out.numel(), dev, dtype)
     if dev.type == "cpu":
         if out is None:
             return plain(fmt, x, alpha, beta, y)
@@ -119,7 +139,7 @@ def _run_tr_spmv(kernel, plain, fmt, x, alpha, beta, y, launch,
         raise NotImplementedError(f"no {kernel.__name__} kernel for device {dev}")
     if out is None:
         with trace.span("op.alloc"):
-            out = torch.empty(fmt.n, dtype=torch.float32, device=dev)
+            out = torch.empty(fmt.n, dtype=dtype, device=dev)
     if fmt.n == 0:
         return out
     with trace.span("op.launch"):
@@ -165,55 +185,61 @@ def stage_plan(fmt: VBC1DDevice) -> torch.Tensor:
 
     Cut greedily from stripe 0: each run takes whole consecutive stripes
     for as long as it holds at most ``STAGE_COLS`` columns,
-    ``STAGE_STRIPES`` stripes and ``STAGE_WORDS`` words of stage (its
-    values and its block rows, one word each), so no run but the last
-    could take its next stripe.  A stripe beyond ``STAGE_WORDS`` alone is
-    a run of its own (the kernel walks it in passes of columns and chunks
-    of blocks); one beyond ``STAGE_COLS`` too.  Computed with torch ops
-    (each stripe's longest run, then the runs from stripe 0 by pointer
-    doubling) once per format arrays and cached in ``fmt.stage_plans``,
-    which a natural view shares."""
-    hit = fmt.stage_plans.get("runs")
+    ``STAGE_STRIPES`` stripes and :func:`stage_elements` elements of
+    stage in the format's dtype (its values and its block rows, one
+    element each: ``STAGE_WORDS`` in f32, half as many in f64), so no run
+    but the last could take its next stripe.  A stripe beyond the stage
+    alone is a run of its own (the kernel walks it in passes of columns
+    and chunks of blocks); one beyond ``STAGE_COLS`` too.  Computed with
+    torch ops (each stripe's longest run, then the runs from stripe 0 by
+    pointer doubling) once per format arrays and stage, and cached in
+    ``fmt.stage_plans``, which a natural view shares."""
+    elems = stage_elements(fmt.val.dtype)
+    hit = fmt.stage_plans.get(("runs", elems))
     if hit is not None and hit[0] is fmt.spl and hit[1] is fmt.pos and hit[2] is fmt.ofs:
         return hit[3]
     plan = _cut_runs(fmt.spl.long(), fmt.pos.long(), fmt.ofs.long(), STAGE_COLS,
-                     STAGE_STRIPES, STAGE_WORDS)
-    fmt.stage_plans["runs"] = (fmt.spl, fmt.pos, fmt.ofs, plan)
+                     STAGE_STRIPES, elems)
+    fmt.stage_plans[("runs", elems)] = (fmt.spl, fmt.pos, fmt.ofs, plan)
     return plan
 
 
 def thread_map(fmt) -> str:
     """The kernel's thread map on ``fmt``: ``"quad"`` or ``"staged"``
-    (module docstring)."""
-    return "quad" if fmt.quad_widths and fmt.val.data_ptr() % 16 == 0 else "staged"
+    (module docstring; an f64 format is always ``"staged"``)."""
+    return ("quad" if fmt.quad_widths and fmt.val.dtype == torch.float32
+            and fmt.val.data_ptr() % 16 == 0 else "staged")
 
 
 def tr_spmv(fmt: VBC1DDevice, x: torch.Tensor, alpha=None, beta=None,
             y=None, out=None) -> torch.Tensor:
     """``alpha * A.T @ x (+ beta * y)`` in natural order, shape ``[n]``
     (on a natural view, output column ``j`` lands at ``col_out[j]``).
-    With ``out`` (f32, ``[k]``), column ``j`` lands at ``out[col_out[j]]``
+    With ``out`` (``[k]``), column ``j`` lands at ``out[col_out[j]]``
     (``col_out`` an injection into ``[0, k)``, unchecked on the card;
     ``k = n`` without one) and ``out`` is returned; ``y``, where given,
-    is shaped like it.
+    is shaped like it.  x, y, ``out`` and the result are in the dtype of
+    the format's values, f32 or f64.
 
     CUDA tensors run the stripe kernel (or raise); CPU tensors run
     :func:`tr_spmv_plain`."""
+    f64 = fmt.val.dtype == torch.float64
+
     def launch(lib, *rest):
         how = thread_map(fmt)
         runs = stage_plan(fmt) if how == "staged" else None
-        rc = lib.vbcs_tr_spmv(
+        rc = (lib.vbcs_tr_spmv_f64 if f64 else lib.vbcs_tr_spmv)(
             fmt.n, fmt.L, 0 if runs is None else runs.shape[0] - 1,
             None if runs is None else runs.data_ptr(), fmt.spl.data_ptr(),
             fmt.pos.data_ptr(), fmt.idx.data_ptr(), fmt.ofs.data_ptr(),
             None if fmt.col_out is None else fmt.col_out.data_ptr(),
             fmt.val.data_ptr(), x.data_ptr(), *rest)
         if rc == 0:
-            tr_spmv.launches_by_map[how] += 1
+            tr_spmv.launches_by_map["staged_f64" if f64 else how] += 1
         return rc
 
     return _run_tr_spmv(tr_spmv, tr_spmv_plain, fmt, x, alpha, beta, y, launch, out)
 
 
 tr_spmv.launches = 0
-tr_spmv.launches_by_map = {"quad": 0, "staged": 0}
+tr_spmv.launches_by_map = {"quad": 0, "staged": 0, "staged_f64": 0}

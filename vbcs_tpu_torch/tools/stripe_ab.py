@@ -24,7 +24,13 @@ cell runs (rows ``perm[idx]``, y through ``col_out``); (b)
 ``col_out``); (c) ``window``, (a) with every block row masked into the
 first ``WINDOW_ROWS`` rows (1 MB of x, surely in the L2).  (a) against
 (b) and (c) splits the scattered x and y from the map's own cost.
-Back-to-back only: each call moves 350-900 MB, over 7x the L2.
+Back-to-back only: each call moves 350-900 MB, over 7x the L2.  Then the
+float64 cell's shape (``F64_CELLS``: ``hpcg_27pt_144_f64.cg_sync``, the
+same stencil in float64): on its natural view, the f64 staged map
+beside the semiring route (``ops/semiring.py`` on the operator's flat
+format, what an f64 call ran before the f64 map) and the f32 staged map
+on the same pattern (the f64 view's values rounded to f32), each held
+against its plain version; the bound counts 8 bytes an f64 element.
 
     python -m vbcs_tpu_torch.tools.stripe_ab [--variant NAME=SRC.cu ...]
         [--columns NAME=SRC.cu ...] [--earlier NAME=SRC.cu ...]
@@ -63,9 +69,10 @@ from ..utils.profile import f32_flops, hbm_bandwidth
 from ..utils.timing import flushed_ms, paired_ms
 from .matrices import BLOCKY_ABOVE_L2, blocky_matrix
 
-__all__ = ["work", "main", "CELLS", "WINDOW_ROWS"]
+__all__ = ["work", "main", "CELLS", "F64_CELLS", "WINDOW_ROWS"]
 
 TOL = 2e-5  # f32 sums in another order than the plain version's index_add_
+TOL_F64 = 1e-14  # f64 sums: fma against the plain version's multiply and add
 ALPHA, BETA = 0.5, 0.25
 WINDOW_ROWS = 1 << 18  # (c): block rows masked into 1 MB of x
 # the benchmark's TrSpMV cells: (generator of spbench/gen, its seed and
@@ -76,24 +83,31 @@ CELLS = {
     "hpcg_27pt_144.cg_sync": ("hpcg27", None, dict(nx=144, ny=144, nz=144),
                               "forward", (None, None, False)),
 }
+# the float64 TrSpMV cell, as CELLS
+F64_CELLS = {
+    "hpcg_27pt_144_f64.cg_sync": ("hpcg27", None,
+                                  dict(nx=144, ny=144, nz=144, dtype="float64"),
+                                  "forward", (None, None, False)),
+}
 
 
 def cell_matrix(label):
-    """The matrix of a TrSpMV cell (``CELLS``), from ``spbench/gen``."""
+    """The matrix of a TrSpMV cell (``CELLS`` or ``F64_CELLS``), from
+    ``spbench/gen``."""
     import importlib
 
-    gen, seed, kw, _, _ = CELLS[label]
+    gen, seed, kw, _, _ = {**CELLS, **F64_CELLS}[label]
     return importlib.import_module(f"spbench.gen.{gen}").generate(seed, **kw)
 
 
-def work(fmt, nnz: int) -> tuple[int, int]:
+def work(fmt, nnz: int, elem: int = 4) -> tuple[int, int]:
     """(bytes, flops) of ``y = alpha*A.T@x + beta*y`` on ``fmt``'s matrix
     with ``nnz`` nonzeros, as ``chip_smoke.tr_spmv_work`` counts them:
     each nonzero's value, the stripe splits, block pointers and block
-    rows, x, y in and y out once; an FMA a nonzero and the scaling of
-    each output."""
+    rows, x, y in and y out once (values and vectors at ``elem`` bytes an
+    element); an FMA a nonzero and the scaling of each output."""
     index = sum(t.numel() * t.element_size() for t in (fmt.spl, fmt.pos, fmt.idx))
-    return 4 * nnz + index + 4 * (fmt.m + 2 * fmt.n), 2 * nnz + 3 * fmt.n
+    return elem * nnz + index + elem * (fmt.m + 2 * fmt.n), 2 * nnz + 3 * fmt.n
 
 
 def _build(named: list[tuple[str, str, str]]) -> dict:
@@ -255,6 +269,74 @@ def _cell_case(label, A, direction, call_args, builds, dev) -> dict:
     return rec
 
 
+def _f64_case(label, A, direction, call_args, dev) -> dict:
+    """The float64 cell's natural view (module docstring): the f64 staged
+    map, the semiring route and the f32 staged map on the same pattern,
+    each against its plain version, two launches bitwise, then timed
+    back-to-back in one set."""
+    from ..ops import semiring
+
+    alpha, beta, with_y = call_args
+    op = VBCOperator.from_csc(A, W=8, directions=direction, reorder="auto",
+                              device=dev)
+    which = "tr" if direction == "transposed" else "fw"
+    name, nat64, _ = getattr(op, f"route_{which}")
+    if name != "stripe" or op.perm_t is None or nat64.val.dtype != torch.float64:
+        raise RuntimeError(f"{label}: route {name}, values {nat64.val.dtype}, auto-RCM "
+                           f"{'on' if op.perm_t is not None else 'off'}")
+    nat32 = dataclasses.replace(nat64, val=nat64.val.float())
+    semi = getattr(op, f"semi_{which}")
+    rng = np.random.default_rng(21)
+    x64 = torch.from_numpy(rng.standard_normal(op.m)).to(dev)
+    y64 = torch.from_numpy(rng.standard_normal(op.n)).to(dev) if with_y else None
+    x32, y32 = x64.float(), None if y64 is None else y64.float()
+
+    def semiring_call():
+        out = semiring.tr_spmv(semi, x64)
+        if alpha is not None:
+            out = out * alpha
+        return out if y64 is None else out + beta * y64
+
+    cands = {"f64_staged": lambda: tr_spmv(nat64, x64, alpha, beta, y64),
+             "semiring": semiring_call,
+             "f32_staged": lambda: tr_spmv(nat32, x32, alpha, beta, y32)}
+    plain64 = tr_spmv_plain(nat64, x64, alpha, beta, y64)
+    plain32 = tr_spmv_plain(nat32, x32, alpha, beta, y32)
+    errs, same = {}, {}
+    for k, f in cands.items():
+        a, b = f(), f()
+        torch.cuda.synchronize()
+        plain, tol = (plain32, TOL) if k == "f32_staged" else (plain64, TOL_F64)
+        errs[k], same[k] = _rel(a, plain), torch.equal(a, b)
+        if errs[k] > tol or (k != "semiring" and not same[k]):
+            raise RuntimeError(f"{label} {k}: off the plain version by {errs[k]:.2e}"
+                               f" or two launches differ")
+    del plain64, plain32
+    before = dict(tr_spmv.launches_by_map)
+    cands["f64_staged"]()
+    if tr_spmv.launches_by_map["staged_f64"] != before["staged_f64"] + 1:
+        raise RuntimeError(f"{label}: the f64 call launched {tr_spmv.launches_by_map}")
+    warm = paired_ms(list(cands.values()), dev)
+    nnz = int(np.count_nonzero(sp.csc_matrix(A).data))
+    rec = {"columns": op.n, "stripes": nat64.L, "blocks": nat64.idx.numel(),
+           "mean_width": op.n / nat64.L, "nnz": nnz, "runs_f64": stage_plan(nat64).shape[0] - 1,
+           "runs_f32": stage_plan(nat32).shape[0] - 1, "kernels": {}}
+    for i, k in enumerate(cands):
+        elem = 4 if k == "f32_staged" else 8
+        nbytes, flops = work(nat64, nnz, elem)
+        peak = f32_flops(dev) if elem == 4 else f32_flops(dev) / 2
+        bound_ms = max(nbytes / hbm_bandwidth(dev), flops / peak) * 1e3
+        rec["kernels"][k] = {"ms": warm[i], "rel_err": errs[k], "bitwise_twice": same[k],
+                             "mb_a_call": nbytes / 1e6, "bound_ms": bound_ms}
+    print(f"[{label} natural] {op.n} columns, {nat64.L} stripes of mean width "
+          f"{op.n / nat64.L:.3f}, {nat64.idx.numel()} blocks, runs f64 {rec['runs_f64']} / "
+          f"f32 {rec['runs_f32']}; " + "; ".join(
+              f"{k} {v['ms'] * 1e3:.2f} us ({v['mb_a_call']:.1f} MB, "
+              f"{v['bound_ms'] / v['ms']:.3f} of the bound, rel_err {v['rel_err']:.2e})"
+              for k, v in rec["kernels"].items()), flush=True)
+    return rec
+
+
 def _named(values, kind):
     out = []
     for v in values or []:
@@ -295,6 +377,9 @@ def main(argv=None) -> dict:
             label: _cell_case(label, cell_matrix(label), direction, call_args, builds,
                               dev)
             for label, (_, _, _, direction, call_args) in CELLS.items()}}
+        rec["f64_cells"] = {
+            label: _f64_case(label, cell_matrix(label), direction, call_args, dev)
+            for label, (_, _, _, direction, call_args) in F64_CELLS.items()}
     else:
         w = dict(w=args.width)
         rec = {"card": smi, "w": args.width,

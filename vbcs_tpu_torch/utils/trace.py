@@ -28,12 +28,15 @@ Span names are fixed strings at each site:
   ``op.tr_mul_chain`` (the root of each operator call), ``op.route``
   (the first build of an operator's routed format), ``op.check`` (the
   operand checks), ``op.alloc`` (the output's allocation), ``op.launch``
-  (the launcher's ctypes call and its error check).
+  (the launcher's ctypes call and its error check), ``op.semiring`` (a
+  call's product on the semiring route, ``ops/semiring.py``).
 
 :func:`launches` sums the launch counters of the operator's per-call
 kernels (``ops.CALL_LAUNCHERS``), which count whether the tracer is on
 or not; :func:`launches_by_map` splits the stripe TrSpMV's by the thread
-map each launch took.
+map each launch took (``staged_f64``: the f64 staged map);
+:func:`semiring_calls` counts the operator calls that took the semiring
+route instead, by dtype, also whether the tracer is on or not.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ import time
 import torch
 
 __all__ = ["enable", "disable", "enabled", "span", "count", "snapshot", "reset",
-           "summary", "launches", "launches_by_map"]
+           "summary", "launches", "launches_by_map", "semiring_calls"]
 
 _on = False
 _NULL = contextlib.nullcontext()
@@ -201,8 +204,20 @@ def launches() -> int:
 def launches_by_map() -> dict:
     """Launches of the stripe TrSpMV kernel since the process began, by
     the thread map the launcher took from the format (``"quad"``, the
-    float4 map; ``"staged"``, a run of stripes a block): a copy of
+    float4 map; ``"staged"``, a run of stripes a block; both f32;
+    ``"staged_f64"``, the staged map in f64): a copy of
     ``ops.trspmv.tr_spmv.launches_by_map``."""
     from ..ops.trspmv import tr_spmv
 
     return dict(tr_spmv.launches_by_map)
+
+
+def semiring_calls() -> dict:
+    """Operator calls that took the semiring route (``ops/semiring.py``)
+    since the process began, by the dtype of their product (``"float64"``,
+    ``"int32"``, ...; a dtype no call had is absent): a copy of
+    ``ops.semiring.route_calls``.  Beside :func:`launches_by_map` it
+    tells an f64 call that reached the kernel from one that fell back."""
+    from ..ops.semiring import route_calls
+
+    return dict(route_calls)
