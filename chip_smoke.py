@@ -52,13 +52,17 @@ Phases (one line each; any failure raises and exits non-zero):
    stripes, ~250 MB a call, built through ``VBCOperator.from_csc``, held
    against the f64 product, its plain version and the library first;
    back-to-back and flushed: the ``x16_*`` fields of its ``kernels``
-   entry), and its staged map on the natural views of the benchmark's
-   two TrSpMV cells (``stripe_ab.CELLS``, from ``spbench/gen``, through
-   ``from_csc(A, W=8, reorder="auto")``: ~2.1M and ~1.5M stripes about 2
-   wide; the map checked staged, each call one staged launch after a
-   reset, held against the plain version bare, with alpha/beta/y and into
-   a longer ``out=`` through ``col_out``, two launches bitwise; the
-   ``kernels`` line's ``tr_spmv_staged`` entry) and its f64 staged map on
+   entry), its staged map on the natural views of the benchmark's
+   two TrSpMV cells' relabeled packs (``stripe_ab.CELLS``, from
+   ``spbench/gen``, through ``from_csc(A, W=8, reorder="always")``: ~2.1M
+   and ~1.5M stripes about 2 wide; the map checked staged, each call one
+   staged launch after a reset, held against the plain version bare, with
+   alpha/beta/y and into a longer ``out=`` through ``col_out``, two
+   launches bitwise; the ``kernels`` line's ``tr_spmv_staged`` entry),
+   its float4 map on the pack ``blocky_w8``'s cell runs under auto-RCM,
+   unpermuted (``reorder="never"``: 640,000 stripes 8 wide; the same
+   checks, each call one ``quad`` launch; the ``cells`` field of the
+   ``tr_spmv`` entry) and its f64 staged map on
    the float64 cell's natural view (``stripe_ab.F64_CELLS``, the same
    checks at 1e-14, the bound at 8 bytes an element; the ``kernels``
    line's ``tr_spmv_staged_f64`` entry),
@@ -1594,86 +1598,102 @@ def phase_timing_above_l2(dev, errs):
             "x16_library_ms": warm[2], "x16_library_flushed_ms": cold[2]}
 
 
-def phase_timing_cells(dev, errs):
-    """The stripe kernel's staged map on the natural views the benchmark's
-    two TrSpMV cells run (``stripe_ab.CELLS``: ``blocky_w8``'s
-    ``tr_mul(x, 1, 0.5, y)``, ``hpcg_27pt_144``'s ``mul(x)``), built as
-    the cells build them.  On each: the map is ``staged``; after a reset,
-    each checked call is one staged launch and no other; the kernel against
-    its plain version bare, with alpha/beta/y and into a longer ``out=``
+def cell_view(dev, label, reorder, want, errs, key):
+    """One TrSpMV cell's packed direction (``stripe_ab.CELLS``), built
+    from ``spbench/gen`` under ``reorder`` and held to the thread map
+    ``want``: the route is the stripe kernel; after a reset, each checked
+    call is one launch of that map and no other; the kernel against its
+    plain version bare, with alpha/beta/y and into a longer ``out=``
     buffer through ``col_out`` (its other entries kept), two launches
     bitwise; then the cell's call timed back-to-back (kernel, plain) and
-    L2-flushed.  Returns (the kernels line's ``tr_spmv_staged`` entry, its
-    launches); the entry's ``ms``/``bound_ms`` are the blocky cell's, each
-    cell's under ``cells``."""
+    L2-flushed.  The largest error goes to ``errs[key]``.  Returns (the
+    cell's record, its launches)."""
+    _, _, _, direction, (alpha, beta, with_y) = stripe_ab.CELLS[label]
+    t0 = time.perf_counter()
+    A = stripe_ab.cell_matrix(label)
+    op = vt.VBCOperator.from_csc(A, W=8, directions=direction, reorder=reorder,
+                                 device=dev)
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t0
+    name, fmt, _ = op.route_tr if direction == "transposed" else op.route_fw
+    view = "natural view" if op.perm_t is not None else "unpermuted pack"
+    check(name == "stripe" and (fmt.col_out is not None) == (op.perm_t is not None)
+          and (op.perm_t is None) == (reorder == "never") and thread_map(fmt) == want,
+          f"{label} ({reorder}): route {name}, {view}, map {thread_map(fmt)} "
+          f"(want the stripe route's {want} map)")
+    rng = np.random.default_rng(21)
+    xt = torch.from_numpy(rng.standard_normal(op.m).astype(np.float32)).to(dev)
+    yt = torch.from_numpy(rng.standard_normal(op.n).astype(np.float32)).to(dev)
+    big = torch.from_numpy(rng.standard_normal(2 * op.n + 1).astype(np.float32)).to(dev)
+    place = torch.from_numpy(rng.permutation(2 * op.n + 1)[:op.n].astype(np.int32)).to(dev)
+    placed = dataclasses.replace(
+        fmt, col_out=place if fmt.col_out is None else place[fmt.col_out.long()])
+    forms = {"bare": (fmt, (), False), "alpha_beta_y": (fmt, (0.5, 0.25, yt), False),
+             "out": (placed, (0.5, 0.25, big), True)}
+    worst, n_launch = 0.0, 0
+    for form, (f, args, into) in forms.items():
+        def run(kernel, f=f, args=args, into=into):
+            return kernel(f, xt, *args, **({"out": torch.full_like(big, 7.0)}
+                                            if into else {}))
+        reset_launches()
+        got, again = run(vt.tr_spmv), run(vt.tr_spmv)
+        torch.cuda.synchronize()
+        check(vt.tr_spmv.launches_by_map == {"quad": 0, "staged": 0, "staged_f64": 0,
+                                             want: 2}
+              and vt.tr_spmv.launches == 2,
+              f"{label} {form}: launches {vt.tr_spmv.launches_by_map} (want two "
+              f"{want})")
+        n_launch += 2
+        ref = run(vt.tr_spmv_plain)
+        err = rel_err(got.cpu().numpy(), ref.cpu().numpy())
+        check(np.isfinite(err) and err <= TOL and torch.equal(got, again),
+              f"{label} {form}: {want} map off the plain version by {err:.2e}, "
+              f"or two launches differ")
+        errs[key] = max(errs[key], float((got - ref).abs().max()))
+        worst = max(worst, err)
+        del got, again, ref
+    call_args = () if alpha is None else (alpha, beta, yt)
+    calls = [lambda: vt.tr_spmv(fmt, xt, *call_args),
+             lambda: vt.tr_spmv_plain(fmt, xt, *call_args)]
+    warm = paired_ms(calls, dev)
+    cold = flushed_ms(calls[0], dev)
+    nnz = nonzeros(A)
+    work = tr_spmv_work(fmt, nnz, with_y)
+    bound_ms, bound_by = bound(*work)
+    rec = {"ms": warm[0], "flushed_ms": cold, "plain_ms": warm[1],
+           "bound_ms": bound_ms, "bound_by": bound_by, "reorder": reorder,
+           "map": want, "stripes": fmt.L, "blocks": fmt.idx.numel(),
+           "runs": int(stage_plan(fmt).shape[0] - 1) if want == "staged" else None}
+    runs = "" if rec["runs"] is None else f", {rec['runs']} runs"
+    print(f"[8 timing tr_spmv, {want} map, {label}'s {view} (reorder={reorder!r}): "
+          f"{op.m}x{op.n}, nnz {nnz}, {fmt.L} stripes of mean width "
+          f"{op.n / fmt.L:.3f}, {fmt.idx.numel()} blocks{runs}; "
+          f"generated and from_csc {t_op:.2f} s] kernel {warm[0] * 1e3:.2f} "
+          f"us/call back-to-back, {cold * 1e3:.2f} flushed ({work[0] / 1e6:.1f} MB "
+          f"per call; bound {bound_ms * 1e3:.2f} us, {bound_ms / warm[0]:.3f} of "
+          f"it back-to-back); plain {warm[1] * 1e3:.2f} us; |Δ|/max {worst:.3e} "
+          f"(plain; bare, alpha/beta/y, out=); two launches bitwise equal",
+          flush=True)
+    del op, fmt, placed, calls, xt, yt, big, place
+    torch.cuda.empty_cache()
+    return rec, n_launch
+
+
+def phase_timing_cells(dev, errs):
+    """The stripe kernel's staged map on the natural views of the
+    benchmark's two TrSpMV cells' relabeled packs (``stripe_ab.CELLS``:
+    ``blocky_w8``'s ``tr_mul(x, 1, 0.5, y)``, ``hpcg_27pt_144``'s
+    ``mul(x)``; ``reorder="always"``: HPCG's cell relabels under auto-RCM
+    too, ``blocky_w8``'s did under the earlier rule), each through
+    :func:`cell_view`.  Returns (the kernels line's ``tr_spmv_staged``
+    entry, its launches); the entry's ``ms``/``bound_ms`` are the blocky
+    cell's, each cell's under ``cells``."""
     errs["tr_spmv_staged"] = 0.0
     cells, n_launch = {}, 0
-    for label, (_, _, _, direction, (alpha, beta, with_y)) in stripe_ab.CELLS.items():
-        t0 = time.perf_counter()
-        A = stripe_ab.cell_matrix(label)
-        op = vt.VBCOperator.from_csc(A, W=8, directions=direction, reorder="auto",
-                                     device=dev)
-        torch.cuda.synchronize()
-        t_op = time.perf_counter() - t0
-        name, fmt, _ = op.route_tr if direction == "transposed" else op.route_fw
-        check(name == "stripe" and fmt.col_out is not None
-              and thread_map(fmt) == "staged",
-              f"{label}: route {name}, natural view {fmt.col_out is not None}, "
-              f"map {thread_map(fmt)} (want the stripe route's staged map on a "
-              f"natural view)")
-        rng = np.random.default_rng(21)
-        xt = torch.from_numpy(rng.standard_normal(op.m).astype(np.float32)).to(dev)
-        yt = torch.from_numpy(rng.standard_normal(op.n).astype(np.float32)).to(dev)
-        big = torch.from_numpy(rng.standard_normal(2 * op.n + 1).astype(np.float32)).to(dev)
-        place = torch.from_numpy(rng.permutation(2 * op.n + 1)[:op.n].astype(np.int32)).to(dev)
-        placed = dataclasses.replace(fmt, col_out=place[fmt.col_out.long()])
-        forms = {"bare": (fmt, (), False), "alpha_beta_y": (fmt, (0.5, 0.25, yt), False),
-                 "out": (placed, (0.5, 0.25, big), True)}
-        worst = 0.0
-        for form, (f, args, into) in forms.items():
-            def run(kernel, f=f, args=args, into=into):
-                return kernel(f, xt, *args, **({"out": torch.full_like(big, 7.0)}
-                                                if into else {}))
-            reset_launches()
-            got, again = run(vt.tr_spmv), run(vt.tr_spmv)
-            torch.cuda.synchronize()
-            check(vt.tr_spmv.launches_by_map == {"quad": 0, "staged": 2, "staged_f64": 0}
-                  and vt.tr_spmv.launches == 2,
-                  f"{label} {form}: launches {vt.tr_spmv.launches_by_map} (want two "
-                  f"staged)")
-            n_launch += 2
-            ref = run(vt.tr_spmv_plain)
-            err = rel_err(got.cpu().numpy(), ref.cpu().numpy())
-            check(np.isfinite(err) and err <= TOL and torch.equal(got, again),
-                  f"{label} {form}: staged map off the plain version by {err:.2e}, "
-                  f"or two launches differ")
-            errs["tr_spmv_staged"] = max(errs["tr_spmv_staged"],
-                                         float((got - ref).abs().max()))
-            worst = max(worst, err)
-            del got, again, ref
-        call_args = () if alpha is None else (alpha, beta, yt)
-        calls = [lambda: vt.tr_spmv(fmt, xt, *call_args),
-                 lambda: vt.tr_spmv_plain(fmt, xt, *call_args)]
-        warm = paired_ms(calls, dev)
-        cold = flushed_ms(calls[0], dev)
-        nnz = nonzeros(A)
-        work = tr_spmv_work(fmt, nnz, with_y)
-        bound_ms, bound_by = bound(*work)
-        cells[label] = {"ms": warm[0], "flushed_ms": cold, "plain_ms": warm[1],
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "stripes": fmt.L, "blocks": fmt.idx.numel(),
-                        "runs": int(stage_plan(fmt).shape[0] - 1)}
-        print(f"[8 timing tr_spmv, staged map, {label}'s natural view: {op.m}x{op.n}, "
-              f"nnz {nnz}, {fmt.L} stripes of mean width {op.n / fmt.L:.3f}, "
-              f"{fmt.idx.numel()} blocks, {cells[label]['runs']} runs; generated "
-              f"and from_csc (auto-RCM) {t_op:.2f} s] kernel {warm[0] * 1e3:.2f} "
-              f"us/call back-to-back, {cold * 1e3:.2f} flushed ({work[0] / 1e6:.1f} MB "
-              f"per call; bound {bound_ms * 1e3:.2f} us, {bound_ms / warm[0]:.3f} of "
-              f"it back-to-back); plain {warm[1] * 1e3:.2f} us; |Δ|/max {worst:.3e} "
-              f"(plain; bare, alpha/beta/y, out=); two launches bitwise equal",
-              flush=True)
-        del op, fmt, placed, calls, xt, yt, big, place
-        torch.cuda.empty_cache()
+    for label in stripe_ab.CELLS:
+        cells[label], n = cell_view(dev, label, "always", "staged", errs,
+                                    "tr_spmv_staged")
+        n_launch += n
     first = cells[next(iter(stripe_ab.CELLS))]
     rec = {k: first[k] for k in ("ms", "flushed_ms", "plain_ms", "bound_ms", "bound_by")}
     rec["library_ms"] = None
@@ -1681,10 +1701,21 @@ def phase_timing_cells(dev, errs):
     return rec, n_launch
 
 
+def phase_timing_unpermuted(dev, errs):
+    """The float4 map on the pack ``blocky_w8.trmul_stream`` runs under
+    the port's auto-RCM rule, its unpermuted 8-wide stripes
+    (``reorder="never"``, through :func:`cell_view`): the ``cells`` field
+    of the kernels line's ``tr_spmv`` entry."""
+    label = next(iter(stripe_ab.CELLS))
+    rec, _ = cell_view(dev, label, "never", "quad", errs, "tr_spmv")
+    return {label: rec}
+
+
 def phase_timing_cells_f64(dev, errs):
     """The stripe kernel's f64 staged map on the natural view the
     benchmark's float64 cell runs (``stripe_ab.F64_CELLS``:
-    ``hpcg_27pt_144_f64``'s ``mul(x)``), built as the cell builds it.  The
+    ``hpcg_27pt_144_f64``'s ``mul(x)``), built as the cell builds it
+    (``reorder="always"``: the relabeled pack auto-RCM keeps there).  The
     route is the stripe kernel on an f64 natural view; after a reset, each
     checked call is one ``staged_f64`` launch and no other; the kernel
     against its plain version in f64 (``TOL_F64``) bare, with alpha/beta/y
@@ -1697,7 +1728,7 @@ def phase_timing_cells_f64(dev, errs):
     label, (_, _, _, direction, (alpha, beta, _)) = next(iter(stripe_ab.F64_CELLS.items()))
     t0 = time.perf_counter()
     A = stripe_ab.cell_matrix(label)
-    op = vt.VBCOperator.from_csc(A, W=8, directions=direction, reorder="auto", device=dev)
+    op = vt.VBCOperator.from_csc(A, W=8, directions=direction, reorder="always", device=dev)
     torch.cuda.synchronize()
     t_op = time.perf_counter() - t0
     name, fmt, _ = op.route_tr if direction == "transposed" else op.route_fw
@@ -1749,7 +1780,7 @@ def phase_timing_cells_f64(dev, errs):
     runs = int(stage_plan(fmt).shape[0] - 1)
     print(f"[8 timing tr_spmv, f64 staged map, {label}'s natural view: {op.m}x{op.n}, "
           f"nnz {nnz}, {fmt.L} stripes of mean width {op.n / fmt.L:.3f}, "
-          f"{fmt.idx.numel()} blocks, {runs} runs; generated and from_csc (auto-RCM) "
+          f"{fmt.idx.numel()} blocks, {runs} runs; generated and from_csc (RCM) "
           f"{t_op:.2f} s] kernel {warm[0] * 1e3:.2f} us/call back-to-back, "
           f"{cold * 1e3:.2f} flushed ({nbytes / 1e6:.1f} MB per call; bound "
           f"{bound_ms * 1e3:.2f} us, {bound_ms / warm[0]:.3f} of it back-to-back); "
@@ -3411,6 +3442,7 @@ def main():
     ms["tr_spmm"] = phase_timing_spmm(dev, flag, fem, spmm, parts)
     ms["tr_spmv"].update(phase_timing_above_l2(dev, errs))
     ms["tr_spmv_staged"], launches["tr_spmv_staged"] = phase_timing_cells(dev, errs)
+    ms["tr_spmv"]["cells"] = phase_timing_unpermuted(dev, errs)
     ms["tr_spmv_staged_f64"], launches["tr_spmv_staged_f64"] = phase_timing_cells_f64(
         dev, errs)
     ms_2d, pairs_2d = phase_timing_2d(dev, parts)

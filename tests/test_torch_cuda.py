@@ -425,6 +425,30 @@ def test_tr_spmv_launches_by_map(cuda_device):
         assert trace.launches_by_map() == {**before, key: before[key] + 1}
 
 
+def test_operator_auto_keeps_random_row_blocky_on_the_quad_map(cuda_device):
+    """Auto-RCM leaves the random-row blocky matrix unrelabeled (RCM would
+    cut its 8-wide stripes and grow its pack): the operator's
+    ``tr_mul(x, 1, 0.5, y)`` is one launch of the float4 map."""
+    from vbcs_tpu_torch.utils import trace
+
+    A = blocky.generate(2, L=3000)
+    op = vt.VBCOperator.from_csc(A, W=8, directions="transposed", device=cuda_device)
+    assert op.row_perm is None and op.dev_tr.quad_widths
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(op.m, device=cuda_device, generator=g)
+    y = torch.randn(op.n, device=cuda_device, generator=g)
+    launches, before = vt.tr_spmv.launches, trace.launches_by_map()
+    got = op.tr_mul(x, 1.0, 0.5, y)
+    torch.cuda.synchronize()
+    assert vt.tr_spmv.launches == launches + 1
+    assert trace.launches_by_map() == {**before, "quad": before["quad"] + 1}
+    want = vt.tr_spmv_plain(op.dev_tr, x, 1.0, 0.5, y)
+    assert torch.isfinite(got).all() and rel_err(got, want) <= TOL
+    A64 = A.astype(np.float64)
+    want64 = A64.T @ x.cpu().double().numpy() + 0.5 * y.cpu().double().numpy()
+    assert rel_err(got, torch.from_numpy(want64)) <= TOL
+
+
 def test_tr_spmv_staged_cuts_are_bitwise(cuda_device):
     """On the staged map, as on the float4 map, a column's bits are its
     stripe's own: ranks' slices, the stripes reordered, the rows read
@@ -692,7 +716,7 @@ def test_wrappers_refuse_mixed_devices(cuda_device):
 def test_operator_on_card(k, cuda_device):
     A = fem_matrix(k=k).astype(np.float32)
     op = vt.VBCOperator.from_csc(A, W=8, device=cuda_device)
-    assert (op.row_perm is not None) == (k >= 80)
+    assert op.row_perm is not None  # RCM shrinks the grids' packs at every k
     rng = np.random.default_rng(3)
     x = rng.standard_normal(A.shape[0]).astype(np.float32)
     y = rng.standard_normal(A.shape[1]).astype(np.float32)
@@ -709,7 +733,7 @@ def test_operator_on_card(k, cuda_device):
 def test_operator_spmm_on_card(k, cuda_device):
     A = fem_matrix(k=k).astype(np.float32)
     op = vt.VBCOperator.from_csc(A, W=8, device=cuda_device)
-    assert (op.row_perm is not None) == (k >= 80)
+    assert op.row_perm is not None  # RCM shrinks the grids' packs at every k
     rng = np.random.default_rng(4)
     X = rng.standard_normal((A.shape[0], 32)).astype(np.float32)
     Xt = torch.from_numpy(X).to(cuda_device)
@@ -962,7 +986,7 @@ def test_tr_spmv_chain_grid_too_large_raises(cuda_device):
 def test_operator_chain_on_card(k, cuda_device):
     A = fem_matrix(k=k).astype(np.float32)
     op = vt.VBCOperator.from_csc(A, W=8, device=cuda_device)
-    assert (op.row_perm is not None) == (k >= 80)
+    assert op.row_perm is not None  # RCM shrinks the grids' packs at every k
     x = torch.randn(A.shape[0], device=cuda_device)
     chains, gathers = vt.tr_spmv_chain.launches, vt.gather.launches
     got = op.tr_mul_chain(x, 5, 0.125)

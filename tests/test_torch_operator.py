@@ -7,7 +7,10 @@ flagship generator at L=2048, a scrambled k=80 grid Laplacian on which
 both take the auto-RCM path, and a k=40 one relabeled with
 ``reorder="always"`` (the corpus is in ``test_torch_operator_corpus.py``).
 Both must pick the same relabeling and pack the same arrays, and their
-``tr_mul``/``mul`` (with alpha, beta and y) must agree.
+``tr_mul``/``mul`` (with alpha, beta and y) must agree.  The two
+auto-RCM rules differ on other matrices: the port's relabels where RCM
+shrinks the packs it holds (``test_torch_auto_rcm.py``), the JAX
+operator's by its TPU window estimate.
 
 Tolerance: ``|Δ| / max|y| <= 2e-5`` against the JAX operator and the
 f64 host oracle — f32 sums in different orders (as
@@ -113,19 +116,28 @@ def test_flagship_shape_matches_jax():
 
 def test_auto_rcm_matches_jax():
     # window_badness is 0 below 7 aligned 1024-row windows, so the
-    # scrambled grid needs k >= 80 (6400 rows) for auto-RCM to trigger
+    # scrambled grid needs k >= 80 (6400 rows) for the JAX operator's
+    # auto-RCM to trigger (the port's bytes rule relabels it at k = 40 too)
     op = check_operator(fem_matrix(k=80).astype(np.float32))
     assert op.row_perm is not None and op.perm_t.dtype == torch.int32
 
 
 @pytest.mark.parametrize("k", [40, 64, 80, 100])
 def test_auto_rcm_decision_matches_jax(k):
+    """The port relabels where RCM shrinks the pack it holds, which on the
+    scrambled grids is every k (about 15.2 against 16.8 bytes a nonzero);
+    the JAX operator's TPU window estimate relabels from k = 80 only.
+    Where both relabel, they take the same permutation."""
     A = fem_matrix(k=k).astype(np.float32)
     pj = v.VBCOperator.from_csc(A, W=8, use_pallas=True,
                                 directions="transposed").row_perm
     pt = vt.VBCOperator.from_csc(A, W=8, directions="transposed",
                                  device="cpu").row_perm
-    assert (pj is None) == (pt is None) == (k < 80)
+    C = vt.CSC.from_scipy(A)
+    Cp, perm = vt.rcm_symmetric(C)
+    assert vt.vbc1d(Cp, 8).memory_bytes() < vt.vbc1d(C, 8).memory_bytes()
+    assert pt is not None and (pj is None) == (k < 80)
+    np.testing.assert_array_equal(pt, perm)
     if pj is not None:
         np.testing.assert_array_equal(pj, pt)
 

@@ -18,8 +18,10 @@ import vbcs_tpu_torch as vt
 from vbcs_tpu_torch import ops
 from vbcs_tpu_torch.utils import trace
 
-PLAN = ["plan.dp", "plan.pack", "plan.badness", "plan.rcm", "plan.dp", "plan.pack",
-        "plan.badness", "plan.transpose", "plan.dp", "plan.pack", "plan.upload"]
+# auto-RCM on both directions: A's and A.T's packs, RCM, the relabeled
+# matrix's two packs (kept: they store fewer bytes), the copy
+PLAN = ["plan.dp", "plan.pack", "plan.transpose", "plan.dp", "plan.pack", "plan.rcm",
+        "plan.dp", "plan.pack", "plan.transpose", "plan.dp", "plan.pack", "plan.upload"]
 
 
 @pytest.fixture(autouse=True)

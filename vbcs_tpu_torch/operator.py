@@ -1,10 +1,11 @@
 """VBCOperator and VBC2DOperator — the user-facing sparse operators.
 
 Port of ``vbcs_tpu/operator.py``.  ``from_csc``
-plans and packs ``A`` (and ``A.T``) on the host exactly as the JAX
-operator does — the min-memory DP, ``pack_1dvbc`` and the auto-RCM
-decision — then copies the packs to a torch ``device`` (the card,
-``"cuda"``, unless the caller asks for another):
+plans and packs ``A`` (and ``A.T``) on the host as the JAX operator
+does — the min-memory DP and ``pack_1dvbc`` — with an auto-RCM decision
+of its own (RCM where it shrinks the packs held; the JAX operator decides
+by an estimate of its TPU kernel's x windows), then copies the packs to a
+torch ``device`` (the card, ``"cuda"``, unless the caller asks for another):
 
 * ``tr_mul``: ``y = alpha * A.T @ x + beta * y`` through the kernel
   :func:`route_tr_spmv` picks for the pack — the stripe kernel
@@ -76,7 +77,7 @@ from .ops.spmm import tr_spmm
 from .ops.trspmv import _check_vec, tr_spmv
 from .ops.trspmv2d import tr_spmv_2d
 from .plan.alternating import pack_stripe
-from .plan.reorder import rcm_symmetric, window_badness
+from .plan.reorder import rcm_symmetric
 from .utils import trace
 
 __all__ = ["VBCOperator", "VBC2DOperator", "route_tr_spmv", "route_tr_spmv_2d",
@@ -307,9 +308,19 @@ class VBCOperator(_Directions):
         ``method`` plans the columns of A; ``method_forward`` the columns
         of A.T (defaults to ``method``).
 
-        ``reorder``: "auto" applies a *symmetric* RCM relabeling when the
-        JAX package's locality estimate (``window_badness``) says it
-        helps; "never"/"always" force it off/on.  The operator carries the
+        ``reorder``: "auto" applies a *symmetric* RCM relabeling to a
+        square ``A`` of more than 1,024 rows where it shrinks the packs the
+        operator holds: both candidates' packs are built for the
+        directions asked (A's for "transposed", A.T's for "forward", all
+        four for "both"), and the relabeled ones are kept iff their summed
+        ``memory_bytes()`` is strictly less (a tie keeps ``A``).  Every
+        call but ``tr_mul_chain`` runs a relabeled pack's natural view,
+        whose x and y locality is never better than the unrelabeled
+        pack's, so RCM pays on the card only by storing fewer bytes.  The
+        JAX operator decides by its TPU window estimate instead
+        (``plan.reorder.window_badness``), so the two may differ.  Each
+        decision is counted (``utils.trace.reorder_choices``).
+        "never"/"always" force it off/on.  The operator carries the
         permutation and applies it at the call boundaries.
         """
         with trace.span("from_csc"):
@@ -321,29 +332,34 @@ class VBCOperator(_Directions):
             method = method or default_1d_partitioner(W, A.val.dtype.itemsize)
             method_forward = method_forward or method
 
-            row_perm = None
-            probe_pack = None  # reused as host_tr (same method/W as the probe)
-            if reorder in ("auto", "always") and A.m == A.n and A.m > 1024:
-                probe_pack = pack_1dvbc(A, pack_stripe(A, method), W)
-                bad = window_badness(probe_pack)
-                if reorder == "always" or bad > 0.05:
-                    Ap, perm = rcm_symmetric(A)
-                    probe_p = pack_1dvbc(Ap, pack_stripe(Ap, method), W)
-                    if reorder == "always" or window_badness(probe_p) < bad:
-                        A, row_perm = Ap, perm
-                        probe_pack = probe_p
-
-            host_tr = host_fw = None
-            if directions in ("both", "transposed"):
-                if probe_pack is not None:
-                    host_tr = probe_pack
-                else:
+            def packs(A):
+                host_tr = host_fw = None
+                if directions in ("both", "transposed"):
                     host_tr = pack_1dvbc(A, pack_stripe(A, method), W)
-            if directions in ("both", "forward"):
-                with trace.span("plan.transpose"):
-                    At = A.transpose()
-                host_fw = pack_1dvbc(At, pack_stripe(At, method_forward), W)
-            return VBCOperator.from_host(host_tr, host_fw, row_perm, device)
+                if directions in ("both", "forward"):
+                    with trace.span("plan.transpose"):
+                        At = A.transpose()
+                    host_fw = pack_1dvbc(At, pack_stripe(At, method_forward), W)
+                return host_tr, host_fw
+
+            def stored(held):
+                return sum(h.memory_bytes() for h in held if h is not None)
+
+            row_perm = None
+            if reorder == "never" or A.m != A.n or A.m <= 1024:
+                held = packs(A)
+            elif reorder == "always":
+                A, row_perm = rcm_symmetric(A)
+                held = packs(A)
+            else:
+                held = packs(A)
+                Ap, perm = rcm_symmetric(A)
+                held_p = packs(Ap)
+                take = stored(held_p) < stored(held)
+                if take:
+                    held, row_perm = held_p, perm
+                trace.count_reorder("rcm" if take else "natural")
+            return VBCOperator.from_host(*held, row_perm, device)
 
     @staticmethod
     def from_host(host_tr, host_fw, row_perm, device="cuda") -> "VBCOperator":

@@ -1,5 +1,5 @@
-"""Row and column reorderings for x locality, and the estimate that
-decides auto-RCM.
+"""Row and column reorderings for x locality, and the JAX package's
+estimate that decides its auto-RCM.
 
 Port of ``vbcs_tpu/plan/reorder.py`` (NumPy/SciPy; bitwise the same
 permutations and CSC arrays): the row reorderings :func:`rcm_rows`
@@ -7,10 +7,12 @@ permutations and CSC arrays): the row reorderings :func:`rcm_rows`
 rectangle) and :func:`profile_rows` (rows by the mean column of their
 nonzeros, empty rows last), both returning ``(A[perm, :], perm)``; for
 ``y = A.T @ x`` only ``x -> x[perm]`` changes.  Then the symmetric
-relabeling :func:`rcm_symmetric` and :func:`window_badness`, so the port's
-auto-RCM decision equals the JAX operator's.  The estimate models the TPU
-stream kernel's x-gather through aligned 1024-element windows; whether
-that heuristic still pays on the GPU is an open question (ROADMAP.md).
+relabeling :func:`rcm_symmetric`, which the port's auto-RCM applies, and
+:func:`window_badness`, the JAX operator's estimate of the TPU stream
+kernel's x-gather through aligned 1024-element windows.  The port's
+``VBCOperator.from_csc`` does not read that estimate: on the card every
+call but the chain runs a relabeled pack's natural view, so it relabels
+only where RCM shrinks the packs it holds (``operator.py``).
 """
 
 from __future__ import annotations

@@ -16,17 +16,21 @@ launches of each must agree bitwise.
 ``--cells`` times the shapes of the benchmark's two TrSpMV cells instead
 (``spbench/``: ``blocky_w8.trmul_stream``, the random-row blocky family
 at ``L = 640,000``, ``tr_mul(x, 1, 0.5, y)``; ``hpcg_27pt_144.cg_sync``,
-HPCG's 27-point stencil at 144^3, ``mul(x)``), each through
-``from_csc(A, W=8, reorder="auto")`` as the cell plans it, on three
+HPCG's 27-point stencil at 144^3, ``mul(x)``), each relabeled by RCM
+(``from_csc(A, W=8, reorder="always")``: the pack HPCG's cell keeps
+under auto-RCM, and ``blocky_w8``'s under the earlier rule), on three
 formats of its packed direction: (a) ``natural``, the natural view the
 cell runs (rows ``perm[idx]``, y through ``col_out``); (b)
 ``relabeled``, the relabeled pack itself (x and y in its order, no
 ``col_out``); (c) ``window``, (a) with every block row masked into the
 first ``WINDOW_ROWS`` rows (1 MB of x, surely in the L2).  (a) against
-(b) and (c) splits the scattered x and y from the map's own cost.
-Back-to-back only: each call moves 350-900 MB, over 7x the L2.  Then the
-float64 cell's shape (``F64_CELLS``: ``hpcg_27pt_144_f64.cg_sync``, the
-same stencil in float64): on its natural view, the f64 staged map
+(b) and (c) splits the scattered x and y from the map's own cost.  Then
+``UNPERMUTED``, the pack ``blocky_w8``'s cell runs under the port's
+auto-RCM rule (``reorder="never"``: 8-wide stripes, the float4 map), as
+one format ``unpermuted``.  Back-to-back only: each call moves 225-900
+MB, over 4x the L2.  Then the float64 cell's shape (``F64_CELLS``:
+``hpcg_27pt_144_f64.cg_sync``, the same stencil in float64, relabeled as
+its cell keeps it): on its natural view, the f64 staged map
 beside the semiring route (``ops/semiring.py`` on the operator's flat
 format, what an f64 call ran before the f64 map) and the f32 staged map
 on the same pattern (the f64 view's values rounded to f32), each held
@@ -69,7 +73,7 @@ from ..utils.profile import f32_flops, hbm_bandwidth
 from ..utils.timing import flushed_ms, paired_ms
 from .matrices import BLOCKY_ABOVE_L2, blocky_matrix
 
-__all__ = ["work", "main", "CELLS", "F64_CELLS", "WINDOW_ROWS"]
+__all__ = ["work", "main", "CELLS", "UNPERMUTED", "F64_CELLS", "WINDOW_ROWS"]
 
 TOL = 2e-5  # f32 sums in another order than the plain version's index_add_
 TOL_F64 = 1e-14  # f64 sums: fma against the plain version's multiply and add
@@ -83,6 +87,8 @@ CELLS = {
     "hpcg_27pt_144.cg_sync": ("hpcg27", None, dict(nx=144, ny=144, nz=144),
                               "forward", (None, None, False)),
 }
+# the cells of CELLS whose unpermuted pack --cells times too
+UNPERMUTED = ("blocky_w8.trmul_stream",)
 # the float64 TrSpMV cell, as CELLS
 F64_CELLS = {
     "hpcg_27pt_144_f64.cg_sync": ("hpcg27", None,
@@ -215,28 +221,34 @@ def _case(label, A, builds, dev) -> dict:
     return rec
 
 
-def _cell_case(label, A, direction, call_args, builds, dev) -> dict:
-    """(a), (b) and (c) of one cell's packed direction (module docstring):
-    each candidate held against the plain version, two launches bitwise,
+def _cell_case(label, A, direction, call_args, builds, dev, reorder="always") -> dict:
+    """(a), (b) and (c) of one cell's packed direction relabeled, or with
+    ``reorder="never"`` its unpermuted pack (module docstring): each
+    candidate held against the plain version, two launches bitwise,
     bitwise the package on each format, then timed back-to-back."""
     alpha, beta, with_y = call_args
-    op = VBCOperator.from_csc(A, W=8, directions=direction, reorder="auto",
+    op = VBCOperator.from_csc(A, W=8, directions=direction, reorder=reorder,
                               device=dev)
     which = "tr" if direction == "transposed" else "fw"
     name, natural, _ = getattr(op, f"route_{which}")
-    if name != "stripe" or op.perm_t is None:
-        raise RuntimeError(f"{label}: route {name}, auto-RCM "
+    if name != "stripe" or (op.perm_t is None) != (reorder == "never"):
+        raise RuntimeError(f"{label}: route {name}, RCM "
                            f"{'on' if op.perm_t is not None else 'off'}")
-    views = {"natural": natural,
-             "relabeled": getattr(op, f"dev_{which}"),
-             "window": dataclasses.replace(natural, idx=natural.idx & (WINDOW_ROWS - 1))}
+    if op.perm_t is None:
+        views = {"unpermuted": natural}
+    else:
+        views = {"natural": natural,
+                 "relabeled": getattr(op, f"dev_{which}"),
+                 "window": dataclasses.replace(natural,
+                                               idx=natural.idx & (WINDOW_ROWS - 1))}
     rng = np.random.default_rng(21)
     xt = torch.from_numpy(rng.standard_normal(op.m).astype(np.float32)).to(dev)
     yt = (torch.from_numpy(rng.standard_normal(op.n).astype(np.float32)).to(dev)
           if with_y else None)
     nnz = int(np.count_nonzero(sp.csc_matrix(A).data))
     rec = {"columns": op.n, "stripes": natural.L, "blocks": natural.idx.numel(),
-           "mean_width": op.n / natural.L, "nnz": nnz, "views": {}}
+           "mean_width": op.n / natural.L, "nnz": nnz, "map": thread_map(natural),
+           "views": {}}
     for view, fmt in views.items():
         cands = {"package": lambda fmt=fmt: tr_spmv(fmt, xt, alpha, beta, yt)}
         cands.update({k: _call(*b, fmt, xt, yt, alpha, beta)
@@ -277,12 +289,12 @@ def _f64_case(label, A, direction, call_args, dev) -> dict:
     from ..ops import semiring
 
     alpha, beta, with_y = call_args
-    op = VBCOperator.from_csc(A, W=8, directions=direction, reorder="auto",
+    op = VBCOperator.from_csc(A, W=8, directions=direction, reorder="always",
                               device=dev)
     which = "tr" if direction == "transposed" else "fw"
     name, nat64, _ = getattr(op, f"route_{which}")
     if name != "stripe" or op.perm_t is None or nat64.val.dtype != torch.float64:
-        raise RuntimeError(f"{label}: route {name}, values {nat64.val.dtype}, auto-RCM "
+        raise RuntimeError(f"{label}: route {name}, values {nat64.val.dtype}, RCM "
                            f"{'on' if op.perm_t is not None else 'off'}")
     nat32 = dataclasses.replace(nat64, val=nat64.val.float())
     semi = getattr(op, f"semi_{which}")
@@ -377,6 +389,10 @@ def main(argv=None) -> dict:
             label: _cell_case(label, cell_matrix(label), direction, call_args, builds,
                               dev)
             for label, (_, _, _, direction, call_args) in CELLS.items()}}
+        rec["unpermuted"] = {
+            label: _cell_case(label, cell_matrix(label), CELLS[label][3], CELLS[label][4],
+                              builds, dev, "never")
+            for label in UNPERMUTED}
         rec["f64_cells"] = {
             label: _f64_case(label, cell_matrix(label), direction, call_args, dev)
             for label, (_, _, _, direction, call_args) in F64_CELLS.items()}

@@ -36,7 +36,9 @@ kernels (``ops.CALL_LAUNCHERS``), which count whether the tracer is on
 or not; :func:`launches_by_map` splits the stripe TrSpMV's by the thread
 map each launch took (``staged_f64``: the f64 staged map);
 :func:`semiring_calls` counts the operator calls that took the semiring
-route instead, by dtype, also whether the tracer is on or not.
+route instead, by dtype, also whether the tracer is on or not;
+:func:`reorder_choices` counts ``VBCOperator.from_csc``'s auto-RCM
+decisions by the packs kept, whether the tracer is on or not.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ import time
 import torch
 
 __all__ = ["enable", "disable", "enabled", "span", "count", "snapshot", "reset",
-           "summary", "launches", "launches_by_map", "semiring_calls"]
+           "summary", "launches", "launches_by_map", "semiring_calls",
+           "count_reorder", "reorder_choices"]
 
 _on = False
 _NULL = contextlib.nullcontext()
@@ -60,6 +63,9 @@ _records: list = []
 _seq = itertools.count()
 _counters: dict = {}
 _count_lock = threading.Lock()
+# VBCOperator.from_csc's auto-RCM decisions since the process began, by
+# the packs kept: counted whether the tracer is on or not
+_reorder_choices = {"natural": 0, "rcm": 0}
 
 _now = time.time_ns
 _profiling = torch.autograd._profiler_enabled
@@ -221,3 +227,19 @@ def semiring_calls() -> dict:
     from ..ops.semiring import route_calls
 
     return dict(route_calls)
+
+
+def count_reorder(choice: str) -> None:
+    """Count one auto-RCM decision of ``VBCOperator.from_csc``: ``"rcm"``
+    (the relabeled packs kept) or ``"natural"``."""
+    with _count_lock:
+        _reorder_choices[choice] += 1
+
+
+def reorder_choices() -> dict:
+    """``VBCOperator.from_csc``'s auto-RCM decisions since the process
+    began, ``{"natural": n, "rcm": n}``: one a ``reorder="auto"`` call on a
+    square matrix of more than 1,024 rows (a smaller or non-square one is
+    never relabeled, and no decision is made)."""
+    with _count_lock:
+        return dict(_reorder_choices)
