@@ -263,6 +263,7 @@ from vbcs_tpu_torch.plan.dynamic import dp_partition
 from vbcs_tpu_torch.tools import method_table, stripe_ab, weak_scaling
 from vbcs_tpu_torch.tools.spmm_ab import work as tr_spmm_work
 from vbcs_tpu_torch.utils.timing import flushed_ms, host_ms, paired_ms
+from vbcs_tpu_torch.utils import trace
 
 from vbcs_tpu_torch.tools.matrices import (BLOCKY_ABOVE_L2, blocky2d_matrix,
                                            blocky_matrix, fem_matrix,
@@ -1191,7 +1192,8 @@ def phase_path_shapes(flag, fem, spmm, errs):
                 errs["tr_spmv"] = max(errs["tr_spmv"],
                                       float((got - plain).abs().max()))
     _, op2, xt2, yt2 = fem
-    for name, src, perm in (("perm", xt2, op2.perm_t), ("inverse", yt2, op2.inv_t)):
+    for name, src, perm in (("perm", xt2, op2.perm_t),
+                            ("inverse", yt2, torch.argsort(op2.perm_t).int())):
         got, plain = vt.gather(src, perm), vt.gather_plain(src, perm)
         check(torch.equal(got, plain),
               f"gather of the FEM {name} permutation differs from its plain version")
@@ -1638,10 +1640,10 @@ def cell_view(dev, label, reorder, want, errs, key):
         reset_launches()
         got, again = run(vt.tr_spmv), run(vt.tr_spmv)
         torch.cuda.synchronize()
-        check(vt.tr_spmv.launches_by_map == {"quad": 0, "staged": 0, "staged_f64": 0,
-                                             want: 2}
+        maps = maps_since_reset()
+        check(maps == {"quad": 0, "staged": 0, "staged_f64": 0, want: 2}
               and vt.tr_spmv.launches == 2,
-              f"{label} {form}: launches {vt.tr_spmv.launches_by_map} (want two "
+              f"{label} {form}: launches {maps} (want two "
               f"{want})")
         n_launch += 2
         ref = run(vt.tr_spmv_plain)
@@ -1753,9 +1755,10 @@ def phase_timing_cells_f64(dev, errs):
         reset_launches()
         got, again = run(vt.tr_spmv), run(vt.tr_spmv)
         torch.cuda.synchronize()
-        check(vt.tr_spmv.launches_by_map == {"quad": 0, "staged": 0, "staged_f64": 2}
+        maps = maps_since_reset()
+        check(maps == {"quad": 0, "staged": 0, "staged_f64": 2}
               and vt.tr_spmv.launches == 2,
-              f"{label} {form}: launches {vt.tr_spmv.launches_by_map} (want two "
+              f"{label} {form}: launches {maps} (want two "
               f"staged_f64)")
         n_launch += 2
         ref = run(vt.tr_spmv_plain)
@@ -1808,7 +1811,7 @@ def phase_timing_relabeled(dev, fem, scat, spmm):
     for label, (_, op, x, y), (alpha, beta) in (
             ("FEM", fem, (2.0, -0.5)), ("scattered", scat[:4], (0.5, 0.25))):
         name, _, call = op.route_tr
-        perm, inv = op.perm_t, op.inv_t
+        perm, inv = op.perm_t, torch.argsort(op.perm_t).int()
         rel = (op.dev_tr if name == "stripe"
                else vt.ScatterDevice.from_host(op.host_tr, dev))
         half = dataclasses.replace(rel, col_out=perm)
@@ -1849,7 +1852,7 @@ def phase_chain_fold(dev, chains):
     alpha and ``CHAIN_ITERS`` of ``CHAIN_ALPHA``.  Prints a ``CHAINFOLD
     {...}`` line."""
     _, op, xt, alpha = chains["FEM"]
-    perm, inv = op.perm_t, op.inv_t
+    perm, inv = op.perm_t, torch.argsort(op.perm_t).int()
     rec = {}
     for n_it, a in ((5, alpha), (CHAIN_ITERS, CHAIN_ALPHA)):
         def pair(a, n_it=n_it):
@@ -2359,9 +2362,9 @@ def semiring_f64_run(label, A32, dev, rng, relabeled):
     X, Xf = rng.standard_normal((m, 32)), rng.standard_normal((n, 32))
     alpha = f32_alpha(A)
     xt, yt, xft, Xt, Xft = (torch.from_numpy(a).to(dev) for a in (x, y, xf, X, Xf))
-    before = vt.tr_spmv.launches_by_map["staged_f64"]
+    before = trace.launches_by_map()["staged_f64"]
     got = {"tr_mul": op.tr_mul(xt, 0.5, 0.25, yt), "mul": op.mul(xft)}
-    f64_map = vt.tr_spmv.launches_by_map["staged_f64"] - before
+    f64_map = trace.launches_by_map()["staged_f64"] - before
     got.update({"tr_mul_mat": op.tr_mul_mat(Xt), "mul_mat": op.mul_mat(Xft),
                 "tr_mul_chain": op.tr_mul_chain(xt, 5, alpha)})
     torch.cuda.synchronize()
@@ -3312,10 +3315,20 @@ def phase_plan(dev, flag, fem, mdl, mdl2, smi, errs):
     return launches, ms
 
 
+# trace.launches_by_map() at the last reset_launches()
+_MAPS_AT_RESET: dict = {}
+
+
 def reset_launches():
     for kern in KERNELS:
         kern.launches = 0
-    vt.tr_spmv.launches_by_map.update(dict.fromkeys(vt.tr_spmv.launches_by_map, 0))
+    _MAPS_AT_RESET.update(trace.launches_by_map())
+
+
+def maps_since_reset() -> dict:
+    """The stripe TrSpMV's launches by thread map since the last
+    :func:`reset_launches`."""
+    return {k: n - _MAPS_AT_RESET.get(k, 0) for k, n in trace.launches_by_map().items()}
 
 
 @contextlib.contextmanager

@@ -144,7 +144,8 @@ def test_mapped_chain_is_the_composed_path(n_iters):
     A, op = relabeled_fmt()
     x = torch.from_numpy(np.random.default_rng(n_iters).standard_normal(
         A.shape[0]).astype(np.float32))
-    want = composed_chain(op.dev_tr, x, n_iters, 0.25, op.perm_t, op.inv_t)
+    want = composed_chain(op.dev_tr, x, n_iters, 0.25, op.perm_t,
+                          torch.argsort(op.perm_t).int())
     assert torch.equal(vt.tr_spmv_chain_plain(op.dev_tr, x, n_iters, 0.25,
                                               op.perm_t), want)
     assert torch.equal(vt.tr_spmv_chain(op.dev_tr, x, n_iters, 0.25, op.perm_t), want)
@@ -171,7 +172,7 @@ def test_mapped_chain_split_into_launches(monkeypatch):
         got = chain.tr_spmv_chain(op.dev_tr, x, n_iters, 0.5, op.perm_t)
         assert runs == launches
         assert torch.equal(got, composed_chain(op.dev_tr, x, n_iters, 0.5,
-                                               op.perm_t, op.inv_t))
+                                               op.perm_t, torch.argsort(op.perm_t).int()))
 
 
 def test_chain_refuses_a_bad_perm():

@@ -26,6 +26,7 @@ import vbcs_tpu_torch as vt
 from corpus import NAMES, load_corpus
 from vbcs_tpu_torch.ops import _lib
 from vbcs_tpu_torch.ops.chain import chain_grid, chain_plan
+from vbcs_tpu_torch.utils import trace
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from bench import (blocky2d_matrix, blocky_matrix, fem_matrix,  # noqa: E402
@@ -361,7 +362,7 @@ def test_tr_spmv_staged_map(case, call, cuda_device):
         y = torch.randn(fmt.n, device=cuda_device, generator=g)
         args = (0.5, 0.25, y) if call == "alpha_beta_y" else ()
     assert stage_plan(fmt).shape[0] >= 2
-    before = dict(vt.tr_spmv.launches_by_map)
+    before = trace.launches_by_map()
     if call == "out":
         got = vt.tr_spmv(fmt, x, *args, out=torch.full_like(y, 7.0))
         again = vt.tr_spmv(fmt, x, *args, out=torch.full_like(y, 7.0))
@@ -370,7 +371,7 @@ def test_tr_spmv_staged_map(case, call, cuda_device):
         got, again = vt.tr_spmv(fmt, x, *args), vt.tr_spmv(fmt, x, *args)
         want = vt.tr_spmv_plain(fmt, x, *args)
     torch.cuda.synchronize()
-    assert vt.tr_spmv.launches_by_map == {**before, "staged": before["staged"] + 2}
+    assert trace.launches_by_map() == {**before, "staged": before["staged"] + 2}
     assert torch.isfinite(got).all() and rel_err(got, want) <= TOL
     assert torch.equal(got, again)
     if call == "out":
@@ -412,10 +413,8 @@ def test_tr_spmv_staged_f32_bits_kept(case, cuda_device):
 
 
 def test_tr_spmv_launches_by_map(cuda_device):
-    """``launches_by_map`` (and ``trace.launches_by_map``) counts an 8-wide
-    pack's launch as ``quad`` and a narrow one's as ``staged``."""
-    from vbcs_tpu_torch.utils import trace
-
+    """``trace.launches_by_map`` counts an 8-wide pack's launch as
+    ``quad`` and a narrow one's as ``staged``."""
     narrow = vt.VBC1DDevice.from_host(mixed_widths_pack(), cuda_device)
     wide = vt.VBC1DDevice.from_host(vt.vbc1d(blocky_matrix(L=2048), 8), cuda_device)
     assert wide.quad_widths and not narrow.quad_widths
@@ -429,8 +428,6 @@ def test_operator_auto_keeps_random_row_blocky_on_the_quad_map(cuda_device):
     """Auto-RCM leaves the random-row blocky matrix unrelabeled (RCM would
     cut its 8-wide stripes and grow its pack): the operator's
     ``tr_mul(x, 1, 0.5, y)`` is one launch of the float4 map."""
-    from vbcs_tpu_torch.utils import trace
-
     A = blocky.generate(2, L=3000)
     op = vt.VBCOperator.from_csc(A, W=8, directions="transposed", device=cuda_device)
     assert op.row_perm is None and op.dev_tr.quad_widths
@@ -995,7 +992,8 @@ def test_operator_chain_on_card(k, cuda_device):
     assert rel_err(got, oracle_chain(A, x, 5, 0.125)) <= TOL
     if op.row_perm is not None:
         composed = vt.gather(vt.tr_spmv_chain(op.dev_tr, vt.gather(x, op.perm_t),
-                                              5, 0.125), op.inv_t)
+                                              5, 0.125),
+                             torch.argsort(op.perm_t).int())
         assert torch.equal(got, composed)
     assert torch.equal(op.tr_mul_chain(x, 0), x)
     with pytest.raises(ValueError, match="square"):
@@ -1222,7 +1220,7 @@ def test_tr_spmv_chain_mapped_is_composed(residency, n_iters, cuda_device):
     rc, inner = launch_chain(fmt, vt.gather(x, perm), n_iters, 0.5, blocks, budget)
     assert rc == 0
     torch.cuda.synchronize()
-    assert torch.equal(got, vt.gather(inner, op.inv_t))
+    assert torch.equal(got, vt.gather(inner, torch.argsort(op.perm_t).int()))
     assert rel_err(got, oracle_chain(A, x, n_iters, 0.5)) <= TOL
 
 
@@ -1241,7 +1239,8 @@ def test_tr_spmv_chain_mapped_split_across_launches(cuda_device, monkeypatch):
         assert vt.tr_spmv_chain.launches == before + launches
         assert vt.gather.launches == gathers
         want = vt.gather(vt.tr_spmv_chain(op.dev_tr, vt.gather(x, op.perm_t),
-                                          n_iters, 0.5), op.inv_t)
+                                          n_iters, 0.5),
+                         torch.argsort(op.perm_t).int())
         assert torch.equal(got, want)
 
 

@@ -105,7 +105,7 @@ def spy():
 def composed(opt, fn, x, alpha=None, beta=None, y=None):
     """The path the natural views replace: gather x into relabeled space,
     the plain kernel on the relabeled pack, gather y out, ``beta * y``."""
-    perm, inv = opt.perm_t, opt.inv_t
+    perm, inv = opt.perm_t, torch.argsort(opt.perm_t).int()
     fmt = opt.dev_tr if fn in ("tr_mul", "tr_mul_mat") else opt.dev_fw
     if fn.endswith("_mat"):
         return vt.tr_spmm_plain(fmt, x.index_select(0, perm)).index_select(0, inv)
@@ -178,7 +178,8 @@ def test_tr_mul_chain_still_gathers_twice(case):
         got = opt.tr_mul_chain(torch.from_numpy(x), 3, 0.25).numpy()
     assert calls == {"gather": 0, "index_select": 0}, calls
     composed_y = vt.gather(vt.tr_spmv_chain_plain(
-        opt.dev_tr, vt.gather(torch.from_numpy(x), opt.perm_t), 3, 0.25), opt.inv_t)
+        opt.dev_tr, vt.gather(torch.from_numpy(x), opt.perm_t), 3, 0.25),
+        torch.argsort(opt.perm_t).int())
     np.testing.assert_array_equal(got, composed_y.numpy())
     want = x.astype(np.float64)
     for _ in range(3):

@@ -1,4 +1,9 @@
-"""The two route guards of the port's operators.
+"""The route table and the two route guards of the port's operators.
+
+* The route table, ``operator._KERNEL_DTYPES``: which calls of which
+  operator run a kernel for which matrix dtype (an x of the matrix's
+  dtype), every other call the semiring route; pinned here call kind by
+  call kind, so that a new kernel dtype edits the table and this test.
 
 * The 1-D scatter guard, ``ops.scatter.scatter_admits``: the scatter
   kernel for packs of mean stripe width below ``MAX_MEAN_WIDTH`` (2.0,
@@ -27,6 +32,7 @@ from vbcs_tpu.ops import pallas_scatter as ps
 from vbcs_tpu_torch import operator as op_mod
 from vbcs_tpu_torch.models import autotune as at
 from vbcs_tpu_torch.ops import scatter as pst
+from vbcs_tpu_torch.utils import trace
 
 TOL = 2e-5
 
@@ -164,3 +170,106 @@ def test_autotuner_times_the_guarded_route(monkeypatch):
     assert at._measure_shipped_2d(B2, "cpu") == (1e-6, "view")
     B = vt.vbc1d(banded(300, 300, 4, 30, 2), 8, vt.EquiChunker(1))
     assert at._measure_shipped(B, "cpu") == (1e-6, "scatter")
+
+
+# The kernels' dtypes by operator and call kind: a call runs its kernel
+# when x has the matrix's dtype and that dtype is listed here
+KERNEL_DTYPES = {
+    ("1d", "vec"): {"float32", "float64"},
+    ("1d", "mat"): {"float32"},
+    ("1d", "chain"): {"float32"},
+    ("2d", "vec"): {"float32"},
+    ("2d", "mat"): {"float32"},
+}
+# each call: its operator, kind, direction and how it is made
+CALLS = {
+    "1d.tr_mul": ("1d", "vec", lambda op, x, X: op.tr_mul(x, 2.0, 0.5, x)),
+    "1d.mul": ("1d", "vec", lambda op, x, X: op.mul(x)),
+    "1d.tr_mul_mat": ("1d", "mat", lambda op, x, X: op.tr_mul_mat(X)),
+    "1d.mul_mat": ("1d", "mat", lambda op, x, X: op.mul_mat(X)),
+    "1d.tr_mul_chain": ("1d", "chain", lambda op, x, X: op.tr_mul_chain(x, 2)),
+    "2d.tr_mul": ("2d", "vec", lambda op, x, X: op.tr_mul(x, 2.0, 0.5, x)),
+    "2d.mul": ("2d", "vec", lambda op, x, X: op.mul(x)),
+    "2d.tr_mul_mat": ("2d", "mat", lambda op, x, X: op.tr_mul_mat(X)),
+    "2d.mul_mat": ("2d", "mat", lambda op, x, X: op.mul_mat(X)),
+}
+
+
+def test_the_route_table_is_pinned():
+    assert {k: {str(d).removeprefix("torch.") for d in v}
+            for k, v in op_mod._KERNEL_DTYPES.items()} == KERNEL_DTYPES
+
+
+def spy_kernels(monkeypatch):
+    """Records the kernel each operator call runs: the route's name for
+    ``tr_mul``/``mul``, ``"spmm"`` and ``"chain"`` for the others."""
+    ran = []
+
+    def routed(real):
+        def route(*a, **k):
+            name, fmt, call = real(*a, **k)
+            return name, fmt, lambda *b, **kw: ran.append(name) or call(*b, **kw)
+        return route
+
+    for name in ("route_tr_spmv", "route_tr_spmv_2d"):
+        monkeypatch.setattr(op_mod, name, routed(getattr(op_mod, name)))
+    for name, kernel in (("tr_spmm", "spmm"), ("tr_spmv_chain", "chain")):
+        real = getattr(op_mod, name)
+        monkeypatch.setattr(op_mod, name, lambda *a, real=real, kernel=kernel:
+                            ran.append(kernel) or real(*a))
+    return ran
+
+
+@pytest.mark.parametrize("xdtype", ["float32", "float64"])
+@pytest.mark.parametrize("mdtype", ["float32", "float64", "int32"])
+@pytest.mark.parametrize("call", sorted(CALLS))
+def test_each_call_takes_the_route_the_table_names(call, mdtype, xdtype, monkeypatch):
+    """Every call kind of both operators, for an f32, f64 and int32 matrix
+    and an f32 and f64 x: the kernel (by name) where the table lists the
+    matrix's dtype and x has it, else one semiring call in x's dtype
+    (``trace.semiring_calls``) and no kernel."""
+    shape, kind, run = CALLS[call]
+    A = sp.csc_matrix(banded(200, 200, 4, 20, 11).toarray().round()).astype(mdtype)
+    ran = spy_kernels(monkeypatch)
+    op = (vt.VBCOperator.from_csc(A, W=8, device="cpu") if shape == "1d"
+          else vt.VBC2DOperator.from_csc(A, 4, 8, device="cpu"))
+    g = torch.Generator().manual_seed(2)
+    dt = getattr(torch, xdtype)
+    x, X = torch.randn(200, generator=g).to(dt), torch.randn(200, 3, generator=g).to(dt)
+    before = trace.semiring_calls()
+    out = run(op, x, X)
+    after = trace.semiring_calls()
+    moved = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+    assert out.dtype == dt
+    if mdtype == xdtype and mdtype in KERNEL_DTYPES[shape, kind]:
+        if kind == "vec":
+            host = op.host_tr if call.endswith("tr_mul") else op.host_fw
+            if shape == "2d":
+                want = "tile2d" if vt.tile2d_worthwhile(host) else "view"
+            else:  # the scatter kernel is f32's alone
+                want = ("scatter" if mdtype == "float32" and pst.scatter_admits(host)
+                        else "stripe")
+        else:
+            want = {"mat": "spmm", "chain": "chain"}[kind]
+        assert (ran, moved) == ([want], {})
+    else:
+        assert (ran, moved) == ([], {xdtype: 1})
+
+
+@pytest.mark.parametrize("dtype, asked, route", [(np.float32, 1, "scatter"),
+                                                 (np.float64, 0, "stripe")])
+def test_a_route_build_asks_the_scatter_guard_once(dtype, asked, route, monkeypatch):
+    """``route_tr_spmv`` alone asks the scatter guard, once a route build
+    of an f32 pack (this band's narrow stripes: the scatter kernel) and
+    never for an f64 one (the stripe kernel's alone)."""
+    calls = []
+    guard = pst.scatter_admits
+    monkeypatch.setattr(pst, "scatter_admits", lambda B: calls.append(B) or guard(B))
+    op = vt.VBCOperator.from_csc(banded(300, 300, 4, 30, 2).astype(dtype), W=8,
+                                 device="cpu")
+    x = torch.ones(300, dtype=getattr(torch, np.dtype(dtype).name))
+    op.tr_mul(x)
+    op.mul(x)
+    op.tr_mul(x)
+    assert op.route_tr[0] == op.route_fw[0] == route
+    assert len(calls) == 2 * asked

@@ -303,6 +303,35 @@ def test_semiring_counter_counts_with_the_tracer_off_or_on(band64):
     assert trace.snapshot()["counters"] == {}  # not the tracer's counters
 
 
+def test_always_on_counters_count_through_tally(band, monkeypatch):
+    """``trace.tally`` adds one to a key of one of the three always-on
+    counters, with the tracer off or on, outside the tracer's counters;
+    the readers return copies under their keys; the operator counts its
+    auto-RCM decisions and semiring calls through it."""
+    assert set(trace.launches_by_map()) == {"quad", "staged", "staged_f64"}
+    assert set(trace.reorder_choices()) == {"natural", "rcm"}
+    for on in (False, True):
+        if on:
+            trace.enable()
+        maps, semi, rcm = (trace.launches_by_map(), trace.semiring_calls(),
+                           trace.reorder_choices())
+        trace.tally("launches_by_map", "staged_f64")
+        trace.tally("semiring_calls", "int32")
+        trace.tally("reorder_choices", "natural")
+        assert trace.launches_by_map() == {**maps, "staged_f64": maps["staged_f64"] + 1}
+        assert trace.semiring_calls() == {**semi, "int32": semi.get("int32", 0) + 1}
+        assert trace.reorder_choices() == {**rcm, "natural": rcm["natural"] + 1}
+        trace.launches_by_map()["quad"] = -1  # a copy
+        assert trace.launches_by_map()["quad"] != -1
+        trace.disable()
+    assert trace.snapshot()["counters"] == {}
+    seen = []
+    monkeypatch.setattr(trace, "tally", lambda counter, key: seen.append((counter, key)))
+    op = operator(band)
+    op.mul(torch.randn(op.n, dtype=torch.float64))  # f32 matrix, f64 x: semiring
+    assert seen == [("reorder_choices", "rcm"), ("semiring_calls", "float64")]
+
+
 def test_off_cost_of_a_span_is_unchanged(band64, monkeypatch):
     """Off, the new span is the one shared no-op like every other, and a
     semiring call calls no clock and no profiler function."""

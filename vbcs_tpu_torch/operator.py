@@ -38,16 +38,20 @@ operator does.
 
 Every kernel writes natural order, so nothing follows it.
 
-The kernels run an f32 matrix with an f32 ``x`` (the JAX operators'
-``_pallas_ok``), and the 1-D operator's ``tr_mul``/``mul`` also an f64
-matrix with an f64 ``x``: the stripe kernel's f64 staged map
-(``ops/trspmv.py``) on the f64 copy of the pack, alpha/beta/y fused in
-f64, through the same route and natural view — a departure from
+Which calls run a kernel is one table, ``_KERNEL_DTYPES``: by operator
+and kind of call, the matrix dtypes a kernel takes.  A call runs its
+kernel when x is a tensor of the matrix's dtype and that dtype is in the
+table for the call; the kernels' formats are copied to the device for
+the dtypes the table lists for the operator.  f32 runs every call (the
+JAX operators' ``_pallas_ok``); f64 runs the 1-D operator's
+``tr_mul``/``mul``, the stripe kernel's f64 staged map (``ops/trspmv.py``)
+on the f64 copy of the pack, alpha/beta/y fused in f64 — a departure from
 ``_pallas_ok``, which sends every f64 call to XLA; the results agree
-within f64 rounding.  An f64 pack takes the stripe kernel whatever the
-scatter guard says, since the scatter kernel is f32's alone (the f64
-DP cuts HPCG's stencil into stripes 1.98 wide, under the guard's 2.0,
-where the f32 DP leaves 2.02).  Every other call runs
+within f64 rounding.  :func:`route_tr_spmv` alone picks the kernel of a
+1-D pack, from its dtype and the scatter guard: an f64 pack takes the
+stripe kernel whatever the guard says, since the scatter kernel is f32's
+alone (the f64 DP cuts HPCG's stencil into stripes 1.98 wide, under the
+guard's 2.0, where the f32 DP leaves 2.02).  Every other call runs
 ``ops/semiring.py`` in x's dtype on the pack's flat
 :class:`SemiringDevice` (natural coordinates on an auto-RCM operator),
 with alpha/beta/y applied after it as the JAX operators' ``_axpby``
@@ -72,9 +76,9 @@ from .formats.device import SemiringDevice, VBC1DDevice, VBC2DDevice
 from .formats.vbc1d import VBC1D, pack_1dvbc
 from .ops import semiring
 from .ops.chain import tr_spmv_chain
-from .ops.scatter import pack_scatter, scatter_admits, tr_spmv_scatter
+from .ops.scatter import pack_scatter, tr_spmv_scatter
 from .ops.spmm import tr_spmm
-from .ops.trspmv import _check_vec, tr_spmv
+from .ops.trspmv import check_tensor, tr_spmv
 from .ops.trspmv2d import tr_spmv_2d
 from .plan.alternating import pack_stripe
 from .plan.reorder import rcm_symmetric
@@ -92,26 +96,42 @@ TILE2D_MIN_HEIGHT = 2.0
 _VEC_SPANS = {"tr": "op.tr_mul", "fw": "op.mul"}
 _MAT_SPANS = {"tr": "op.tr_mul_mat", "fw": "op.mul_mat"}
 
+# The one route table: by operator ("1d", "2d") and kind of call ("vec":
+# tr_mul/mul, "mat": tr_mul_mat/mul_mat, "chain": tr_mul_chain), the
+# matrix dtypes whose calls run a kernel.  A call runs it when x is a
+# tensor of the matrix's dtype and that dtype is listed; every other call
+# takes the semiring route.  An operator copies the kernels' formats of a
+# matrix whose dtype one of its calls runs.
+_KERNEL_DTYPES = {
+    ("1d", "vec"): (torch.float32, torch.float64),
+    ("1d", "mat"): (torch.float32,),
+    ("1d", "chain"): (torch.float32,),
+    ("2d", "vec"): (torch.float32,),
+    ("2d", "mat"): (torch.float32,),
+}
+
 
 def route_tr_spmv(B, device, stripe: VBC1DDevice | None = None,
                   perm: torch.Tensor | None = None):
     """The per-call TrSpMV kernel :meth:`VBCOperator.tr_mul` runs for a
     packed f32 or f64 format ``B`` — ``(name, fmt, call)`` with
     ``call(fmt, x, alpha, beta, y) -> y`` — for harnesses that must time
-    the shipped path, and the one place the operator's route is decided.
+    the shipped path, and the only place that picks the scatter or the
+    stripe kernel.
 
-    ``"scatter"`` (the entry-tiled kernel on ``B``'s CSC) when the
-    scatter guard admits an f32 ``B`` (``ops.scatter.scatter_admits``:
-    mean stripe width at most ``MAX_MEAN_WIDTH``), else ``"stripe"``; an
-    f64 ``B`` always ``"stripe"`` (its f64 staged map), since the scatter
+    It reads ``B``'s dtype once and asks the scatter guard once
+    (``ops.scatter.pack_scatter``: mean stripe width below
+    ``MAX_MEAN_WIDTH``): ``"scatter"`` (the entry-tiled kernel on ``B``'s
+    CSC) for an f32 ``B`` the guard admits, else ``"stripe"``; an f64
+    ``B`` always ``"stripe"`` (its f64 staged map), since the scatter
     kernel is f32's alone.  The JAX package tries its one-shot first and
     reaches the scatter tier only when that pack refuses; the port's
     stripe kernel refuses nothing, so the guard alone decides.  ``stripe``
-    is ``B`` already on ``device`` (in ``B``'s dtype),
-    reused instead of a second copy.  ``perm`` (int32 on ``device``) says
-    that ``B`` packs ``A[perm][:, perm]``: the route's format is then the
-    natural view of its pack (``natural_view``), whose call reads natural
-    x and writes natural y."""
+    is ``B`` already on ``device`` (in ``B``'s dtype), reused instead of a
+    second copy, as it is when it is already a natural view.  ``perm``
+    (int32 on ``device``) says that ``B`` packs ``A[perm][:, perm]``: the
+    route's format is then the natural view of its pack
+    (``natural_view``), whose call reads natural x and writes natural y."""
     f64 = np.asarray(B.val).dtype == np.float64
     fmt = None if f64 else pack_scatter(B, device)
     if fmt is not None:
@@ -180,13 +200,20 @@ def _axpby(out, alpha, beta, y):
     return out
 
 
-def _is_f32(host) -> bool:
-    return np.asarray(host.val).dtype == np.float32
+def _dtype_of(host) -> torch.dtype:
+    """A host pack's value dtype, as torch's."""
+    return torch.from_numpy(np.empty(0, np.asarray(host.val).dtype)).dtype
 
 
-# the stripe kernel's value types, by a host pack's dtype
-_STRIPE_DTYPES = {np.dtype(np.float32): torch.float32,
-                  np.dtype(np.float64): torch.float64}
+def _kernel_dtype(kind: str, host) -> torch.dtype | None:
+    """The dtype the kernels' format of ``host`` is copied in for an
+    operator of ``kind``: the matrix's own, where one of the operator's
+    calls runs it on a kernel (``_KERNEL_DTYPES``); else None."""
+    if host is None:
+        return None
+    dtype = _dtype_of(host)
+    runs = any(dtype in dtypes for (k, _), dtypes in _KERNEL_DTYPES.items() if k == kind)
+    return dtype if runs else None
 
 
 def _as_csc(A) -> CSC:
@@ -209,7 +236,10 @@ def _shape_of(host_tr, host_fw) -> tuple[int, int]:
 class _Directions:
     """What both operators share: a pack of each direction on the host,
     the kernels' formats of those packs (None for a matrix no kernel
-    runs) and, built on first use, their flat semiring formats."""
+    runs), the route table's answer for each call and, built on first
+    use, their flat semiring formats."""
+
+    _kind = ""  # the operator's key in _KERNEL_DTYPES
 
     def _host(self, which: str):
         host = self.host_tr if which == "tr" else self.host_fw
@@ -229,13 +259,17 @@ class _Directions:
                             f"{np.asarray(host.val).dtype} matrix")
         return fmt
 
-    def _kernels_take(self, x) -> bool:
-        """The JAX operators' ``_pallas_ok``: the kernels take an f32
-        matrix with an f32 ``x``; every other pair runs the semiring
-        route in x's dtype."""
-        host = self.host_tr if self.host_tr is not None else self.host_fw
-        return (_is_f32(host) and isinstance(x, torch.Tensor)
-                and x.dtype == torch.float32)
+    @functools.cached_property
+    def _dtype(self) -> torch.dtype:
+        """The matrix's dtype (its packs' values)."""
+        return _dtype_of(self.host_tr if self.host_tr is not None else self.host_fw)
+
+    def _kernel_takes(self, call: str, x) -> bool:
+        """Whether a call of kind ``call`` runs its kernel on ``x``: x a
+        tensor of the matrix's dtype, that dtype in ``_KERNEL_DTYPES`` for
+        the call; else the call takes the semiring route in x's dtype."""
+        return (isinstance(x, torch.Tensor) and x.dtype == self._dtype
+                and x.dtype in _KERNEL_DTYPES[self._kind, call])
 
     @functools.cached_property
     def semi_tr(self) -> SemiringDevice:
@@ -250,24 +284,19 @@ class _Directions:
         return SemiringDevice.from_host(self._host("fw"), device=self.device,
                                         perm=getattr(self, "perm_t", None))
 
-    def _vector_kernel_takes(self, which: str, x) -> bool:
-        """Whether ``tr_mul``/``mul`` of one direction runs its routed
-        kernel: :meth:`_kernels_take` here; the 1-D operator adds f64."""
-        return self._kernels_take(x)
-
     def _semiring(self, fn, which: str, x):
         """``fn`` (an ``ops/semiring.py`` product) on one direction's
         flat format, in an ``op.semiring`` span, counted by x's dtype."""
         with trace.span("op.semiring"):
             out = fn(getattr(self, f"semi_{which}"), x)
-        semiring.count_call(x.dtype)
+        trace.tally("semiring_calls", str(x.dtype).removeprefix("torch."))
         return out
 
     def _apply(self, which, x, alpha, beta, y):
         """``tr_mul``/``mul`` of one direction: the routed kernel with
         alpha/beta fused, or the semiring route and ``_axpby``."""
         with trace.span(_VEC_SPANS[which]):
-            if not self._vector_kernel_takes(which, x):
+            if not self._kernel_takes("vec", x):
                 return _axpby(self._semiring(semiring.tr_spmv, which, x), alpha, beta, y)
             _, fmt, call = getattr(self, f"route_{which}")
             return call(fmt, x, alpha, beta, y)
@@ -276,6 +305,8 @@ class _Directions:
 @dataclasses.dataclass(frozen=True)
 class VBCOperator(_Directions):
     """Sparse matrix operator in 1D-VBC form on one torch device."""
+
+    _kind = "1d"
 
     m: int
     n: int
@@ -286,8 +317,6 @@ class VBCOperator(_Directions):
     dev_fw: VBC1DDevice | None
     row_perm: np.ndarray | None = None  # symmetric relabeling (auto-RCM)
     perm_t: torch.Tensor | None = None  # int32 perm on device
-    inv_t: torch.Tensor | None = None  # int32 inverse perm on device (read by
-    # no call: the composed gather path's, which the checks compare against)
 
     # ---- construction ----------------------------------------------------
 
@@ -358,7 +387,7 @@ class VBCOperator(_Directions):
                 take = stored(held_p) < stored(held)
                 if take:
                     held, row_perm = held_p, perm
-                trace.count_reorder("rcm" if take else "natural")
+                trace.tally("reorder_choices", "rcm" if take else "natural")
             return VBCOperator.from_host(*held, row_perm, device)
 
     @staticmethod
@@ -366,31 +395,30 @@ class VBCOperator(_Directions):
         """Operator over existing packs (this port's or the JAX package's
         ``VBC1D``): ``host_tr`` packs A, ``host_fw`` packs A.T, either may
         be None; ``row_perm`` is the symmetric relabeling the packs were
-        built under, or None.  The kernels' formats are copied for an f32
-        or f64 matrix only, in its own dtype."""
+        built under, or None, carried on the device as the int32
+        ``perm_t`` (its inverse is ``torch.argsort(perm_t)``).  The
+        kernels' formats are copied, in the matrix's own dtype, for a
+        dtype that ``_KERNEL_DTYPES`` lists for one of the operator's
+        calls (f32, f64)."""
         with trace.span("plan.upload"):
             device = torch.device(device)
             m, n = _shape_of(host_tr, host_fw)
-            perm_t = inv_t = None
+            perm_t = None
             if row_perm is not None:
                 row_perm = np.asarray(row_perm, dtype=np.int64)
                 if m != n or not np.array_equal(np.sort(row_perm), np.arange(m)):
                     raise ValueError("row_perm must be a permutation of range(m) "
                                      "of a square operator")
-                inv = np.empty_like(row_perm)
-                inv[row_perm] = np.arange(m)
                 perm_t = torch.from_numpy(row_perm.astype(np.int32)).to(device)
-                inv_t = torch.from_numpy(inv.astype(np.int32)).to(device)
 
             def copy(host):
-                dtype = None if host is None else _STRIPE_DTYPES.get(
-                    np.asarray(host.val).dtype)
+                dtype = _kernel_dtype("1d", host)
                 return None if dtype is None else VBC1DDevice.from_host(host, device, dtype)
 
             return VBCOperator(
                 m=m, n=n, host_tr=host_tr, host_fw=host_fw, device=device,
                 dev_tr=copy(host_tr), dev_fw=copy(host_fw),
-                row_perm=row_perm, perm_t=perm_t, inv_t=inv_t,
+                row_perm=row_perm, perm_t=perm_t,
             )
 
     @property
@@ -422,43 +450,28 @@ class VBCOperator(_Directions):
             fmt = self._packed("fw")
             return fmt if self.perm_t is None else fmt.natural_view(self.perm_t)
 
-    def _vector_kernel_takes(self, which: str, x) -> bool:
-        """The kernels' f32 pair, or an f64 matrix with an f64 ``x``
-        (the stripe kernel's f64 staged map)."""
-        if self._kernels_take(x):
-            return True
-        return (isinstance(x, torch.Tensor) and x.dtype == torch.float64
-                and np.asarray(self._host(which).val).dtype == np.float64)
-
-    def _route(self, which: str):
-        host = self._host(which)
-        # (raises for a matrix no kernel runs)
-        f32 = self._packed(which).val.dtype == torch.float32
-        # the stripe format's natural view only where the stripe kernel runs
-        stripe = None if f32 and scatter_admits(host) else getattr(self, f"nat_{which}")
-        with trace.span("op.route"):
-            return route_tr_spmv(host, self.device, stripe, self.perm_t)
-
     @functools.cached_property
     def route_tr(self):
         """``route_tr_spmv`` of the A pack, ``(name, fmt, call)``, its
-        format in natural order; the scatter pack is built on first use.
-        An f64 pack routes to the stripe kernel (its f64 staged map)
-        whatever the scatter guard says: the scatter kernel is f32's
-        alone."""
-        return self._route("tr")
+        format in natural order (built on first use): the route takes
+        :attr:`nat_tr` as its stripe format."""
+        stripe = self.nat_tr
+        with trace.span("op.route"):
+            return route_tr_spmv(self.host_tr, self.device, stripe, self.perm_t)
 
     @functools.cached_property
     def route_fw(self):
         """``route_tr_spmv`` of the A.T pack (for ``mul``; lazy)."""
-        return self._route("fw")
+        stripe = self.nat_fw
+        with trace.span("op.route"):
+            return route_tr_spmv(self.host_fw, self.device, stripe, self.perm_t)
 
     def tr_mul(self, x, alpha=None, beta=None, y=None):
         """y = alpha * (A.T @ x) + beta * y on the operator's device
         (reference ``mul!(y, A', x, alpha, beta)``, with ``alpha``
         applied), through the kernel :func:`route_tr_spmv` picks for an
-        f32 matrix and x, or an f64 matrix and x; else the semiring
-        route."""
+        f32 or f64 matrix and an x of its dtype (``_KERNEL_DTYPES``); else
+        the semiring route."""
         return self._apply("tr", x, alpha, beta, y)
 
     def mul(self, x, alpha=None, beta=None, y=None):
@@ -486,10 +499,10 @@ class VBCOperator(_Directions):
                                  f"{self.m}x{self.n}")
             if n_iters < 0:
                 raise ValueError(f"n_iters must be >= 0, got {n_iters}")
-            if not self._kernels_take(x):
+            if not self._kernel_takes("chain", x):
                 return self._semiring_chain(x, n_iters, alpha)
             fmt = self._packed("tr")
-            _check_vec("x", x, self.m, self.device)
+            check_tensor("x", x, (self.m,), self.device)
             if n_iters == 0:
                 return x.clone()
             return tr_spmv_chain(fmt, x, n_iters, alpha, self.perm_t)
@@ -516,7 +529,7 @@ class VBCOperator(_Directions):
 
     def _apply_mat(self, which, X):
         with trace.span(_MAT_SPANS[which]):
-            if not self._kernels_take(X):
+            if not self._kernel_takes("mat", X):
                 return self._semiring(semiring.tr_spmm, which, X)
             return tr_spmm(getattr(self, f"nat_{which}"), X)
 
@@ -554,6 +567,8 @@ class VBC2DOperator(_Directions):
     ``mul_mat`` run the SpMM kernel on the 1-D view of the same packs,
     built on the device on first use and sharing the 2-D format's
     values.  A non-f32 matrix or x takes the semiring route."""
+
+    _kind = "2d"
 
     m: int
     n: int
@@ -610,8 +625,8 @@ class VBC2DOperator(_Directions):
             m, n = _shape_of(host_tr, host_fw)
 
             def copy(host):
-                return (VBC2DDevice.from_host(host, device)
-                        if host is not None and _is_f32(host) else None)
+                return (None if _kernel_dtype("2d", host) is None
+                        else VBC2DDevice.from_host(host, device))
 
             return VBC2DOperator(m=m, n=n, host_tr=host_tr, host_fw=host_fw,
                                  device=device, dev_tr=copy(host_tr),
@@ -664,7 +679,7 @@ class VBC2DOperator(_Directions):
 
     def _apply_mat(self, which, X):
         with trace.span(_MAT_SPANS[which]):
-            if not self._kernels_take(X):
+            if not self._kernel_takes("mat", X):
                 return self._semiring(semiring.tr_spmm, which, X)
             return tr_spmm(getattr(self, f"view_{which}"), X)
 

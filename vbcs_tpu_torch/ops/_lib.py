@@ -5,7 +5,9 @@
 objects into one shared library with a plain C interface, in ``build/``
 at the repository root, on first use; ctypes loads it.  Each launcher
 takes device pointers and a CUDA stream as ``c_void_p`` and returns
-``cudaGetLastError()``.  Nothing here runs at import time.
+``cudaGetLastError()``.  Every kernel wrapper of ``ops/`` and
+``probes/`` launches through :func:`launch`.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -19,9 +21,11 @@ import tempfile
 import threading
 import time
 
+import torch
+
 from ..utils import trace
 
-__all__ = ["build", "load", "check"]
+__all__ = ["build", "load", "check", "launch", "ptr"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -93,8 +97,11 @@ def build() -> tuple[float, str]:
 
 
 def load():
-    """The kernel library, built on first use (raises if it cannot be)."""
+    """The kernel library, built on first use (raises if it cannot be);
+    the lock is taken only until it has loaded."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             with trace.span("lib.load"):
@@ -163,3 +170,28 @@ def check(lib, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.vbcs_error_string(rc).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+def ptr(t) -> int | None:
+    """A tensor's device pointer as a launcher takes it: None (a null
+    pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def launch(kernel, entry: str, device, *args, name: str | None = None) -> None:
+    """Call the library's ``entry`` on the CUDA ``device``, inside its
+    context: with ``args`` (ints, floats and device pointers, :func:`ptr`)
+    followed by the device's current stream.  Raises ``RuntimeError``
+    naming the launch (``name``, else ``kernel.__name__``) when the entry
+    reports a CUDA error, else counts it in ``kernel.launches``.
+    ``kernel`` None is a host query of the device (an occupancy grid),
+    which takes no stream and is not counted."""
+    lib = _lib if _lib is not None else load()
+    with torch.cuda.device(device):
+        if kernel is None:
+            rc = getattr(lib, entry)(*args)
+        else:
+            rc = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, rc, name or kernel.__name__)
+    if kernel is not None:
+        kernel.launches += 1

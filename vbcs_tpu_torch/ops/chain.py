@@ -34,7 +34,7 @@ import torch
 from ..formats.device import VBC1DDevice
 from ..utils import trace
 from . import _lib
-from .trspmv import _check_vec, tr_spmv_plain
+from .trspmv import check_tensor, tr_spmv_plain
 
 __all__ = ["tr_spmv_chain", "tr_spmv_chain_plain", "chain_plan", "chain_grid",
            "ChainPlan", "launch_iters", "MAX_LAUNCH_ITERS"]
@@ -179,11 +179,9 @@ def chain_grid(device, budget: int = -1) -> tuple[int, int]:
     ``device``: every block the occupancy API fits at ``budget`` bytes of
     shared memory a block (``-1``: the largest a block may take).  Raises
     ``RuntimeError`` for a budget over the device's limit."""
-    lib = _lib.load()
     b, n = ctypes.c_int(budget), ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = lib.vbcs_chain_grid(ctypes.byref(b), ctypes.byref(n))
-    _lib.check(lib, rc, "tr_spmv_chain grid")
+    _lib.launch(None, "vbcs_chain_grid", device, ctypes.byref(b), ctypes.byref(n),
+                name="tr_spmv_chain grid")
     return n.value, b.value
 
 
@@ -235,7 +233,7 @@ def tr_spmv_chain(fmt: VBC1DDevice, x: torch.Tensor, n_iters: int,
     :func:`tr_spmv_chain_plain` over the same split."""
     n_iters = _check_chain(fmt, n_iters)
     dev = fmt.device
-    _check_vec("x", x, fmt.m, dev)
+    check_tensor("x", x, (fmt.m,), dev)
     _check_perm(perm, fmt)
     if dev.type == "cpu":
         if perm is not None:
@@ -248,7 +246,6 @@ def tr_spmv_chain(fmt: VBC1DDevice, x: torch.Tensor, n_iters: int,
     out = torch.empty(fmt.n, dtype=torch.float32, device=dev)
     if fmt.n == 0:
         return out
-    lib = _lib.load()
     if dev.index not in _grids:
         _grids[dev.index] = chain_grid(dev)
     blocks, budget = _grids[dev.index]
@@ -265,20 +262,15 @@ def tr_spmv_chain(fmt: VBC1DDevice, x: torch.Tensor, n_iters: int,
         x_map = perm if j == 0 else None
         y_map = perm if j == n_launches - 1 else None
         with trace.span("op.launch"):
-            with torch.cuda.device(dev):
-                rc = lib.vbcs_tr_spmv_chain(
-                    k, fmt.L, plan.buf.data_ptr(), fmt.spl.data_ptr(),
-                    fmt.pos.data_ptr(), fmt.idx.data_ptr(), fmt.ofs.data_ptr(),
-                    fmt.col_stripe.data_ptr(), fmt.val.data_ptr(), src.data_ptr(),
-                    1.0 if alpha is None else float(alpha),
-                    None if bufs is None else bufs[0].data_ptr(),
-                    None if bufs is None else bufs[1].data_ptr(), dst.data_ptr(),
-                    None if x_map is None else x_map.data_ptr(),
-                    None if y_map is None else y_map.data_ptr(),
-                    count.data_ptr(), 0, blocks, budget,
-                    torch.cuda.current_stream(dev).cuda_stream)
-            _lib.check(lib, rc, "tr_spmv_chain")
-        tr_spmv_chain.launches += 1
+            _lib.launch(tr_spmv_chain, "vbcs_tr_spmv_chain", dev, k, fmt.L,
+                        plan.buf.data_ptr(), fmt.spl.data_ptr(), fmt.pos.data_ptr(),
+                        fmt.idx.data_ptr(), fmt.ofs.data_ptr(), fmt.col_stripe.data_ptr(),
+                        fmt.val.data_ptr(), src.data_ptr(),
+                        1.0 if alpha is None else float(alpha),
+                        None if bufs is None else bufs[0].data_ptr(),
+                        None if bufs is None else bufs[1].data_ptr(), dst.data_ptr(),
+                        _lib.ptr(x_map), _lib.ptr(y_map), count.data_ptr(), 0, blocks,
+                        budget)
         src = dst
     return out
 

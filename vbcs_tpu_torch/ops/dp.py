@@ -206,21 +206,14 @@ def dp_table(pos: torch.Tensor, grp: torch.Tensor, prevcol: torch.Tensor,
     S = torch.empty((n, W), dtype=torch.float64, device=dev)
     if n == 0:
         return S
-    lib = _lib.load()
     # the counter windows go to device memory when shared memory cannot
     # hold them; the kernel's source decides
-    k = lib.vbcs_dp_table_scratch_doubles(n, W, R)
+    k = _lib.load().vbcs_dp_table_scratch_doubles(n, W, R)
     scratch = torch.empty(k, dtype=torch.float64, device=dev) if k else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vbcs_dp_table(
-            n, W, R, 0 if wts is None else wts.shape[1], pos.data_ptr(),
-            grp.data_ptr(), prevcol.data_ptr(),
-            None if wts is None else wts.data_ptr(), alpha.data_ptr(),
-            beta.data_ptr(), S.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), stream)
-    _lib.check(lib, rc, "dp_table")
-    dp_table.launches += 1
+    _lib.launch(dp_table, "vbcs_dp_table", dev, n, W, R,
+                0 if wts is None else wts.shape[1], pos.data_ptr(), grp.data_ptr(),
+                prevcol.data_ptr(), _lib.ptr(wts), alpha.data_ptr(), beta.data_ptr(),
+                S.data_ptr(), _lib.ptr(scratch))
     return S
 
 
@@ -290,13 +283,8 @@ def dp_recurrence_serial(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     prev = torch.zeros(n + 1, dtype=torch.int64, device=dev)
     if n == 0:
         return prev, opt
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vbcs_dp_recurrence(n, W, S.data_ptr(), opt.data_ptr(),
-                                    prev.data_ptr(), stream)
-    _lib.check(lib, rc, "dp_recurrence_serial")
-    dp_recurrence_serial.launches += 1
+    _lib.launch(dp_recurrence_serial, "vbcs_dp_recurrence", dev, n, W, S.data_ptr(),
+                opt.data_ptr(), prev.data_ptr())
     return prev, opt
 
 
@@ -388,15 +376,10 @@ def dp_recurrence_scan(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     prev = torch.zeros(n + 1, dtype=torch.int64, device=dev)
     if n == 0:
         return prev, opt
-    lib = _lib.load()
-    scratch = torch.empty(lib.vbcs_dp_scan_scratch_doubles(n, W),
+    scratch = torch.empty(_lib.load().vbcs_dp_scan_scratch_doubles(n, W),
                           dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vbcs_dp_scan(n, W, S.data_ptr(), opt.data_ptr(), prev.data_ptr(),
-                              scratch.data_ptr(), stream)
-    _lib.check(lib, rc, "dp_recurrence_scan")
-    dp_recurrence_scan.launches += 1
+    _lib.launch(dp_recurrence_scan, "vbcs_dp_scan", dev, n, W, S.data_ptr(),
+                opt.data_ptr(), prev.data_ptr(), scratch.data_ptr())
     return prev, opt
 
 
@@ -522,14 +505,9 @@ def dp_recurrence_checked(S: torch.Tensor, guess: torch.Tensor | None = None
     stats = torch.zeros(3, dtype=torch.int64, device=dev)
     if n == 0:
         return prev, opt, stats
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vbcs_dp_recurrence_checked(
-            n, W, CHECK_ROWS, check_budget(n), S.data_ptr(), guess.data_ptr(),
-            opt.data_ptr(), prev.data_ptr(), stats.data_ptr(), stream)
-    _lib.check(lib, rc, "dp_recurrence_checked")
-    dp_recurrence_checked.launches += 1
+    _lib.launch(dp_recurrence_checked, "vbcs_dp_recurrence_checked", dev, n, W,
+                CHECK_ROWS, check_budget(n), S.data_ptr(), guess.data_ptr(),
+                opt.data_ptr(), prev.data_ptr(), stats.data_ptr())
     return prev, opt, stats
 
 
@@ -556,12 +534,8 @@ def chain_floor(s: torch.Tensor, n: int) -> torch.Tensor:
     if s.device.type != "cuda":
         raise NotImplementedError(f"no DP kernel for device {s.device}")
     out = torch.empty(1, dtype=torch.float64, device=s.device)
-    lib = _lib.load()
-    with torch.cuda.device(s.device):
-        stream = torch.cuda.current_stream(s.device).cuda_stream
-        rc = lib.vbcs_dp_chain_floor(n, s.data_ptr(), out.data_ptr(), stream)
-    _lib.check(lib, rc, "chain_floor")
-    chain_floor.launches += 1
+    _lib.launch(chain_floor, "vbcs_dp_chain_floor", s.device, n, s.data_ptr(),
+                out.data_ptr())
     return out
 
 

@@ -65,14 +65,8 @@ def gather(src: torch.Tensor, perm: torch.Tensor,
     out = torch.empty(perm.numel(), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vbcs_gather(
-            out.numel(), src.data_ptr(), perm.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(), stream)
-    _lib.check(lib, rc, "gather")
-    gather.launches += 1
+    _lib.launch(gather, "vbcs_gather", dev, out.numel(), src.data_ptr(), perm.data_ptr(),
+                _lib.ptr(mask), out.data_ptr())
     return out
 
 
@@ -114,13 +108,8 @@ def gather_tiles(src: torch.Tensor, tiles: torch.Tensor) -> torch.Tensor:
     out = torch.empty(tiles.numel() * TILE, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vbcs_gather_tiles(tiles.numel(), src.data_ptr(),
-                                   tiles.data_ptr(), out.data_ptr(), stream)
-    _lib.check(lib, rc, "gather_tiles")
-    gather_tiles.launches += 1
+    _lib.launch(gather_tiles, "vbcs_gather_tiles", dev, tiles.numel(), src.data_ptr(),
+                tiles.data_ptr(), out.data_ptr())
     return out
 
 

@@ -55,12 +55,8 @@ def tile_relayout(x: torch.Tensor, R: int) -> torch.Tensor:
     if dev.type != "cuda":
         raise NotImplementedError(f"no relayout kernel for device {dev}")
     out = torch.empty(8, R * 128, dtype=torch.float32, device=dev)
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        rc = lib.vbcs_tile_relayout(x.numel(), R, x.data_ptr(), out.data_ptr(),
-                                    torch.cuda.current_stream(dev).cuda_stream)
-    _lib.check(lib, rc, "tile_relayout")
-    tile_relayout.launches += 1
+    _lib.launch(tile_relayout, "vbcs_tile_relayout", dev, x.numel(), R, x.data_ptr(),
+                out.data_ptr())
     return out
 
 

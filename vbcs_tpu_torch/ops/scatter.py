@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..formats.device import ScatterDevice
+from . import _lib
 from .trspmv import _run_tr_spmv, tr_spmv_plain
 
 __all__ = ["MAX_MEAN_WIDTH", "column_entries", "pack_scatter", "scatter_admits",
@@ -93,10 +94,6 @@ def pack_scatter(B, device) -> ScatterDevice | None:
 tr_spmv_scatter_plain = tr_spmv_plain
 
 
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
-
-
 def tr_spmv_scatter(fmt: ScatterDevice, x: torch.Tensor, alpha=None,
                     beta=None, y=None) -> torch.Tensor:
     """``alpha * A.T @ x (+ beta * y)`` in natural order, shape ``[n]``.
@@ -106,15 +103,14 @@ def tr_spmv_scatter(fmt: ScatterDevice, x: torch.Tensor, alpha=None,
     format (``fmt.tiles.scratch``): calls on one format run in stream
     order, not on two streams at once."""
 
-    def launch(lib, *rest):
+    def launch(*tail):
         t = fmt.tiles
-        return lib.vbcs_tr_spmv_scatter(
-            t.n_tiles, t.empty.numel(), t.tiles.data_ptr(), t.lanes.data_ptr(),
-            fmt.row.data_ptr(), fmt.val.data_ptr(), _ptr(t.out), _ptr(t.empty),
-            t.scratch.data_ptr(), x.data_ptr(), *rest)
+        _lib.launch(tr_spmv_scatter, "vbcs_tr_spmv_scatter", fmt.device, t.n_tiles,
+                    t.empty.numel(), t.tiles.data_ptr(), t.lanes.data_ptr(),
+                    fmt.row.data_ptr(), fmt.val.data_ptr(), _lib.ptr(t.out),
+                    _lib.ptr(t.empty), t.scratch.data_ptr(), x.data_ptr(), *tail)
 
-    return _run_tr_spmv(tr_spmv_scatter, tr_spmv_plain, fmt, x, alpha, beta, y,
-                        launch)
+    return _run_tr_spmv(tr_spmv_scatter, tr_spmv_plain, fmt, x, alpha, beta, y, launch)
 
 
 tr_spmv_scatter.launches = 0

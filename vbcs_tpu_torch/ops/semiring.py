@@ -19,8 +19,8 @@ dtype than their format's values.
 In the port, the 1-D operator's f64 ``tr_mul``/``mul`` run the stripe
 kernel's f64 map instead; the operators send here the int32 and bool
 matrices, mixed dtypes, and in f64 the chain, the SpMM and every 2-D
-call (``operator.py``'s module docstring).  :func:`count_call` counts
-each operator call that comes here (``utils.trace.semiring_calls``).
+call (``operator.py``'s route table).  The operators count each call
+that comes here (``utils.trace.semiring_calls``).
 
 A bool x raises ``TypeError``, as JAX's ``segment_sum`` does ("add does
 not accept dtype bool").
@@ -32,19 +32,7 @@ import torch
 
 from ..formats.device import SemiringDevice
 
-__all__ = ["tr_spmv", "spmv", "tr_spmm", "spmm", "check_operand", "count_call",
-           "route_calls"]
-
-# operator calls that took this route since the process began, by the
-# dtype of their product (``"float64"``, ...): counted whether the tracer
-# is on or not, as the kernels' ``.launches`` are
-route_calls: dict = {}
-
-
-def count_call(dtype: torch.dtype) -> None:
-    """Count one operator call on this route, its product in ``dtype``."""
-    name = str(dtype).removeprefix("torch.")
-    route_calls[name] = route_calls.get(name, 0) + 1
+__all__ = ["tr_spmv", "spmv", "tr_spmm", "spmm", "check_operand"]
 
 
 def check_operand(name: str, t, rows: int, device, dim: int) -> None:

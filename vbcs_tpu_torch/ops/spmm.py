@@ -20,13 +20,9 @@ import torch
 from ..formats.device import SPMM_LONG_BLOCKS, VBC1DDevice
 from ..utils import trace
 from . import _lib
-from .trspmv import _check_tensor
+from .trspmv import check_tensor
 
 __all__ = ["tr_spmm", "tr_spmm_plain"]
-
-
-def _check_mat(name: str, t: torch.Tensor, rows: int, device) -> None:
-    _check_tensor(name, t, (rows, None), device)
 
 
 def tr_spmm_plain(fmt: VBC1DDevice, X: torch.Tensor) -> torch.Tensor:
@@ -48,7 +44,7 @@ def tr_spmm(fmt: VBC1DDevice, X: torch.Tensor) -> torch.Tensor:
     :func:`tr_spmm_plain`."""
     dev = fmt.device
     with trace.span("op.check"):
-        _check_mat("X", X, fmt.m, dev)
+        check_tensor("X", X, (fmt.m, None), dev)
     if dev.type == "cpu":
         return tr_spmm_plain(fmt, X)
     if dev.type != "cuda":
@@ -59,20 +55,13 @@ def tr_spmm(fmt: VBC1DDevice, X: torch.Tensor) -> torch.Tensor:
     if fmt.n == 0 or k == 0:
         return Y
     with trace.span("op.launch"):
-        lib = _lib.load()
         longs = fmt.long_stripes  # None: the lanes take every stripe
         n_long = 0 if longs is None else longs.numel()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.vbcs_tr_spmm(
-                fmt.L, k, fmt.width_class, int(fmt.quad_widths), fmt.idx.numel(),
-                SPMM_LONG_BLOCKS, n_long, longs.data_ptr() if n_long else None,
-                fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(),
-                fmt.ofs.data_ptr(),
-                None if fmt.col_out is None else fmt.col_out.data_ptr(),
-                fmt.val.data_ptr(), X.data_ptr(), Y.data_ptr(), stream)
-        _lib.check(lib, rc, "tr_spmm")
-    tr_spmm.launches += 1
+        _lib.launch(tr_spmm, "vbcs_tr_spmm", dev, fmt.L, k, fmt.width_class,
+                    int(fmt.quad_widths), fmt.idx.numel(), SPMM_LONG_BLOCKS, n_long,
+                    longs.data_ptr() if n_long else None, fmt.spl.data_ptr(),
+                    fmt.pos.data_ptr(), fmt.idx.data_ptr(), fmt.ofs.data_ptr(),
+                    _lib.ptr(fmt.col_out), fmt.val.data_ptr(), X.data_ptr(), Y.data_ptr())
     return Y
 
 

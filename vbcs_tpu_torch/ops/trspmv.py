@@ -16,16 +16,17 @@ local and remote stripes, ``parallel/stream.py``).
 
 The kernel has two thread maps, picked here from the format
 (:func:`thread_map`): the float4 map where every stripe width is a
-multiple of 4 (``quad_widths``) and the values start on 16 bytes; else
-the staged map, a thread block a run of stripes (:func:`stage_plan`).
-``tr_spmv.launches_by_map`` counts the launches of each
-(``utils.trace.launches_by_map``).
+multiple of 4 (``quad_widths``), the values are f32 and they start on 16
+bytes; else the staged map, a thread block a run of stripes
+(:func:`stage_plan`).
 
 A format holds f32 or f64 values (``VBC1DDevice.from_host``'s
 ``dtype``), and x, y and the output are in the same dtype.  f64 runs the
 staged map in double on every format (``csrc/trspmv.cu``'s
-``vbcs_tr_spmv_f64``: a stage holds half as many values and block rows),
-counted as ``staged_f64``; ``quad`` and ``staged`` count f32 launches.
+``vbcs_tr_spmv_f64``: a stage holds half as many values and block rows).
+Each launch is counted by its map in ``utils.trace``'s always-on counter
+``launches_by_map`` (:func:`utils.trace.launches_by_map`): ``quad`` and
+``staged`` count f32 launches, ``staged_f64`` the f64 ones.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from ..utils import trace
 from . import _lib
 
 __all__ = ["tr_spmv", "tr_spmv_plain", "stage_plan", "stage_elements", "thread_map",
-           "STAGE_COLS", "STAGE_STRIPES", "STAGE_WORDS"]
+           "check_tensor", "STAGE_COLS", "STAGE_STRIPES", "STAGE_WORDS"]
 
 # the staged map's run bounds (csrc/trspmv.cu: kRunCols, kRunStripes,
 # kStageWords): two passes of a block's 256 threads, a column a thread;
@@ -55,8 +56,8 @@ def stage_elements(dtype: torch.dtype) -> int:
     return STAGE_WORDS * 4 // torch.empty(0, dtype=dtype).element_size()
 
 
-def _check_tensor(name: str, t: torch.Tensor, shape: tuple, device,
-                  dtype=torch.float32) -> None:
+def check_tensor(name: str, t: torch.Tensor, shape: tuple, device,
+                 dtype=torch.float32) -> None:
     """Refuse what the kernels do not take: anything but a contiguous
     tensor of ``dtype`` and ``shape`` (``None`` matches any extent) on
     ``device``."""
@@ -74,11 +75,6 @@ def _check_tensor(name: str, t: torch.Tensor, shape: tuple, device,
         raise ValueError(f"{name} is on {t.device}, the matrix on {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-
-
-def _check_vec(name: str, t: torch.Tensor, size: int, device,
-               dtype=torch.float32) -> None:
-    _check_tensor(name, t, (size,), device, dtype)
 
 
 def tr_spmv_plain(fmt, x: torch.Tensor, alpha=None, beta=None,
@@ -108,7 +104,7 @@ def _check_out(fmt, out) -> None:
     """``out`` must hold every output column: ``n`` entries in natural
     order, at least ``n`` under ``col_out`` (an injection into them), in
     the format's dtype."""
-    _check_tensor("out", out, (None,), fmt.device, fmt.val.dtype)
+    check_tensor("out", out, (None,), fmt.device, fmt.val.dtype)
     if out.numel() < fmt.n or (fmt.col_out is None and out.numel() != fmt.n):
         raise ValueError(f"out has {out.numel()} entries for {fmt.n} columns "
                          f"({'placed by col_out' if fmt.col_out is not None else 'in order'})")
@@ -120,17 +116,17 @@ def _run_tr_spmv(kernel, plain, fmt, x, alpha, beta, y, launch,
     ``beta`` is given; shaped like the output), each in the dtype of the
     format's values, runs ``plain`` on a CPU tensor, and on a CUDA
     tensor allocates the output (unless ``out`` is given: only
-    :func:`tr_spmv` takes one) and calls ``launch(lib, y_in, alpha, beta,
-    out, stream)`` (device pointers and the stream as ints), raises if
-    the launch failed, and counts it in ``kernel.launches``."""
+    :func:`tr_spmv` takes one) and calls ``launch(y_in, alpha, beta,
+    out)`` (device pointers and the scalars), which launches ``kernel``
+    through ``_lib.launch``."""
     dev, dtype = fmt.device, fmt.val.dtype
     with trace.span("op.check"):
-        _check_vec("x", x, fmt.m, dev, dtype)
+        check_tensor("x", x, (fmt.m,), dev, dtype)
         if out is not None:
             _check_out(fmt, out)
         with_y = y is not None and beta is not None
         if with_y:
-            _check_vec("y", y, fmt.n if out is None else out.numel(), dev, dtype)
+            check_tensor("y", y, (fmt.n if out is None else out.numel(),), dev, dtype)
     if dev.type == "cpu":
         if out is None:
             return plain(fmt, x, alpha, beta, y)
@@ -143,14 +139,8 @@ def _run_tr_spmv(kernel, plain, fmt, x, alpha, beta, y, launch,
     if fmt.n == 0:
         return out
     with trace.span("op.launch"):
-        lib = _lib.load()
-        with torch.cuda.device(dev):
-            rc = launch(lib, y.data_ptr() if with_y else None,
-                        1.0 if alpha is None else float(alpha),
-                        float(beta) if with_y else 0.0, out.data_ptr(),
-                        torch.cuda.current_stream(dev).cuda_stream)
-        _lib.check(lib, rc, kernel.__name__)
-    kernel.launches += 1
+        launch(y.data_ptr() if with_y else None, 1.0 if alpha is None else float(alpha),
+               float(beta) if with_y else 0.0, out.data_ptr())
     return out
 
 
@@ -206,7 +196,7 @@ def stage_plan(fmt: VBC1DDevice) -> torch.Tensor:
 
 def thread_map(fmt) -> str:
     """The kernel's thread map on ``fmt``: ``"quad"`` or ``"staged"``
-    (module docstring; an f64 format is always ``"staged"``)."""
+    (the module docstring; an f64 format is always ``"staged"``)."""
     return ("quad" if fmt.quad_widths and fmt.val.dtype == torch.float32
             and fmt.val.data_ptr() % 16 == 0 else "staged")
 
@@ -223,23 +213,19 @@ def tr_spmv(fmt: VBC1DDevice, x: torch.Tensor, alpha=None, beta=None,
 
     CUDA tensors run the stripe kernel (or raise); CPU tensors run
     :func:`tr_spmv_plain`."""
-    f64 = fmt.val.dtype == torch.float64
 
-    def launch(lib, *rest):
+    def launch(*tail):
+        f64 = fmt.val.dtype == torch.float64
         how = thread_map(fmt)
         runs = stage_plan(fmt) if how == "staged" else None
-        rc = (lib.vbcs_tr_spmv_f64 if f64 else lib.vbcs_tr_spmv)(
-            fmt.n, fmt.L, 0 if runs is None else runs.shape[0] - 1,
-            None if runs is None else runs.data_ptr(), fmt.spl.data_ptr(),
-            fmt.pos.data_ptr(), fmt.idx.data_ptr(), fmt.ofs.data_ptr(),
-            None if fmt.col_out is None else fmt.col_out.data_ptr(),
-            fmt.val.data_ptr(), x.data_ptr(), *rest)
-        if rc == 0:
-            tr_spmv.launches_by_map["staged_f64" if f64 else how] += 1
-        return rc
+        _lib.launch(tr_spmv, "vbcs_tr_spmv_f64" if f64 else "vbcs_tr_spmv", fmt.device,
+                    fmt.n, fmt.L, 0 if runs is None else runs.shape[0] - 1, _lib.ptr(runs),
+                    fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.idx.data_ptr(),
+                    fmt.ofs.data_ptr(), _lib.ptr(fmt.col_out), fmt.val.data_ptr(),
+                    x.data_ptr(), *tail)
+        trace.tally("launches_by_map", "staged_f64" if f64 else how)
 
     return _run_tr_spmv(tr_spmv, tr_spmv_plain, fmt, x, alpha, beta, y, launch, out)
 
 
 tr_spmv.launches = 0
-tr_spmv.launches_by_map = {"quad": 0, "staged": 0, "staged_f64": 0}

@@ -22,6 +22,7 @@ import math
 import torch
 
 from ..formats.device import VBC2DDevice
+from . import _lib
 from .trspmv import _run_tr_spmv, tr_spmv_plain
 
 __all__ = ["tr_spmv_2d", "tr_spmv_2d_plain", "lanes_per_stripe"]
@@ -53,10 +54,10 @@ def tr_spmv_2d(fmt: VBC2DDevice, x: torch.Tensor, alpha=None, beta=None,
     :func:`tr_spmv_2d_plain`."""
     return _run_tr_spmv(
         tr_spmv_2d, tr_spmv_2d_plain, fmt, x, alpha, beta, y,
-        lambda lib, *rest: lib.vbcs_tr_spmv_2d(
-            fmt.L, lanes_per_stripe(fmt), fmt.spl.data_ptr(), fmt.pos.data_ptr(),
-            fmt.tile_row.data_ptr(), fmt.tile_ofs.data_ptr(),
-            fmt.val.data_ptr(), x.data_ptr(), *rest))
+        lambda *tail: _lib.launch(
+            tr_spmv_2d, "vbcs_tr_spmv_2d", fmt.device, fmt.L, lanes_per_stripe(fmt),
+            fmt.spl.data_ptr(), fmt.pos.data_ptr(), fmt.tile_row.data_ptr(),
+            fmt.tile_ofs.data_ptr(), fmt.val.data_ptr(), x.data_ptr(), *tail))
 
 
 tr_spmv_2d.launches = 0

@@ -162,16 +162,10 @@ def chunk(variant: str, inp: ChunkInputs) -> torch.Tensor:
         raise NotImplementedError(f"no chunk probe kernel for device {dev}")
     n = inp.val.shape[1]
     out = torch.empty(8, n, dtype=torch.float32, device=dev)
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        rc = lib.vbcs_probe_chunk(
-            VARIANTS[variant], n, inp.wblk, int(inp.m0.dtype == torch.int16),
-            inp.val.data_ptr(), inp.m0.data_ptr(),
-            None if inp.m1 is None else inp.m1.data_ptr(), inp.x.data_ptr(),
-            inp.tab.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _lib.check(lib, rc, f"probe chunk {variant}")
-    chunk.launches += 1
+    _lib.launch(chunk, "vbcs_probe_chunk", dev, VARIANTS[variant], n, inp.wblk,
+                int(inp.m0.dtype == torch.int16), inp.val.data_ptr(), inp.m0.data_ptr(),
+                _lib.ptr(inp.m1), inp.x.data_ptr(), inp.tab.data_ptr(), out.data_ptr(),
+                name=f"probe chunk {variant}")
     return out
 
 

@@ -186,12 +186,9 @@ def grid(device, variant: str, budget: int = -1) -> tuple[int, int]:
     dev = torch.device(device)
     key = (dev.index, variant, budget)
     if key not in _grids:
-        lib = _lib.load()
         b, n = ctypes.c_int(budget), ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            rc = lib.vbcs_probe_chain_grid(_CODES[variant], ctypes.byref(b),
-                                           ctypes.byref(n))
-        _lib.check(lib, rc, "probe chain grid")
+        _lib.launch(None, "vbcs_probe_chain_grid", dev, _CODES[variant], ctypes.byref(b),
+                    ctypes.byref(n), name="probe chain grid")
         _grids[key] = (n.value, b.value)
     return _grids[key]
 
@@ -222,16 +219,11 @@ def chain(variant: str, inp: ChainInputs, n_iters: int, blocks: int | None = Non
     out = torch.empty(W, X, dtype=torch.float32, device=dev)
     slots = torch.empty(2, 8, X, dtype=torch.float32, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        rc = lib.vbcs_probe_chain(
-            _CODES[variant], n_iters, X // NS, inp.wblk, inp.val.data_ptr(),
-            inp.meta.data_ptr(), inp.xin.data_ptr(), inp.wbase.data_ptr(),
-            slots[0].data_ptr(), slots[1].data_ptr(), out.data_ptr(),
-            count.data_ptr(), 0, blocks, budget,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _lib.check(lib, rc, f"probe chain {variant}")
-    chain.launches += 1
+    _lib.launch(chain, "vbcs_probe_chain", dev, _CODES[variant], n_iters, X // NS,
+                inp.wblk, inp.val.data_ptr(), inp.meta.data_ptr(), inp.xin.data_ptr(),
+                inp.wbase.data_ptr(), slots[0].data_ptr(), slots[1].data_ptr(),
+                out.data_ptr(), count.data_ptr(), 0, blocks, budget,
+                name=f"probe chain {variant}")
     return out
 
 

@@ -60,12 +60,8 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise NotImplementedError(f"no launch probe kernel for device {x.device}")
     out = torch.empty_like(x)
-    lib = _lib.load()
-    with torch.cuda.device(x.device):
-        rc = lib.vbcs_probe_add_one(x.numel(), x.data_ptr(), out.data_ptr(),
-                                    torch.cuda.current_stream(x.device).cuda_stream)
-    _lib.check(lib, rc, "probe add_one")
-    add_one.launches += 1
+    _lib.launch(add_one, "vbcs_probe_add_one", x.device, x.numel(), x.data_ptr(),
+                out.data_ptr(), name="probe add_one")
     return out
 
 

@@ -80,13 +80,8 @@ def fma(Xg: torch.Tensor, Vl: torch.Tensor) -> torch.Tensor:
     if Xg.data_ptr() % 16 or Vl.data_ptr() % 16:
         raise ValueError("Xg and Vl must start on 16 bytes")
     out = torch.empty_like(Xg)
-    lib = _lib.load()
-    with torch.cuda.device(dev):
-        rc = lib.vbcs_probe_spmm4_fma(n_chunks, Xg.data_ptr(), Vl.data_ptr(),
-                                      out.data_ptr(),
-                                      torch.cuda.current_stream(dev).cuda_stream)
-    _lib.check(lib, rc, "probe spmm4 fma")
-    fma.launches += 1
+    _lib.launch(fma, "vbcs_probe_spmm4_fma", dev, n_chunks, Xg.data_ptr(), Vl.data_ptr(),
+                out.data_ptr(), name="probe spmm4 fma")
     return out
 
 

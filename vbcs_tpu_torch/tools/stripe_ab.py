@@ -69,6 +69,7 @@ import torch
 from .. import VBCOperator
 from ..ops import _lib
 from ..ops.trspmv import stage_plan, thread_map, tr_spmv, tr_spmv_plain
+from ..utils import trace
 from ..utils.profile import f32_flops, hbm_bandwidth
 from ..utils.timing import flushed_ms, paired_ms
 from .matrices import BLOCKY_ABOVE_L2, blocky_matrix
@@ -324,10 +325,11 @@ def _f64_case(label, A, direction, call_args, dev) -> dict:
             raise RuntimeError(f"{label} {k}: off the plain version by {errs[k]:.2e}"
                                f" or two launches differ")
     del plain64, plain32
-    before = dict(tr_spmv.launches_by_map)
+    before = trace.launches_by_map()
     cands["f64_staged"]()
-    if tr_spmv.launches_by_map["staged_f64"] != before["staged_f64"] + 1:
-        raise RuntimeError(f"{label}: the f64 call launched {tr_spmv.launches_by_map}")
+    after = trace.launches_by_map()
+    if after["staged_f64"] != before["staged_f64"] + 1:
+        raise RuntimeError(f"{label}: the f64 call launched {after}")
     warm = paired_ms(list(cands.values()), dev)
     nnz = int(np.count_nonzero(sp.csc_matrix(A).data))
     rec = {"columns": op.n, "stripes": nat64.L, "blocks": nat64.idx.numel(),

@@ -31,14 +31,17 @@ Span names are fixed strings at each site:
   (the launcher's ctypes call and its error check), ``op.semiring`` (a
   call's product on the semiring route, ``ops/semiring.py``).
 
-:func:`launches` sums the launch counters of the operator's per-call
-kernels (``ops.CALL_LAUNCHERS``), which count whether the tracer is on
-or not; :func:`launches_by_map` splits the stripe TrSpMV's by the thread
-map each launch took (``staged_f64``: the f64 staged map);
-:func:`semiring_calls` counts the operator calls that took the semiring
-route instead, by dtype, also whether the tracer is on or not;
-:func:`reorder_choices` counts ``VBCOperator.from_csc``'s auto-RCM
-decisions by the packs kept, whether the tracer is on or not.
+Besides the tracer's own counters (:func:`count`, on only while it is),
+this module owns the always-on counters, which count whether the tracer
+is on or not, from the process's start, each under one lock: the layers
+above add to them with :func:`tally` and read them with
+:func:`launches_by_map` (the stripe TrSpMV's launches by the thread map
+each took, ``ops/trspmv.py``), :func:`semiring_calls` (the operator calls
+that took the semiring route, by dtype, ``operator.py``) and
+:func:`reorder_choices` (``VBCOperator.from_csc``'s auto-RCM decisions
+by the packs kept).  :func:`launches` sums the ``.launches`` counters of
+the operator's per-call kernels (``ops.CALL_LAUNCHERS``, which ``_lib``'s
+launcher increments): the one read of ``ops`` left here.
 """
 
 from __future__ import annotations
@@ -51,8 +54,8 @@ import time
 import torch
 
 __all__ = ["enable", "disable", "enabled", "span", "count", "snapshot", "reset",
-           "summary", "launches", "launches_by_map", "semiring_calls",
-           "count_reorder", "reorder_choices"]
+           "summary", "tally", "launches", "launches_by_map", "semiring_calls",
+           "reorder_choices"]
 
 _on = False
 _NULL = contextlib.nullcontext()
@@ -63,9 +66,10 @@ _records: list = []
 _seq = itertools.count()
 _counters: dict = {}
 _count_lock = threading.Lock()
-# VBCOperator.from_csc's auto-RCM decisions since the process began, by
-# the packs kept: counted whether the tracer is on or not
-_reorder_choices = {"natural": 0, "rcm": 0}
+# the always-on counters (tally), by name: counted whether the tracer is
+# on or not, since the process began; reset() keeps them
+_tallies = {"launches_by_map": {"quad": 0, "staged": 0, "staged_f64": 0},
+            "semiring_calls": {}, "reorder_choices": {"natural": 0, "rcm": 0}}
 
 _now = time.time_ns
 _profiling = torch.autograd._profiler_enabled
@@ -207,33 +211,37 @@ def launches() -> int:
     return sum(f.launches for f in CALL_LAUNCHERS)
 
 
+def tally(counter: str, key: str) -> None:
+    """Add one to ``key`` of the always-on counter ``counter``, whether
+    the tracer is on or not: ``"launches_by_map"`` (a stripe TrSpMV
+    launch, by thread map), ``"semiring_calls"`` (an operator call on the
+    semiring route, by its product's dtype) or ``"reorder_choices"`` (an
+    auto-RCM decision, by the packs kept)."""
+    with _count_lock:
+        counts = _tallies[counter]
+        counts[key] = counts.get(key, 0) + 1
+
+
+def _tally_of(counter: str) -> dict:
+    with _count_lock:
+        return dict(_tallies[counter])
+
+
 def launches_by_map() -> dict:
     """Launches of the stripe TrSpMV kernel since the process began, by
     the thread map the launcher took from the format (``"quad"``, the
     float4 map; ``"staged"``, a run of stripes a block; both f32;
-    ``"staged_f64"``, the staged map in f64): a copy of
-    ``ops.trspmv.tr_spmv.launches_by_map``."""
-    from ..ops.trspmv import tr_spmv
-
-    return dict(tr_spmv.launches_by_map)
+    ``"staged_f64"``, the staged map in f64)."""
+    return _tally_of("launches_by_map")
 
 
 def semiring_calls() -> dict:
     """Operator calls that took the semiring route (``ops/semiring.py``)
     since the process began, by the dtype of their product (``"float64"``,
-    ``"int32"``, ...; a dtype no call had is absent): a copy of
-    ``ops.semiring.route_calls``.  Beside :func:`launches_by_map` it
-    tells an f64 call that reached the kernel from one that fell back."""
-    from ..ops.semiring import route_calls
-
-    return dict(route_calls)
-
-
-def count_reorder(choice: str) -> None:
-    """Count one auto-RCM decision of ``VBCOperator.from_csc``: ``"rcm"``
-    (the relabeled packs kept) or ``"natural"``."""
-    with _count_lock:
-        _reorder_choices[choice] += 1
+    ``"int32"``, ...; a dtype no call had is absent).  Beside
+    :func:`launches_by_map` it tells an f64 call that reached the kernel
+    from one that fell back."""
+    return _tally_of("semiring_calls")
 
 
 def reorder_choices() -> dict:
@@ -241,5 +249,4 @@ def reorder_choices() -> dict:
     began, ``{"natural": n, "rcm": n}``: one a ``reorder="auto"`` call on a
     square matrix of more than 1,024 rows (a smaller or non-square one is
     never relabeled, and no decision is made)."""
-    with _count_lock:
-        return dict(_reorder_choices)
+    return _tally_of("reorder_choices")
