@@ -27,7 +27,10 @@ Phases (one line each; any failure raises and exits non-zero):
    columns, ~2.55M nonzeros) through ``VBCOperator.from_csc(A, W=8,
    device="cuda")``, ``tr_mul`` with alpha/beta/y and ``mul``, then
    ``tr_mul_mat`` at k=128 and ``mul_mat`` at k=32, checked against the
-   host oracle and the f64 scipy product;
+   host oracle and the f64 scipy product (``mul_mat`` by the ordered
+   scatter on A's pack, which ``operator.forward_pack`` picks for it,
+   ``mul`` on its A.T pack's route; phase 8 times the scatter beside the
+   gather on A.T's pack);
 5. the auto-RCM path: the scrambled FEM ``fem_matrix(k=320)``
    through ``from_csc(..., reorder="auto")``, the same calls (SpMM at
    k=32) on the packs' natural views (``col_out``), one launch a call;
@@ -275,7 +278,7 @@ TOL = 2e-5
 TOL_F64 = 1e-14  # the f64 stripe kernel (fma) against its plain version (multiply, add)
 SPMM_K = (1, 5, 32, 128, 130)  # scalar path, float4 path, two 128-col tiles
 KERNELS = (vt.tr_spmv, vt.gather, vt.gather_tiles, vt.tr_spmm, vt.tr_spmv_2d,
-           vt.tr_spmv_chain, vt.tr_spmv_scatter, vt.tile_relayout)
+           vt.tr_spmv_chain, vt.tr_spmv_scatter, vt.tile_relayout, vt.mul_ordered)
 # the probes' kernel wrappers (phase 12)
 PROBES = (probe_launch.add_one, probe_chunk.chunk, probe_chain.chain,
           probe_spmm4.fma)
@@ -1536,6 +1539,59 @@ def phase_timing_spmm(dev, flag, fem, spmm, parts):
             "shapes": recs}
 
 
+def phase_timing_ordered(dev, flag, spmm, errs):
+    """The ordered scatter on the flagship's pack of A (its ``mul_mat`` at
+    k = 32, where the operator holds its forward products on A's pack):
+    kernel, plain version and the library call (``CSR @ X`` of A) in one
+    paired set, L2-flushed, beside the gather (``tr_spmm`` on the A.T
+    pack's natural view, the route before) and the bound (X, Y, the
+    values and the pack's index arrays once); and a vector with
+    alpha/beta/y by block beside ``mul``, the A.T pack's route.  Returns
+    the kernels line's ``mul_ordered`` entry."""
+    A, op = flag[0], flag[1]
+    X = spmm["flagship"][2]
+    k = X.shape[1]
+    check(op.fw_on_a, "the flagship's forward products left A's pack")
+    fmt = op.ordered_fw
+    lib = csr_of_transpose(sp.csc_matrix(A.T), dev)
+    got, again = vt.mul_ordered(fmt, X), vt.mul_ordered(fmt, X)
+    plain = vt.mul_ordered_plain(fmt, X)
+    torch.cuda.synchronize()
+    err = rel_err(got.cpu().numpy(), plain.cpu().numpy())
+    check(err <= TOL and torch.equal(got, again),
+          f"flagship ordered scatter off its plain version by {err:.2e}, or two "
+          f"launches differ")
+    errs["mul_ordered"] = max(errs["mul_ordered"], float((got - plain).abs().max()))
+    same_function("flagship ordered scatter", lambda: lib @ X,
+                  lambda: vt.mul_ordered(fmt, X))
+    x, y = X[:, 0].contiguous(), X[:, 1].contiguous()
+    vec = vt.mul_ordered(fmt, x, 0.5, 0.25, y)
+    err_vec = rel_err(vec.cpu().numpy(), vt.mul_ordered_plain(fmt, x, 0.5, 0.25, y).cpu().numpy())
+    check(err_vec <= TOL and torch.equal(vec, vt.mul_ordered(fmt, x, 0.5, 0.25, y)),
+          f"flagship ordered scatter by block off its plain version by {err_vec:.2e}, "
+          f"or two launches differ")
+    calls = [lambda: vt.mul_ordered(fmt, X), lambda: vt.mul_ordered_plain(fmt, X),
+             lambda: lib @ X, lambda: vt.tr_spmm(op.nat_fw, X),
+             lambda: vt.mul_ordered(fmt, x, 0.5, 0.25, y), lambda: op.mul(x, 0.5, 0.25, y)]
+    warm = paired_ms(calls, dev)
+    maps = fmt.ordered_maps
+    nbytes = (4 * nonzeros(A) + index_bytes(fmt, nonzeros(A))
+              + maps.nbytes + 4 * k * (fmt.m + fmt.n))
+    rec = {**entry(warm, (nbytes, 2 * nonzeros(A) * k)),
+           "flushed_ms": flushed_ms(calls[0], dev), "gather_ms": warm[3],
+           "vector_ms": warm[4], "vector_route_ms": warm[5],
+           "slots": maps.slots, "blocks": fmt.idx.numel()}
+    print(f"[8 timing mul_ordered, flagship mul_mat k={k}] {fmt.L} stripes, "
+          f"{fmt.idx.numel()} blocks, {maps.slots} slots; kernel {warm[0] * 1e3:.2f} "
+          f"us ({rec['flushed_ms'] * 1e3:.2f} L2-flushed), plain {warm[1] * 1e3:.2f} "
+          f"us, library (CSR @ X) {warm[2] * 1e3:.2f} us, the gather on A.T's pack "
+          f"{warm[3] * 1e3:.2f} us; bound {rec['bound_ms'] * 1e3:.2f} us "
+          f"({rec['bound_by']}), {rec['bound_ms'] / warm[0]:.3f} of it; a vector "
+          f"(alpha, beta, y) by block {warm[4] * 1e3:.2f} us, mul on the "
+          f"{op.route_fw[0]} route {warm[5] * 1e3:.2f} us", flush=True)
+    return rec
+
+
 def phase_timing_above_l2(dev, errs):
     """The stripe kernel on ``blocky_matrix(**BLOCKY_ABOVE_L2)``: 16x the
     flagship's stripes, a call of ~250 MB that no L2 holds, built through
@@ -1641,7 +1697,7 @@ def cell_view(dev, label, reorder, want, errs, key):
         got, again = run(vt.tr_spmv), run(vt.tr_spmv)
         torch.cuda.synchronize()
         maps = maps_since_reset()
-        check(maps == {"quad": 0, "staged": 0, "staged_f64": 0, want: 2}
+        check(maps == {**dict.fromkeys(maps, 0), want: 2}
               and vt.tr_spmv.launches == 2,
               f"{label} {form}: launches {maps} (want two "
               f"{want})")
@@ -1756,7 +1812,7 @@ def phase_timing_cells_f64(dev, errs):
         got, again = run(vt.tr_spmv), run(vt.tr_spmv)
         torch.cuda.synchronize()
         maps = maps_since_reset()
-        check(maps == {"quad": 0, "staged": 0, "staged_f64": 2}
+        check(maps == {**dict.fromkeys(maps, 0), "staged_f64": 2}
               and vt.tr_spmv.launches == 2,
               f"{label} {form}: launches {maps} (want two "
               f"staged_f64)")
@@ -3366,35 +3422,52 @@ def main():
     semi = f32_path.enter_context(counting_semiring())
 
     # four calls: flagship tr_mul and mul, FEM tr_mul and mul (natural
-    # views), each one launch of its route's kernel, no gather
+    # views), each one launch of its route's kernel (a vector by the
+    # ordered scatter: its products and rows launches, by block), no gather
     reset_launches()
     with counting_index_select() as sel:
         flag = phase_flagship(dev)
         fem = phase_fem(dev)
     launches = {"tr_spmv": vt.tr_spmv.launches,
-                "tr_spmv_scatter": vt.tr_spmv_scatter.launches}
+                "tr_spmv_scatter": vt.tr_spmv_scatter.launches,
+                "mul_ordered": vt.mul_ordered.launches}
     names = [o.route_tr[0] for o in (flag[1], fem[1])] + [
         o.route_fw[0] for o in (flag[1], fem[1])]
     want = {"tr_spmv": names.count("stripe"),
-            "tr_spmv_scatter": names.count("scatter")}
-    check(launches == want and vt.gather.launches == 0 and sel[0] == 0,
-          f"tr_mul/mul path: {launches}, gather {vt.gather.launches}, "
-          f"index_select {sel[0]} (want {want} by the routes, gather 0, "
+            "tr_spmv_scatter": names.count("scatter"),
+            "mul_ordered": 2 * names.count("ordered")}
+    maps = maps_since_reset()
+    ordered = {k: maps[k] for k in ("ordered_products", "ordered_rows")}
+    check(launches == want and vt.gather.launches == 0 and sel[0] == 0
+          and ordered == dict.fromkeys(ordered, names.count("ordered")),
+          f"tr_mul/mul path: {launches}, {ordered}, gather {vt.gather.launches}, "
+          f"index_select {sel[0]} (want {want} by the routes {names}, one "
+          f"products and one rows launch an ordered call, gather 0, "
           f"index_select 0)")
-    print(f"[4-5 launches] tr_mul/mul path, 4 calls: stripe TrSpMV "
-          f"{launches['tr_spmv']}, scatter TrSpMV {launches['tr_spmv_scatter']}, "
+    print(f"[4-5 launches] tr_mul/mul path, 4 calls ({', '.join(names)}): stripe "
+          f"TrSpMV {launches['tr_spmv']}, scatter TrSpMV "
+          f"{launches['tr_spmv_scatter']}, ordered scatter {launches['mul_ordered']}, "
           f"gather {vt.gather.launches}, index_select {sel[0]}", flush=True)
 
     reset_launches()
     with counting_index_select() as sel:
         spmm = phase_spmm(dev, flag, fem)
     launches["tr_spmm"] = vt.tr_spmm.launches
-    check(launches["tr_spmm"] == 5 and vt.gather.launches == 0 and sel[0] == 0,
-          f"tr_mul_mat/mul_mat path: SpMM {launches['tr_spmm']} (want 5, one a "
-          f"call), gather {vt.gather.launches}, index_select {sel[0]} (want 0)")
+    # a mul_mat whose operator holds its forward products on A's pack
+    # (operator.forward_pack) runs the ordered scatter instead: its
+    # products launch and, with rows of no block or several, its rows one
+    on_a = sum(o.fw_on_a for o in (flag[1], fem[1]))
+    launches["mul_ordered"] = vt.mul_ordered.launches
+    scatter_calls = maps_since_reset()["ordered_products"]
+    check(launches["tr_spmm"] == 5 - on_a and scatter_calls == on_a
+          and vt.gather.launches == 0 and sel[0] == 0,
+          f"tr_mul_mat/mul_mat path: SpMM {launches['tr_spmm']} (want "
+          f"{5 - on_a}, one a call), ordered scatter {scatter_calls} calls (want "
+          f"{on_a}), gather {vt.gather.launches}, index_select {sel[0]} (want 0)")
     print(f"[4-6 launches] tr_mul_mat/mul_mat path, 5 calls: SpMM "
-          f"{launches['tr_spmm']}, gather {vt.gather.launches}, index_select "
-          f"{sel[0]}", flush=True)
+          f"{launches['tr_spmm']}, ordered scatter {launches['mul_ordered']} "
+          f"launches, gather {vt.gather.launches}, index_select {sel[0]}",
+          flush=True)
 
     reset_launches()
     parts = phase_2d(dev)
@@ -3453,6 +3526,7 @@ def main():
     phase_path_shapes_slice4(chains, scat_routes, rel, errs)
     ms = phase_timing(dev, flag, fem, spmm)
     ms["tr_spmm"] = phase_timing_spmm(dev, flag, fem, spmm, parts)
+    ms["mul_ordered"] = phase_timing_ordered(dev, flag, spmm, errs)
     ms["tr_spmv"].update(phase_timing_above_l2(dev, errs))
     ms["tr_spmv_staged"], launches["tr_spmv_staged"] = phase_timing_cells(dev, errs)
     ms["tr_spmv"]["cells"] = phase_timing_unpermuted(dev, errs)
@@ -3515,6 +3589,9 @@ def main():
         ("tr_spmm", "tr_spmm", "spmm.cu",
          "vbcs_tpu/ops/pallas_spmm4.py:209, vbcs_tpu/ops/pallas_spmm3.py:42, "
          "vbcs_tpu/ops/pallas_spmm.py:33, vbcs_tpu/ops/pallas_trspmv.py:215"),
+        ("mul_ordered", "mul_ordered", "ordered.cu",
+         "none: A @ X on A's own pack, where the JAX package runs (A.T).T @ X "
+         "on A.T's (vbcs_tpu/operator.py mul_mat)"),
         ("tr_spmv_2d", "tr_spmv_2d", "trspmv2d.cu",
          "vbcs_tpu/ops/pallas_trspmv2d.py:336, vbcs_tpu/ops/pallas_trspmv2.py:435"),
         ("tr_spmv_chain", "tr_spmv_chain", "chain.cu",

@@ -2,11 +2,13 @@
 
 The port relabels a square matrix of more than 1,024 rows iff the packs
 of ``rcm_symmetric(A)`` for the directions the operator holds (A's for
-``"transposed"``, A.T's for ``"forward"``, both for ``"both"``) store
-strictly fewer bytes (``memory_bytes()``) than ``A``'s own.  Each case
-computes both sums here and holds the operator to them: the random-row
-blocky matrix (RCM cuts its 8-wide stripes, so its A pack grows), a small
-27-point stencil and the scrambled grid Laplacians.  Where it relabels,
+``"transposed"``, both for ``"both"``; for ``"forward"`` each formulation
+of the forward products on its own, A.T's and, for an f32 matrix, A's,
+before ``forward_pack`` picks one of the two) store strictly fewer bytes
+(``memory_bytes()``) than ``A``'s own.  Each case computes both sums here
+and holds the operator to them: the random-row blocky matrix (RCM cuts
+its 8-wide stripes, so its A pack grows), a small 27-point stencil and
+the scrambled grid Laplacians.  Where it relabels,
 the permutation and the packs are ``rcm_symmetric``'s; ``"always"`` and
 ``"never"`` keep their meaning; ``trace.reorder_choices()`` counts each
 decision.  The JAX operator's decision is compared in
@@ -39,7 +41,8 @@ DIRECTIONS = ["transposed", "forward", "both"]
 
 
 def held(C, directions):
-    """The packs ``from_csc`` holds for ``C`` (the default method, W=8)."""
+    """The packs ``from_csc`` weighs for ``C`` (the default method, W=8):
+    A's, A.T's or both."""
     out = []
     if directions in ("both", "transposed"):
         out.append(vt.vbc1d(C, 8))
@@ -50,6 +53,26 @@ def held(C, directions):
 
 def stored(packs):
     return sum(B.memory_bytes() for B in packs)
+
+
+def expected(C, Cp, perm, directions):
+    """``(packs held, perm or None, fw_on_a)`` by the rule: the labelling
+    of fewer stored bytes for what the operator holds and, for a forward
+    f32 operator, in each formulation, then ``forward_pack``."""
+    if directions != "forward" or C.val.dtype != np.float32:
+        natural, relabeled = held(C, directions), held(Cp, directions)
+        take = stored(relabeled) < stored(natural)
+        packs = relabeled if take else natural
+        fw_on_a = (directions == "both" and C.val.dtype == np.float32
+                   and vt.forward_pack(*packs) == "A")
+        return packs, perm if take else None, fw_on_a
+    (at, at_perm), (a, a_perm) = (
+        min(((held(M, d)[0], p) for M, p in ((C, None), (Cp, perm))),
+            key=lambda c: c[0].memory_bytes())
+        for d in ("forward", "transposed"))
+    if vt.forward_pack(a, at) == "A":
+        return [a], a_perm, True
+    return [at], at_perm, False
 
 
 def build(A, directions, reorder="auto"):
@@ -72,23 +95,27 @@ def test_decision_follows_the_bytes(name, directions):
     A = MATRICES[name]()
     C = vt.CSC.from_scipy(A)
     Cp, perm = vt.rcm_symmetric(C)
-    natural, relabeled = held(C, directions), held(Cp, directions)
-    take = stored(relabeled) < stored(natural)
+    packs, want_perm, fw_on_a = expected(C, Cp, perm, directions)
     op = build(A, directions)
-    assert (op.row_perm is not None) == take
-    if take:
-        np.testing.assert_array_equal(op.row_perm, perm)
-    same_packs(op, relabeled if take else natural)
-    assert op.memory_bytes() == min(stored(relabeled), stored(natural))
+    assert (op.row_perm is not None) == (want_perm is not None)
+    if want_perm is not None:
+        np.testing.assert_array_equal(op.row_perm, want_perm)
+    assert op.fw_on_a == fw_on_a
+    same_packs(op, packs)
+    maps = 4 * (packs[0].num_blocks + packs[0].m + 1) if fw_on_a else 0
+    assert op.memory_bytes() == stored(packs) + maps
 
 
 @pytest.mark.parametrize("directions", DIRECTIONS)
 def test_random_row_blocky_keeps_its_stripes(directions):
     """RCM cuts the 8-wide stripes of A (its pack grows) and shrinks A.T's
-    pack: A is kept wherever the operator holds A's pack."""
+    pack: A is kept wherever the operator holds A's pack, which a forward
+    operator now does too (its products by the ordered scatter on A's
+    pack move fewer bytes than the gather on A.T's)."""
     A = MATRICES["blocky_random_rows"]()
     op = build(A, directions)
-    assert (op.row_perm is None) == (directions != "forward")
+    assert op.row_perm is None
+    assert op.host_tr is not None and op.fw_on_a == (directions != "transposed")
     if op.host_tr is not None:
         widths = np.diff(np.asarray(op.host_tr.Phi.spl))
         assert (widths == 8).all()
@@ -114,14 +141,15 @@ def test_reorder_choices_counts_each_decision():
     before = trace.reorder_choices()
     assert set(before) == {"natural", "rcm"}
     build(MATRICES["blocky_random_rows"](), "transposed")  # natural
-    build(MATRICES["blocky_random_rows"](), "forward")  # rcm
+    build(MATRICES["blocky_random_rows"](), "forward")  # natural (A's pack)
     build(MATRICES["fem40"](), "both")  # rcm
+    build(MATRICES["fem40"](), "forward")  # rcm
     # no decision: forced either way, at most 1,024 rows, or not square
     build(MATRICES["fem80"](), "transposed", "always")
     build(MATRICES["fem80"](), "transposed", "never")
     build(fem_matrix(k=32).astype(np.float32), "both")
     build(MATRICES["blocky_random_rows"]()[:, :3000].tocsc(), "both")
-    assert trace.reorder_choices() == {"natural": before["natural"] + 1,
+    assert trace.reorder_choices() == {"natural": before["natural"] + 2,
                                        "rcm": before["rcm"] + 2}
     # a copy: the caller cannot change the count
     trace.reorder_choices()["rcm"] = -1

@@ -247,10 +247,10 @@ def test_a_span_shares_the_profiler_clock():
 
 def test_launches_sums_the_per_call_launchers(monkeypatch):
     assert ops.CALL_LAUNCHERS == (vt.tr_spmv, vt.tr_spmv_scatter, vt.tr_spmv_2d,
-                                  vt.tr_spmm, vt.tr_spmv_chain)
+                                  vt.tr_spmm, vt.tr_spmv_chain, vt.mul_ordered)
     for i, f in enumerate(ops.CALL_LAUNCHERS):
         monkeypatch.setattr(f, "launches", 10 ** i)
-    assert trace.launches() == 11111
+    assert trace.launches() == 111111
 
 
 @pytest.fixture(scope="module")
@@ -304,23 +304,28 @@ def test_semiring_counter_counts_with_the_tracer_off_or_on(band64):
 
 
 def test_always_on_counters_count_through_tally(band, monkeypatch):
-    """``trace.tally`` adds one to a key of one of the three always-on
+    """``trace.tally`` adds one to a key of one of the four always-on
     counters, with the tracer off or on, outside the tracer's counters;
     the readers return copies under their keys; the operator counts its
-    auto-RCM decisions and semiring calls through it."""
-    assert set(trace.launches_by_map()) == {"quad", "staged", "staged_f64"}
+    auto-RCM decisions, its choices of the forward products' pack and its
+    semiring calls through it."""
+    assert set(trace.launches_by_map()) == {"quad", "staged", "staged_f64",
+                                            "ordered_products", "ordered_rows"}
     assert set(trace.reorder_choices()) == {"natural", "rcm"}
+    assert set(trace.forward_choices()) == {"A", "A.T"}
     for on in (False, True):
         if on:
             trace.enable()
-        maps, semi, rcm = (trace.launches_by_map(), trace.semiring_calls(),
-                           trace.reorder_choices())
+        maps, semi, rcm, fw = (trace.launches_by_map(), trace.semiring_calls(),
+                               trace.reorder_choices(), trace.forward_choices())
         trace.tally("launches_by_map", "staged_f64")
         trace.tally("semiring_calls", "int32")
         trace.tally("reorder_choices", "natural")
+        trace.tally("forward_choices", "A")
         assert trace.launches_by_map() == {**maps, "staged_f64": maps["staged_f64"] + 1}
         assert trace.semiring_calls() == {**semi, "int32": semi.get("int32", 0) + 1}
         assert trace.reorder_choices() == {**rcm, "natural": rcm["natural"] + 1}
+        assert trace.forward_choices() == {**fw, "A": fw["A"] + 1}
         trace.launches_by_map()["quad"] = -1  # a copy
         assert trace.launches_by_map()["quad"] != -1
         trace.disable()
@@ -329,7 +334,8 @@ def test_always_on_counters_count_through_tally(band, monkeypatch):
     monkeypatch.setattr(trace, "tally", lambda counter, key: seen.append((counter, key)))
     op = operator(band)
     op.mul(torch.randn(op.n, dtype=torch.float64))  # f32 matrix, f64 x: semiring
-    assert seen == [("reorder_choices", "rcm"), ("semiring_calls", "float64")]
+    assert seen == [("reorder_choices", "rcm"), ("forward_choices", "A.T"),
+                    ("semiring_calls", "float64")]
 
 
 def test_off_cost_of_a_span_is_unchanged(band64, monkeypatch):

@@ -64,6 +64,8 @@ from .models.autotune import (
 from .operator import (
     VBC2DOperator,
     VBCOperator,
+    forward_bytes,
+    forward_pack,
     mean_tile_height,
     route_tr_spmv,
     route_tr_spmv_2d,
@@ -72,6 +74,7 @@ from .operator import (
 from .ops.csr import CSCDevice, csc_spmv, csc_tr_spmv
 from .ops.chain import tr_spmv_chain, tr_spmv_chain_plain
 from .ops.gather import gather, gather_plain, gather_tiles, gather_tiles_plain
+from .ops.ordered import mul_ordered, mul_ordered_plain
 from .ops.relayout import tile_relayout, tile_relayout_plain
 from .ops.scatter import tr_spmv_scatter, tr_spmv_scatter_plain
 from .ops.spmm import tr_spmm, tr_spmm_plain

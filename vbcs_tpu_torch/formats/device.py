@@ -20,6 +20,12 @@ A pack of the relabeled ``A[perm][:, perm]`` (auto-RCM) has a *natural
 view* (``natural_view(perm)``): its block rows are ``perm[idx]`` and
 ``col_out[j] = perm[j]`` says where output column ``j`` goes, so the
 kernels read natural x and write natural y with no gather around them.
+
+A pack of A whose forward products run the ordered scatter
+(``ops/ordered.py``) carries its :class:`OrderedMaps`
+(``VBC1DDevice.ordered_maps``): where each block's row of products goes,
+and which slots each row of Y sums; and, for an X narrower than a
+32-byte sector, its :class:`RowBlocks` (``VBC1DDevice.row_blocks``).
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ import numpy as np
 import torch
 
 __all__ = ["VBC1DDevice", "VBC2DDevice", "ScatterDevice", "ScatterTiles",
-           "SemiringDevice", "SCATTER_LANE_ENTRIES", "SCATTER_TILE",
-           "SPMM_LONG_BLOCKS", "WIDTH_CLASSES", "width_class"]
+           "SemiringDevice", "OrderedMaps", "ordered_maps", "RowBlocks", "row_blocks",
+           "SCATTER_LANE_ENTRIES",
+           "SCATTER_TILE", "SPMM_LONG_BLOCKS", "WIDTH_CLASSES", "width_class"]
 
 _I32_MAX = np.iinfo(np.int32).max
 
@@ -113,9 +120,9 @@ def width_class(widths, nblk) -> int:
     return WIDTH_CLASSES[-1]
 
 
-def _coords_1d(spl, pos, idx, ofs, nvals: int):
-    """(row, col) of every stored value of a 1D-VBC, int64, from its
-    ``spl``/``pos``/``idx``/``ofs`` as tensors on one device."""
+def _blocks_1d(spl, pos, ofs, nvals: int):
+    """(block, col) of every stored value of a 1D-VBC, int64, from its
+    ``spl``/``pos``/``ofs`` as tensors on one device."""
     dev = spl.device
     L = spl.numel() - 1
     widths = (spl[1:] - spl[:-1]).long()
@@ -126,7 +133,82 @@ def _coords_1d(spl, pos, idx, ofs, nvals: int):
     w = widths[stripe]
     blk = pos[stripe].long() + torch.div(local, w, rounding_mode="floor")
     col = spl[stripe].long() + local % w
+    return blk, col
+
+
+def _coords_1d(spl, pos, idx, ofs, nvals: int):
+    """(row, col) of every stored value of a 1D-VBC, int64, from its
+    ``spl``/``pos``/``idx``/``ofs`` as tensors on one device."""
+    blk, col = _blocks_1d(spl, pos, ofs, nvals)
     return idx[blk].long(), col
+
+
+class OrderedMaps(NamedTuple):
+    """The ordered scatter's maps of a pack of A (``ops/ordered.py``,
+    ``csrc/ordered.cu``): where each block's row of products goes, and
+    how each row of ``Y = A @ X`` is made.  A *slot* is a row of the
+    partial buffer; the slots of a row are consecutive, rows in ascending
+    order, a row's slots in the order of its blocks (stripe order)."""
+
+    dest: torch.Tensor  # [blocks] int32: the block's row of Y where it is
+    #   its row's only block (>= 0), else -(slot + 1)
+    row_ptr: torch.Tensor  # [m + 1] int32: row r's slots run from
+    #   start(row_ptr[r]) to start(row_ptr[r + 1]), start(v) = v for v >= 0
+    #   and -v - 1 below; row_ptr[r] < 0 marks a row of one block (no slot)
+    slots: int  # rows of the partial buffer
+    rows_pass: bool  # a row has no block or several: the rows launch has work
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes the maps hold on the device (read once a call)."""
+        return _tensor_bytes(self.dest, self.row_ptr)
+
+
+class RowBlocks(NamedTuple):
+    """The blocks of each row of a pack of A, for the ordered scatter by
+    block (``ops/ordered.py``, below k = 8): row r's blocks are
+    ``blocks[start[r]:start[r + 1]]``, in block (stripe) order."""
+
+    start: torch.Tensor  # [m + 1] int32
+    blocks: torch.Tensor  # [blocks] int32
+
+    @property
+    def nbytes(self) -> int:
+        return _tensor_bytes(self.start, self.blocks)
+
+
+def row_blocks(idx: torch.Tensor, m: int) -> RowBlocks:
+    """:class:`RowBlocks` of a pack whose blocks sit on rows ``idx`` (int32,
+    in block order) of an ``m``-row matrix, with torch ops on its device."""
+    rows = idx.long()
+    start = torch.zeros(m + 1, dtype=torch.int64, device=idx.device)
+    torch.cumsum(torch.bincount(rows, minlength=m), 0, out=start[1:])
+    return RowBlocks(start=start.int(), blocks=torch.argsort(rows, stable=True).int())
+
+
+def ordered_maps(idx: torch.Tensor, m: int) -> OrderedMaps:
+    """:class:`OrderedMaps` of a pack whose blocks sit on rows ``idx``
+    (int32, in block order) of an ``m``-row matrix, computed with torch
+    ops on ``idx``'s device."""
+    dev = idx.device
+    rows = idx.long()
+    cnt = torch.bincount(rows, minlength=m)
+    start = torch.zeros(m + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(torch.where(cnt >= 2, cnt, 0), 0, out=start[1:])
+    first = torch.zeros(m + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(cnt, 0, out=first[1:])
+    order = torch.argsort(rows, stable=True)  # blocks by row, then block
+    r = rows[order]
+    slot = start[r] + torch.arange(rows.numel(), device=dev) - first[r]
+    dest = torch.empty_like(rows)
+    dest[order] = torch.where(cnt[r] >= 2, -slot - 1, r)
+    row_ptr = start.clone()
+    row_ptr[:m] = torch.where(cnt == 1, -start[:m] - 1, start[:m])
+    slots = int(start[m])
+    if slots > _I32_MAX:
+        raise ValueError("the ordered scatter's slot count does not fit in int32")
+    return OrderedMaps(dest=dest.int(), row_ptr=row_ptr.int(), slots=slots,
+                       rows_pass=bool((cnt != 1).any()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,6 +312,34 @@ class VBC1DDevice:
         if self.col_out is not None:
             col = self.col_out.long()[col]
         return row, col
+
+    @functools.cached_property
+    def value_blocks(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(block, col) of every stored value, int64 (computed once per
+        format); natural columns on a natural view."""
+        blk, col = _blocks_1d(self.spl, self.pos, self.ofs, self.val.numel())
+        if self.col_out is not None:
+            col = self.col_out.long()[col]
+        return blk, col
+
+    @functools.cached_property
+    def ordered_maps(self) -> OrderedMaps:
+        """The ordered scatter's maps of this pack of A (built once, on
+        its device): its blocks' rows ``idx``, natural on a natural
+        view, so the scatter writes natural order."""
+        return ordered_maps(self.idx, self.m)
+
+    @functools.cached_property
+    def row_blocks(self) -> RowBlocks:
+        """The ordered scatter's row -> blocks map of this pack of A, for an
+        X narrower than a sector (built on first use, on its device)."""
+        return row_blocks(self.idx, self.m)
+
+    def ordered_bytes(self) -> int:
+        """Bytes the ordered scatter's maps of this pack hold on the device:
+        :attr:`ordered_maps`, and :attr:`row_blocks` once built."""
+        built = self.__dict__.get("row_blocks")
+        return self.ordered_maps.nbytes + (0 if built is None else built.nbytes)
 
     @functools.cached_property
     def chain_plans(self) -> dict:
@@ -616,6 +726,11 @@ class SemiringDevice:
     @property
     def nbytes(self) -> int:
         return _tensor_bytes(self.row, self.col, self.val)
+
+    def transposed(self) -> "SemiringDevice":
+        """The same values as the flat format of the transpose (rows and
+        columns swapped; the arrays shared)."""
+        return SemiringDevice(m=self.n, n=self.m, row=self.col, col=self.row, val=self.val)
 
     @staticmethod
     def from_host(host, dtype=None, *, device,

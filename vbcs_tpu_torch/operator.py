@@ -12,12 +12,23 @@ torch ``device`` (the card, ``"cuda"``, unless the caller asks for another):
   (``ops/trspmv.py``) or, on unstructured packs, the column-parallel
   scatter kernel (``ops/scatter.py``) — alpha/beta fused into its store;
 * ``mul``: ``y = alpha * A @ x + beta * y``, the same route on the
-  column-striped ``A.T`` (scatter-free);
+  column-striped ``A.T`` (scatter-free), or the ordered scatter on A's
+  own pack (below);
 * ``tr_mul_chain``: ``y = (alpha * A.T)^k @ x`` for a square operator, one
   launch of the persistent chain kernel (``ops/chain.py``);
 * ``tr_mul_mat``/``mul_mat``: ``Y = A.T @ X`` and ``Y = A @ X`` for a
   dense RHS ``X [rows, k]``, through the stripe SpMM kernel
-  (``ops/spmm.py``) on the same two packs;
+  (``ops/spmm.py``) on the same two packs, or ``mul_mat`` by the ordered
+  scatter;
+* the forward products (``mul``, ``mul_mat``) have two formulations:
+  the gather on A.T's pack above, which reads an X entry for every block
+  of that pack, and the ordered scatter on A's pack (``ops/ordered.py``),
+  which reads X once and writes each block's row of products to Y or to
+  a slot summed in a second launch.  :func:`forward_pack` picks one from
+  the packs by the bytes a call moves (:func:`forward_bytes`); an f32
+  "forward" operator holds the pack it picks (``fw_on_a``) for both
+  calls, an f32 "both" operator runs ``mul_mat`` on the pick and ``mul``
+  on A.T's pack, and one of another dtype holds A.T's;
 * auto-RCM operators hold ``A[perm][:, perm]`` and run ``tr_mul``,
   ``mul``, ``tr_mul_mat`` and ``mul_mat`` on its natural views
   (``natural_view``: rows ``perm[idx]``, output column ``j`` at
@@ -76,6 +87,7 @@ from .formats.device import SemiringDevice, VBC1DDevice, VBC2DDevice
 from .formats.vbc1d import VBC1D, pack_1dvbc
 from .ops import semiring
 from .ops.chain import tr_spmv_chain
+from .ops.ordered import SECTOR_COLUMNS, mul_ordered
 from .ops.scatter import pack_scatter, tr_spmv_scatter
 from .ops.spmm import tr_spmm
 from .ops.trspmv import check_tensor, tr_spmv
@@ -85,7 +97,8 @@ from .plan.reorder import rcm_symmetric
 from .utils import trace
 
 __all__ = ["VBCOperator", "VBC2DOperator", "route_tr_spmv", "route_tr_spmv_2d",
-           "mean_tile_height", "tile2d_worthwhile", "TILE2D_MIN_HEIGHT"]
+           "mean_tile_height", "tile2d_worthwhile", "TILE2D_MIN_HEIGHT",
+           "forward_bytes", "forward_pack"]
 
 # The 2-D route's one threshold: a pack whose stored values sit in tiles
 # at least this tall on average runs the tile kernel, a flatter one the
@@ -142,6 +155,53 @@ def route_tr_spmv(B, device, stripe: VBC1DDevice | None = None,
     if perm is not None and stripe.col_out is None:
         stripe = stripe.natural_view(perm)
     return "stripe", stripe, tr_spmv
+
+
+def forward_bytes(host, formulation: str, k: int = 1) -> int:
+    """Bytes a forward product ``A @ X`` of ``k`` RHS columns moves on the
+    host pack ``host``, as the card's kernels read it: the pack's stored
+    bytes (``memory_bytes()``) and, for ``"A.T"`` (``host`` packs A.T,
+    the gather of ``ops/spmm.py``/``ops/trspmv.py``), 4 bytes of x a
+    block and 4 of y a row of A, a column; for ``"A"`` (``host`` packs A,
+    the ordered scatter of ``ops/ordered.py``), the map it reads (4 bytes
+    a block and a row) and, a column, x once, y once, and the product of
+    each block that goes through a slot written and read back (4 bytes
+    each): every block below ``SECTOR_COLUMNS`` columns (by block), else
+    those in a row of A with two blocks or more."""
+    if formulation == "A.T":
+        return host.memory_bytes() + 4 * k * (host.num_blocks + host.n)
+    if formulation != "A":
+        raise ValueError(f"unknown formulation {formulation!r}")
+    slotted = host.num_blocks
+    if k >= SECTOR_COLUMNS:
+        per_row = np.bincount(np.asarray(host.idx, dtype=np.int64), minlength=host.m)
+        slotted = int(per_row[per_row >= 2].sum())
+    maps = 4 * (host.num_blocks + host.m + 1)
+    return host.memory_bytes() + maps + 4 * k * (host.n + 2 * slotted + host.m)
+
+
+def forward_pack(host_a, host_at) -> str:
+    """The pack the forward products of an f32 operator run on: ``"A"``
+    (the ordered scatter on ``host_a``, a pack of A) where it moves fewer
+    bytes than the gather on ``host_at``, a pack of A.T (the two may be
+    one pack, of a symmetric A), both for one column (``mul``) and a
+    column of a wide X (``mul_mat``: the bytes a column adds from
+    ``SECTOR_COLUMNS`` on, where the stored bytes weigh nothing); else
+    ``"A.T"``."""
+    def column(host, formulation):
+        return (forward_bytes(host, formulation, SECTOR_COLUMNS + 1)
+                - forward_bytes(host, formulation, SECTOR_COLUMNS))
+
+    one = forward_bytes(host_a, "A") < forward_bytes(host_at, "A.T")
+    wide = column(host_a, "A") < column(host_at, "A.T")
+    return "A" if one and wide else "A.T"
+
+
+def _equal(A: CSC, B: CSC) -> bool:
+    """Whether two CSC matrices (rows sorted in each column) are equal,
+    pattern and values."""
+    return ((A.m, A.n) == (B.m, B.n) and np.array_equal(A.pos, B.pos)
+            and np.array_equal(A.idx, B.idx) and np.array_equal(A.val, B.val))
 
 
 def mean_tile_height(B2) -> float:
@@ -240,20 +300,29 @@ class _Directions:
     use, their flat semiring formats."""
 
     _kind = ""  # the operator's key in _KERNEL_DTYPES
+    fw_on_a = False  # the forward products on A's pack (VBCOperator's field)
 
     def _host(self, which: str):
-        host = self.host_tr if which == "tr" else self.host_fw
+        """The host pack of A (``"tr"``) or of A.T (``"fw"``) that serves
+        that direction, or of A (``"a"``) that serves the forward products
+        of a ``fw_on_a`` operator; ``ValueError`` when the operator was
+        packed without the direction (A's pack of a forward ``fw_on_a``
+        operator serves no transposed product)."""
+        host = self.host_fw if which == "fw" else self.host_tr
+        if which == "tr" and self.fw_on_a and self.host_fw is None:
+            host = None
         if host is None:
             name = "transposed" if which == "tr" else "forward"
             raise ValueError(f"operator packed without the {name} direction")
         return host
 
     def _packed(self, which: str):
-        """The kernels' format of one direction: ``ValueError`` when that
-        direction was not packed, ``TypeError`` for a matrix no kernel
-        runs (whose calls take the semiring route)."""
+        """The kernels' format of one pack (``"tr"``, ``"fw"``, ``"a"``, as
+        :meth:`_host`): ``ValueError`` when that direction was not packed,
+        ``TypeError`` for a matrix no kernel runs (whose calls take the
+        semiring route)."""
         host = self._host(which)
-        fmt = self.dev_tr if which == "tr" else self.dev_fw
+        fmt = self.dev_fw if which == "fw" else self.dev_tr
         if fmt is None:
             raise TypeError(f"no kernel runs this operator's "
                             f"{np.asarray(host.val).dtype} matrix")
@@ -280,7 +349,12 @@ class _Directions:
 
     @functools.cached_property
     def semi_fw(self) -> SemiringDevice:
-        """The A.T pack flat for ``ops/semiring.py`` (see :attr:`semi_tr`)."""
+        """The A.T pack flat for ``ops/semiring.py`` (see :attr:`semi_tr`);
+        on a ``fw_on_a`` operator that holds none, A's pack flat and
+        transposed."""
+        if self.fw_on_a and self.host_fw is None:
+            return SemiringDevice.from_host(self._host("a"), device=self.device,
+                                            perm=self.perm_t).transposed()
         return SemiringDevice.from_host(self._host("fw"), device=self.device,
                                         perm=getattr(self, "perm_t", None))
 
@@ -302,6 +376,35 @@ class _Directions:
             return call(fmt, x, alpha, beta, y)
 
 
+def _transpose(A: CSC) -> CSC:
+    with trace.span("plan.transpose"):
+        return A.transpose()
+
+
+def _plan(labellings, W, method, method_forward, holds):
+    """The candidate packs of an operator, each planned and packed once:
+    ``holds`` lists the sets of packs (``"A"``, ``"A.T"``) the operator
+    may hold; for each labelling ``(matrix, perm)`` every pack a set
+    names (A.T's is A's where the matrix equals its transpose and one
+    method plans both).  Returns, for each set, ``(packs, perm)`` of the
+    labelling whose packs in the set store the fewest bytes summed (the
+    first, natural, on a tie)."""
+    need = set().union(*holds)
+    cands = []
+    for M, perm in labellings:
+        packs = {}
+        if "A" in need:
+            packs["A"] = pack_1dvbc(M, pack_stripe(M, method), W)
+        if "A.T" in need:
+            Mt = _transpose(M)
+            packs["A.T"] = (packs["A"] if "A" in packs and method is method_forward
+                            and _equal(M, Mt)
+                            else pack_1dvbc(Mt, pack_stripe(Mt, method_forward), W))
+        cands.append((packs, perm))
+    return [min(cands, key=lambda c: sum(c[0][p].memory_bytes() for p in held))
+            for held in holds]
+
+
 @dataclasses.dataclass(frozen=True)
 class VBCOperator(_Directions):
     """Sparse matrix operator in 1D-VBC form on one torch device."""
@@ -317,6 +420,9 @@ class VBCOperator(_Directions):
     dev_fw: VBC1DDevice | None
     row_perm: np.ndarray | None = None  # symmetric relabeling (auto-RCM)
     perm_t: torch.Tensor | None = None  # int32 perm on device
+    # mul_mat runs the ordered scatter on host_tr (A's pack); with no
+    # host_fw the operator serves mul there too, and no transposed product
+    fw_on_a: bool = False
 
     # ---- construction ----------------------------------------------------
 
@@ -339,18 +445,29 @@ class VBCOperator(_Directions):
 
         ``reorder``: "auto" applies a *symmetric* RCM relabeling to a
         square ``A`` of more than 1,024 rows where it shrinks the packs the
-        operator holds: both candidates' packs are built for the
-        directions asked (A's for "transposed", A.T's for "forward", all
-        four for "both"), and the relabeled ones are kept iff their summed
-        ``memory_bytes()`` is strictly less (a tie keeps ``A``).  Every
-        call but ``tr_mul_chain`` runs a relabeled pack's natural view,
-        whose x and y locality is never better than the unrelabeled
-        pack's, so RCM pays on the card only by storing fewer bytes.  The
-        JAX operator decides by its TPU window estimate instead
+        operator holds: both candidates' packs are built (RCM computed
+        once), and the relabeled ones are kept iff their summed
+        ``memory_bytes()`` is strictly less (a tie keeps ``A``): A's pack
+        for "transposed", all four for "both", and for "forward" the packs
+        of each formulation on their own (A.T's, and A's where the
+        forward products may run on it).  Every call but
+        ``tr_mul_chain`` runs a relabeled pack's natural view, whose x and
+        y locality is never better than the unrelabeled pack's, so RCM
+        pays on the card only by storing fewer bytes.  The JAX operator
+        decides by its TPU window estimate instead
         (``plan.reorder.window_badness``), so the two may differ.  Each
         decision is counted (``utils.trace.reorder_choices``).
         "never"/"always" force it off/on.  The operator carries the
         permutation and applies it at the call boundaries.
+
+        The forward products of an f32 matrix run on the pack
+        :func:`forward_pack` picks (counted by
+        ``utils.trace.forward_choices``): a "forward" operator plans A's
+        pack too (once, when ``A`` equals its transpose and one method
+        plans both) and holds only the pack picked, which runs ``mul``
+        and ``mul_mat``; a "both" operator plans nothing more and picks
+        from the two it holds for ``mul_mat``, its ``mul`` staying on
+        A.T's pack.  A matrix of another dtype keeps A.T's pack.
         """
         with trace.span("from_csc"):
             if directions not in ("both", "transposed", "forward"):
@@ -360,38 +477,41 @@ class VBCOperator(_Directions):
             A = _as_csc(A)
             method = method or default_1d_partitioner(W, A.val.dtype.itemsize)
             method_forward = method_forward or method
+            relabels = A.m == A.n and A.m > 1024  # RCM applies
+            decide = reorder == "auto" and relabels
 
-            def packs(A):
-                host_tr = host_fw = None
-                if directions in ("both", "transposed"):
-                    host_tr = pack_1dvbc(A, pack_stripe(A, method), W)
-                if directions in ("both", "forward"):
-                    with trace.span("plan.transpose"):
-                        At = A.transpose()
-                    host_fw = pack_1dvbc(At, pack_stripe(At, method_forward), W)
-                return host_tr, host_fw
+            def labellings():
+                """(matrix, perm) of each candidate labelling, RCM computed
+                once and after the natural candidates are planned."""
+                if reorder != "always" or not relabels:
+                    yield A, None
+                if reorder != "never" and relabels:
+                    yield rcm_symmetric(A)
 
-            def stored(held):
-                return sum(h.memory_bytes() for h in held if h is not None)
-
-            row_perm = None
-            if reorder == "never" or A.m != A.n or A.m <= 1024:
-                held = packs(A)
-            elif reorder == "always":
-                A, row_perm = rcm_symmetric(A)
-                held = packs(A)
-            else:
-                held = packs(A)
-                Ap, perm = rcm_symmetric(A)
-                held_p = packs(Ap)
-                take = stored(held_p) < stored(held)
-                if take:
-                    held, row_perm = held_p, perm
-                trace.tally("reorder_choices", "rcm" if take else "natural")
-            return VBCOperator.from_host(*held, row_perm, device)
+            # the forward products of an f32 matrix may run on A's pack
+            weigh = directions != "transposed" and A.val.dtype == np.float32
+            holds = {"transposed": [("A",)], "both": [("A", "A.T")],
+                     "forward": [("A.T",), ("A",)] if weigh else [("A.T",)]}[directions]
+            plans = _plan(labellings(), W, method, method_forward, holds)
+            packs, row_perm = plans[0]
+            host_tr = packs["A"] if "A" in holds[0] else None
+            host_fw = packs["A.T"] if "A.T" in holds[0] else None
+            fw_on_a = (weigh and directions == "both"
+                       and forward_pack(host_tr, host_fw) == "A")
+            if weigh and directions == "forward":
+                a_packs, perm_a = plans[1]
+                if forward_pack(a_packs["A"], host_fw) == "A":
+                    host_tr, host_fw, row_perm, fw_on_a = a_packs["A"], None, perm_a, True
+            if decide:
+                trace.tally("reorder_choices", "natural" if row_perm is None else "rcm")
+            if weigh:
+                trace.tally("forward_choices", "A" if fw_on_a else "A.T")
+            return VBCOperator.from_host(host_tr, host_fw, row_perm, device,
+                                         fw_on_a=fw_on_a)
 
     @staticmethod
-    def from_host(host_tr, host_fw, row_perm, device="cuda") -> "VBCOperator":
+    def from_host(host_tr, host_fw, row_perm, device="cuda", *,
+                  fw_on_a: bool = False) -> "VBCOperator":
         """Operator over existing packs (this port's or the JAX package's
         ``VBC1D``): ``host_tr`` packs A, ``host_fw`` packs A.T, either may
         be None; ``row_perm`` is the symmetric relabeling the packs were
@@ -399,10 +519,18 @@ class VBCOperator(_Directions):
         ``perm_t`` (its inverse is ``torch.argsort(perm_t)``).  The
         kernels' formats are copied, in the matrix's own dtype, for a
         dtype that ``_KERNEL_DTYPES`` lists for one of the operator's
-        calls (f32, f64)."""
+        calls (f32, f64).
+
+        ``fw_on_a``: ``mul_mat`` runs the ordered scatter on ``host_tr``
+        (an f32 pack of A), whose maps are built here, on the device; with
+        ``host_fw`` None the operator is a forward one, whose ``mul`` runs
+        there too (its transposed products raise as they do with no
+        ``host_tr``)."""
         with trace.span("plan.upload"):
             device = torch.device(device)
             m, n = _shape_of(host_tr, host_fw)
+            if fw_on_a and (host_tr is None or _dtype_of(host_tr) != torch.float32):
+                raise ValueError("fw_on_a needs an f32 pack of A (host_tr)")
             perm_t = None
             if row_perm is not None:
                 row_perm = np.asarray(row_perm, dtype=np.int64)
@@ -415,22 +543,30 @@ class VBCOperator(_Directions):
                 dtype = _kernel_dtype("1d", host)
                 return None if dtype is None else VBC1DDevice.from_host(host, device, dtype)
 
-            return VBCOperator(
+            op = VBCOperator(
                 m=m, n=n, host_tr=host_tr, host_fw=host_fw, device=device,
                 dev_tr=copy(host_tr), dev_fw=copy(host_fw),
-                row_perm=row_perm, perm_t=perm_t,
+                row_perm=row_perm, perm_t=perm_t, fw_on_a=fw_on_a,
             )
+            if fw_on_a:
+                op.ordered_fw.ordered_maps  # built once, with the copy
+            return op
 
     @property
     def shape(self):
         return (self.m, self.n)
 
     def memory_bytes(self) -> int:
+        """The packs' bytes, and the ordered scatter's maps where the
+        forward products run on A's pack (its row -> blocks map once a
+        call below ``SECTOR_COLUMNS`` columns has built it)."""
         total = 0
         if self.host_tr is not None:
             total += self.host_tr.memory_bytes()
         if self.host_fw is not None:
             total += self.host_fw.memory_bytes()
+        if self.fw_on_a:
+            total += self.ordered_fw.ordered_bytes()
         return total
 
     # ---- compute ---------------------------------------------------------
@@ -441,6 +577,8 @@ class VBCOperator(_Directions):
         operator its natural view (built on first use)."""
         with trace.span("op.route"):
             fmt = self._packed("tr")
+            if self.fw_on_a:
+                return self.ordered_fw  # the same view (built by from_host)
             return fmt if self.perm_t is None else fmt.natural_view(self.perm_t)
 
     @functools.cached_property
@@ -460,8 +598,23 @@ class VBCOperator(_Directions):
             return route_tr_spmv(self.host_tr, self.device, stripe, self.perm_t)
 
     @functools.cached_property
+    def ordered_fw(self) -> VBC1DDevice:
+        """The A pack the ordered scatter runs ``mul``/``mul_mat`` on
+        (:attr:`nat_tr`, natural order; ``fw_on_a`` operators only), its
+        maps built by ``from_host``."""
+        if not self.fw_on_a:
+            raise ValueError("the forward products run on the A.T pack")
+        with trace.span("op.route"):
+            fmt = self._packed("a")
+            return fmt if self.perm_t is None else fmt.natural_view(self.perm_t)
+
+    @functools.cached_property
     def route_fw(self):
-        """``route_tr_spmv`` of the A.T pack (for ``mul``; lazy)."""
+        """``mul``'s route, ``(name, fmt, call)`` (lazy): ``route_tr_spmv``
+        of the A.T pack, or on a ``fw_on_a`` operator that holds none,
+        ``"ordered"``, the ordered scatter on :attr:`ordered_fw`."""
+        if self.fw_on_a and self.host_fw is None:
+            return "ordered", self.ordered_fw, mul_ordered
         stripe = self.nat_fw
         with trace.span("op.route"):
             return route_tr_spmv(self.host_fw, self.device, stripe, self.perm_t)
@@ -475,8 +628,9 @@ class VBCOperator(_Directions):
         return self._apply("tr", x, alpha, beta, y)
 
     def mul(self, x, alpha=None, beta=None, y=None):
-        """y = alpha * (A @ x) + beta * y on the operator's device
-        (scatter-free: the routed kernel on the A.T pack)."""
+        """y = alpha * (A @ x) + beta * y on the operator's device: the
+        routed kernel on the A.T pack, or on a ``fw_on_a`` operator with
+        none the ordered scatter on A's (:attr:`route_fw`)."""
         return self._apply("fw", x, alpha, beta, y)
 
     def tr_mul_chain(self, x, n_iters: int, alpha=None):
@@ -531,6 +685,8 @@ class VBCOperator(_Directions):
         with trace.span(_MAT_SPANS[which]):
             if not self._kernel_takes("mat", X):
                 return self._semiring(semiring.tr_spmm, which, X)
+            if which == "fw" and self.fw_on_a:
+                return mul_ordered(self.ordered_fw, X)
             return tr_spmm(getattr(self, f"nat_{which}"), X)
 
     def tr_mul_mat(self, X):
@@ -539,8 +695,9 @@ class VBCOperator(_Directions):
         return self._apply_mat("tr", X)
 
     def mul_mat(self, X):
-        """Y = A @ X for a dense RHS ``X [n, k]`` on the operator's device
-        (scatter-free: the SpMM kernel on the A.T pack)."""
+        """Y = A @ X for a dense RHS ``X [n, k]`` on the operator's device:
+        the SpMM kernel on the A.T pack, or on a ``fw_on_a`` operator the
+        ordered scatter on A's."""
         return self._apply_mat("fw", X)
 
     # ---- host oracles -----------------------------------------------------

@@ -119,6 +119,11 @@ def load():
                 lib.vbcs_tr_spmv_2d.restype = i32
                 lib.vbcs_tr_spmm.argtypes = [i32, i64, i32, i32, i64, i32, i32] + [vp] * 10
                 lib.vbcs_tr_spmm.restype = i32
+                lib.vbcs_ordered_products.argtypes = [i32, i64, i32, i32, i32] + [
+                    vp] * 9 + [f32, f32, vp, vp, vp]
+                lib.vbcs_ordered_products.restype = i32
+                lib.vbcs_ordered_rows.argtypes = [i32, i64, vp, vp, vp, vp, f32, f32, vp, vp]
+                lib.vbcs_ordered_rows.restype = i32
                 lib.vbcs_gather.argtypes = [i32, vp, vp, vp, vp, vp]
                 lib.vbcs_gather.restype = i32
                 lib.vbcs_gather_tiles.argtypes = [i32, vp, vp, vp, vp]

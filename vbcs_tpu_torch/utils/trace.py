@@ -36,12 +36,15 @@ this module owns the always-on counters, which count whether the tracer
 is on or not, from the process's start, each under one lock: the layers
 above add to them with :func:`tally` and read them with
 :func:`launches_by_map` (the stripe TrSpMV's launches by the thread map
-each took, ``ops/trspmv.py``), :func:`semiring_calls` (the operator calls
-that took the semiring route, by dtype, ``operator.py``) and
+each took, ``ops/trspmv.py``, and the ordered scatter's two launches,
+``ops/ordered.py``), :func:`semiring_calls` (the operator calls that
+took the semiring route, by dtype, ``operator.py``),
 :func:`reorder_choices` (``VBCOperator.from_csc``'s auto-RCM decisions
-by the packs kept).  :func:`launches` sums the ``.launches`` counters of
-the operator's per-call kernels (``ops.CALL_LAUNCHERS``, which ``_lib``'s
-launcher increments): the one read of ``ops`` left here.
+by the packs kept) and :func:`forward_choices` (its choice of the pack
+the forward products run on).  :func:`launches` sums the ``.launches``
+counters of the operator's per-call kernels (``ops.CALL_LAUNCHERS``,
+which ``_lib``'s launcher increments): the one read of ``ops`` left
+here.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ import torch
 
 __all__ = ["enable", "disable", "enabled", "span", "count", "snapshot", "reset",
            "summary", "tally", "launches", "launches_by_map", "semiring_calls",
-           "reorder_choices"]
+           "reorder_choices", "forward_choices"]
 
 _on = False
 _NULL = contextlib.nullcontext()
@@ -68,8 +71,10 @@ _counters: dict = {}
 _count_lock = threading.Lock()
 # the always-on counters (tally), by name: counted whether the tracer is
 # on or not, since the process began; reset() keeps them
-_tallies = {"launches_by_map": {"quad": 0, "staged": 0, "staged_f64": 0},
-            "semiring_calls": {}, "reorder_choices": {"natural": 0, "rcm": 0}}
+_tallies = {"launches_by_map": {"quad": 0, "staged": 0, "staged_f64": 0,
+                                "ordered_products": 0, "ordered_rows": 0},
+            "semiring_calls": {}, "reorder_choices": {"natural": 0, "rcm": 0},
+            "forward_choices": {"A": 0, "A.T": 0}}
 
 _now = time.time_ns
 _profiling = torch.autograd._profiler_enabled
@@ -214,9 +219,11 @@ def launches() -> int:
 def tally(counter: str, key: str) -> None:
     """Add one to ``key`` of the always-on counter ``counter``, whether
     the tracer is on or not: ``"launches_by_map"`` (a stripe TrSpMV
-    launch, by thread map), ``"semiring_calls"`` (an operator call on the
-    semiring route, by its product's dtype) or ``"reorder_choices"`` (an
-    auto-RCM decision, by the packs kept)."""
+    launch, by thread map, or a launch of the ordered scatter),
+    ``"semiring_calls"`` (an operator call on the semiring route, by its
+    product's dtype), ``"reorder_choices"`` (an auto-RCM decision, by the
+    packs kept) or ``"forward_choices"`` (the pack chosen for the forward
+    products)."""
     with _count_lock:
         counts = _tallies[counter]
         counts[key] = counts.get(key, 0) + 1
@@ -231,7 +238,10 @@ def launches_by_map() -> dict:
     """Launches of the stripe TrSpMV kernel since the process began, by
     the thread map the launcher took from the format (``"quad"``, the
     float4 map; ``"staged"``, a run of stripes a block; both f32;
-    ``"staged_f64"``, the staged map in f64)."""
+    ``"staged_f64"``, the staged map in f64), and of the ordered scatter
+    by launch (``"ordered_products"``, a stripe of A's pack a group;
+    ``"ordered_rows"``, the rows of Y with no block or several, or every
+    row below 8 columns)."""
     return _tally_of("launches_by_map")
 
 
@@ -250,3 +260,13 @@ def reorder_choices() -> dict:
     square matrix of more than 1,024 rows (a smaller or non-square one is
     never relabeled, and no decision is made)."""
     return _tally_of("reorder_choices")
+
+
+def forward_choices() -> dict:
+    """``VBCOperator.from_csc``'s choices of the pack the forward products
+    (``mul_mat``, and ``mul`` where no A.T pack is held) run on, since
+    the process began: ``{"A": n, "A.T": n}``, one an f32 operator asked
+    for the forward direction (``"A"``: the ordered scatter on A's pack;
+    ``"A.T"``: the gather on A.T's).  An operator of another dtype keeps
+    A.T's pack unasked."""
+    return _tally_of("forward_choices")
